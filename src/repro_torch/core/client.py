@@ -1,0 +1,143 @@
+"""LOCALUPDATE (paper Algorithm 2), model-agnostic; the port of
+`repro/core/client.py`.
+
+A client is (apply, head): `apply(params, x) -> (features, logits)` and
+`head(params) -> (W, b)` exposing the linear classifier tau_u used by the
+discriminator. The reference's two `lax.scan`s (epochs x batches) are Python
+loops here. `loss_fn` reads no randomness in cors and il modes, so a local
+update is deterministic given the parameters and the teacher.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import losses, prototypes
+from repro_torch.optim import adam_update
+from repro_torch.types import CollabConfig, TrainConfig
+
+
+@dataclass(frozen=True)
+class ClientSpec:
+    apply: Callable  # (params, x) -> (features (B,d'), logits (B,C))
+    head: Callable   # params -> (W (d',C), b (C,) | None)
+
+
+def bucket_key(spec: ClientSpec, params) -> Tuple:
+    """Stackability key of one client: the spec plus every parameter's name,
+    shape and dtype (the reference's pytree structure + leaf shapes)."""
+    return (spec, tuple((k, tuple(p.shape), str(p.dtype))
+                        for k, p in sorted(params.items())))
+
+
+def bucketize(specs: Sequence[ClientSpec],
+              params_list: Sequence) -> List[Tuple[ClientSpec, List[int]]]:
+    """Group clients into stackable buckets: (spec, client-id list) pairs in
+    FIRST-APPEARANCE order, client-id order within a bucket. The sequential
+    trainer uploads in this order (the reference's relay-write order)."""
+    if len(specs) != len(params_list):
+        raise ValueError("one spec per parameter set")
+    buckets: Dict[Tuple, List[int]] = {}
+    for i, (s, p) in enumerate(zip(specs, params_list)):
+        buckets.setdefault(bucket_key(s, p), []).append(i)
+    return [(k[0], ids) for k, ids in buckets.items()]
+
+
+def loss_fn(spec: ClientSpec, params, batch, teacher, ccfg: CollabConfig):
+    """One mini-batch of Algorithm 2's inner loop -> (total, metrics).
+
+    teacher: dict(global_protos (C,d'), valid_g (C,), obs (M,C,d'),
+    valid_o (C,), obs_pick (int: which m to use), mean_logits (C,C))."""
+    x, y = batch["x"], batch["y"]
+    feats, logits = spec.apply(params, x)
+    l_ce = losses.ce_loss(logits, y)
+    metrics = {"ce": l_ce}
+    total = l_ce
+    if ccfg.mode == "cors":
+        w, b = spec.head(params)
+        l_kd = losses.kd_loss(feats, teacher["global_protos"], y,
+                              valid=teacher["valid_g"])
+        obs_m = teacher["obs"][int(teacher.get("obs_pick", 0))]   # (C, d')
+        l_disc = losses.disc_loss(feats, obs_m, y, w, b,
+                                  valid=teacher["valid_o"],
+                                  student_logits=logits)
+        total = total + ccfg.lambda_kd * l_kd + ccfg.lambda_disc * l_disc
+        metrics.update(kd=l_kd, disc=l_disc,
+                       mi_bound=losses.mi_lower_bound(
+                           l_disc, ccfg.num_classes - 1))
+    elif ccfg.mode != "il":
+        raise NotImplementedError(
+            f"mode {ccfg.mode!r}: the port runs cors and il; fd and fedavg "
+            "come with the next modes of the sequential engine (ROADMAP, "
+            "queue 1)")
+    metrics["total"] = total
+    return total, metrics
+
+
+def empty_teacher(ccfg: CollabConfig, device) -> Dict:
+    """A no-op teacher (IL mode), with the keys and shapes of
+    `relay.flat.sample_teacher`'s."""
+    C, d = ccfg.num_classes, ccfg.d_feature
+    return {"global_protos": torch.zeros(C, d, device=device),
+            "valid_g": torch.zeros(C, dtype=torch.bool, device=device),
+            "obs": torch.zeros(max(1, ccfg.m_down), C, d, device=device),
+            "valid_o": torch.zeros(C, dtype=torch.bool, device=device),
+            "obs_pick": 0,
+            "mean_logits": torch.zeros(C, C, device=device)}
+
+
+def make_local_update_fn(spec: ClientSpec, ccfg: CollabConfig,
+                         tcfg: TrainConfig):
+    """fn(params, opt_state, batches, teacher) -> (params, opt_state,
+    metrics). `batches` = {"x": (n_batches, bs, ...), "y": (n_batches, bs)},
+    run for E local epochs (Algorithm 2). Metrics are those of the last
+    batch, as 0-d tensors, with the step's global gradient norm."""
+
+    def run(params, opt_state, batches, teacher):
+        n = batches["y"].shape[0]
+        keys = sorted(params)
+        metrics = zero_metrics(ccfg)
+        for _ in range(tcfg.local_epochs):
+            for j in range(n):
+                p = {k: v.detach().requires_grad_(True)
+                     for k, v in params.items()}
+                total, metrics = loss_fn(
+                    spec, p, {"x": batches["x"][j], "y": batches["y"][j]},
+                    teacher, ccfg)
+                grads = dict(zip(keys, torch.autograd.grad(
+                    total, [p[k] for k in keys])))
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                metrics["grad_norm"] = torch.sqrt(sum(
+                    torch.sum(torch.square(grads[k])) for k in keys))
+                params, opt_state = adam_update(
+                    params, grads, opt_state, lr=tcfg.learning_rate,
+                    b1=tcfg.beta1, b2=tcfg.beta2, eps=tcfg.eps)
+        return params, opt_state, metrics
+
+    return run
+
+
+def zero_metrics(ccfg: CollabConfig) -> Dict:
+    """The metrics record of a client that ran no step: all-zero floats with
+    exactly the keys `loss_fn` emits for this mode."""
+    m = {"ce": 0.0, "total": 0.0, "grad_norm": 0.0}
+    if ccfg.mode == "cors":
+        m.update(kd=0.0, disc=0.0, mi_bound=0.0)
+    return m
+
+
+@torch.no_grad()
+def compute_uploads(spec: ClientSpec, params, data_x, data_y,
+                    ccfg: CollabConfig, prio) -> Dict:
+    """End-of-round uploads (Algorithm 1): the client's per-class sums (for
+    t-bar) and M_up observations (for the L_disc buffers). prio (m_up, n):
+    the observation draw's priorities (see `prototypes.observations`)."""
+    feats, _ = spec.apply(params, data_x)
+    state = prototypes.accumulate(
+        prototypes.init_state(ccfg.num_classes, feats.shape[-1],
+                              feats.device), feats, data_y)
+    obs, valid = prototypes.observations(prio, feats, data_y,
+                                         ccfg.num_classes, ccfg.n_avg)
+    return {"proto": state, "obs": obs, "valid": valid}

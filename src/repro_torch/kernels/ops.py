@@ -1,0 +1,175 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+A CPU tensor goes to the plain version in `ref.py`. A CUDA tensor goes to the
+kernel, or the call raises: there is no fallback to plain on the card. Each
+kernel wrapper adds one to its entry of `LAUNCHES` where it launches, and
+nowhere else, so a run can show that its main path went through the kernels.
+Outputs and scratch are allocated here; kernels run on the current stream.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES: Dict[str, int] = {"disc_loss_fwd": 0, "disc_loss_bwd": 0,
+                            "proto_accum": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*tensors) -> bool:
+    """True if every tensor is on the card, False if every one is on the
+    CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        devs = {t.device for t in tensors if t is not None}
+        if len(devs) > 1:
+            raise ValueError(f"tensors on several CUDA devices: {devs}")
+        return True
+    raise ValueError(f"tensors must all be on the CPU or all on one CUDA "
+                     f"device; got {sorted(kinds)}")
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _valid_f32(valid, M: int, like: torch.Tensor) -> torch.Tensor:
+    if valid is not None and valid.shape != (M,):
+        raise ValueError(f"valid must have shape ({M},), got {tuple(valid.shape)}")
+    return ref.valid_f32(valid, M, like.device).contiguous()
+
+
+def _labels_i32(labels, n: int) -> torch.Tensor:
+    if labels.shape != (n,):
+        raise ValueError(f"labels must have shape ({n},), got {tuple(labels.shape)}")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"labels must be int32 or int64, got {labels.dtype}")
+    return labels.to(torch.int32).contiguous()
+
+
+# -- disc_loss ----------------------------------------------------------------
+def _disc_shapes(s, q):
+    if s.dim() != 2 or q.dim() != 2 or s.shape[1] != q.shape[1]:
+        raise ValueError(f"need s (B, C) and q (M, C); got {tuple(s.shape)} "
+                         f"and {tuple(q.shape)}")
+    if s.dtype != torch.float32 or q.dtype != torch.float32:
+        raise ValueError("disc_loss takes float32 s and q")
+    return s.shape[0], s.shape[1], q.shape[0]
+
+
+def disc_loss_fwd(s, q, labels, valid=None):
+    """-> loss (B,), row_max (B,), log_z (B,), h_raw (B, M); see
+    `ref.disc_loss_fwd`."""
+    if not _on_cuda(s, q, labels, valid):
+        return ref.disc_loss_fwd(s, q, labels, valid)
+    B, C, M = _disc_shapes(s, q)
+    L = build.lib("disc_loss")
+    if M > L.disc_loss_max_m():
+        raise ValueError(f"disc_loss kernel takes M <= {L.disc_loss_max_m()}, "
+                         f"got {M}")
+    s, q = s.contiguous(), q.contiguous()
+    lab = _labels_i32(labels, B)
+    v = _valid_f32(valid, M, s)
+    loss = torch.empty(B, dtype=torch.float32, device=s.device)
+    row_max = torch.empty_like(loss)
+    log_z = torch.empty_like(loss)
+    h_raw = torch.empty(B, M, dtype=torch.float32, device=s.device)
+    if B:
+        _check(L.disc_loss_fwd(s.data_ptr(), q.data_ptr(), lab.data_ptr(),
+                               v.data_ptr(), loss.data_ptr(), row_max.data_ptr(),
+                               log_z.data_ptr(), h_raw.data_ptr(), B, C, M,
+                               _stream()), "disc_loss_fwd")
+        LAUNCHES["disc_loss_fwd"] += 1
+    return loss, row_max, log_z, h_raw
+
+
+def disc_loss_bwd(g, s, q, labels, valid, row_max, log_z, h_raw):
+    """-> (ds (B, C), dq (M, C)); see `ref.disc_loss_bwd`."""
+    if not _on_cuda(g, s, q, labels, valid, row_max, log_z, h_raw):
+        return ref.disc_loss_bwd(g, s, q, labels, valid, row_max, log_z, h_raw)
+    B, C, M = _disc_shapes(s, q)
+    if g.shape != (B,) or h_raw.shape != (B, M):
+        raise ValueError("g must be (B,) and h_raw (B, M)")
+    L = build.lib("disc_loss")
+    s, q = s.contiguous(), q.contiguous()
+    g = g.to(torch.float32).contiguous()
+    lab = _labels_i32(labels, B)
+    v = _valid_f32(valid, M, s)
+    G = torch.empty(B, M, dtype=torch.float32, device=s.device)   # scratch
+    ds = torch.empty_like(s)
+    dq = torch.empty_like(q) if B else torch.zeros_like(q)
+    if B:
+        _check(L.disc_loss_bwd(g.data_ptr(), s.data_ptr(), q.data_ptr(),
+                               lab.data_ptr(), v.data_ptr(),
+                               row_max.contiguous().data_ptr(),
+                               log_z.contiguous().data_ptr(),
+                               h_raw.contiguous().data_ptr(), G.data_ptr(),
+                               ds.data_ptr(), dq.data_ptr(), B, C, M,
+                               _stream()), "disc_loss_bwd")
+        LAUNCHES["disc_loss_bwd"] += 1
+    return ds, dq
+
+
+class DiscLoss(torch.autograd.Function):
+    """Per-sample L_disc with its gradient in s and q: the forward kernel,
+    then the backward kernel (their plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, s, q, labels, valid):
+        loss, row_max, log_z, h_raw = disc_loss_fwd(s, q, labels, valid)
+        ctx.save_for_backward(s, q, labels, valid, row_max, log_z, h_raw)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        ds, dq = disc_loss_bwd(g, *ctx.saved_tensors)
+        return ds, dq, None, None
+
+
+def disc_loss(student_logits, teacher_probs, labels,
+              valid: Optional[torch.Tensor] = None):
+    """Differentiable per-sample loss (B,); `ref.disc_loss`'s contract."""
+    return DiscLoss.apply(student_logits.float(), teacher_probs.float(),
+                          labels, valid)
+
+
+# -- proto_accum --------------------------------------------------------------
+def proto_accum(features, labels, num_classes: int):
+    """features (n, d) f32 or bf16; labels (n,) int -> (sums (C, d) f32,
+    counts (C,) f32). Labels outside [0, C) contribute nothing."""
+    if not _on_cuda(features, labels):
+        return ref.proto_accum(features, labels, num_classes)
+    if features.dim() != 2:
+        raise ValueError(f"features must be (n, d), got {tuple(features.shape)}")
+    n, d = features.shape
+    C = int(num_classes)
+    if C < 1 or d < 1:
+        raise ValueError(f"proto_accum needs C >= 1 and d >= 1, got {C}, {d}")
+    fn = {torch.float32: "proto_accum_f32",
+          torch.bfloat16: "proto_accum_bf16"}.get(features.dtype)
+    if fn is None:
+        raise ValueError(f"proto_accum takes float32 or bfloat16 features, "
+                         f"got {features.dtype}")
+    L = build.lib("proto_accum")
+    f = features.contiguous()
+    lab = _labels_i32(labels, n)
+    sums = torch.empty(C, d, dtype=torch.float32, device=f.device)
+    counts = torch.empty(C, dtype=torch.float32, device=f.device)
+    _check(getattr(L, fn)(f.data_ptr(), lab.data_ptr(), sums.data_ptr(),
+                          counts.data_ptr(), n, d, C, _stream()), "proto_accum")
+    LAUNCHES["proto_accum"] += 1
+    return sums, counts

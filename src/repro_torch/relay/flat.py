@@ -1,0 +1,139 @@
+"""Flat ring relay, one global ring with uniform with-replacement sampling;
+the port of `repro/relay/flat.py`.
+
+A single (cap, C, d') observation ring with per-slot validity, owner and
+birth stamp, sampled uniformly over other clients' slots. The state is a
+NamedTuple of tensors on one device; every function returns a new state and
+leaves its input untouched, as the reference's pure functions do.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import prototypes
+from repro_torch.device import resolve_device
+from repro_torch.relay import base
+from repro_torch.relay.base import EMPTY_OWNER, SEED_OWNER, default_capacity
+from repro_torch.types import CollabConfig
+
+
+class RelayState(NamedTuple):
+    """obs (cap, C, d') f32, valid (cap, C) bool, owner (cap,) int32,
+    ptr () int32, global_protos (C, d') f32, valid_g (C,) bool,
+    mean_logits (C, C) f32, stamp (cap,) int32 (birth clock of the slot),
+    clock () int32 (merges performed)."""
+    obs: torch.Tensor
+    valid: torch.Tensor
+    owner: torch.Tensor
+    ptr: torch.Tensor
+    global_protos: torch.Tensor
+    valid_g: torch.Tensor
+    mean_logits: torch.Tensor
+    stamp: torch.Tensor
+    clock: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.obs.shape[0]
+
+
+def init_relay_state(ccfg: CollabConfig, d_feature: int, seed: int = 0,
+                     capacity: Optional[int] = None, n_clients: int = 2,
+                     device=None) -> RelayState:
+    """Paper Algorithm 1: random initial prototypes and seed observations,
+    drawn with numpy exactly as the reference does, so the initial ring is
+    bit-equal to `repro.relay.flat.init_relay_state`'s."""
+    device = resolve_device(device)
+    C = ccfg.num_classes
+    cap = default_capacity(ccfg, n_clients) if capacity is None else capacity
+    if cap <= 0:
+        raise ValueError("relay buffer capacity must be positive")
+    n_seed = min(cap, max(1, ccfg.m_down))
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(C, d_feature)).astype(np.float32) * 0.01
+    obs = np.zeros((cap, C, d_feature), np.float32)
+    obs[:n_seed] = rng.normal(size=(n_seed, C, d_feature)).astype(np.float32) * 0.01
+    valid = np.zeros((cap, C), bool)
+    valid[:n_seed] = True
+    owner = np.full((cap,), EMPTY_OWNER, np.int32)
+    owner[:n_seed] = SEED_OWNER
+    t = lambda a: torch.from_numpy(a).to(device)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    return RelayState(obs=t(obs), valid=t(valid), owner=t(owner),
+                      ptr=i32(n_seed % cap), global_protos=t(protos),
+                      valid_g=torch.ones(C, dtype=torch.bool, device=device),
+                      mean_logits=torch.zeros(C, C, device=device),
+                      stamp=torch.zeros(cap, dtype=torch.int32, device=device),
+                      clock=i32(0))
+
+
+def buffer_append(state: RelayState, obs_rows, valid_rows, owner_rows,
+                  row_mask=None, stamp_rows=None) -> RelayState:
+    """Write k observation rows into the ring (oldest-first overwrite).
+
+    obs_rows (k, C, d'), valid_rows (k, C), owner_rows (k,) int,
+    row_mask (k,) bool or None: rows with row_mask False are dropped without
+    consuming a ring slot. stamp_rows (k,) int or None (= born now). At most
+    `capacity` rows may be masked in."""
+    k = obs_rows.shape[0]
+    idx, new_ptr = base.ring_indices(state.ptr, k, state.capacity, row_mask)
+    stamps = base.stamps_or_now(state, k, stamp_rows)
+    keep = idx < state.capacity
+    idx = idx[keep].long()
+
+    def put(buf, rows):
+        out = buf.clone()
+        out[idx] = rows[keep].to(buf.dtype)
+        return out
+
+    return state._replace(obs=put(state.obs, obs_rows.float()),
+                          valid=put(state.valid, valid_rows),
+                          owner=put(state.owner, owner_rows),
+                          stamp=put(state.stamp, stamps), ptr=new_ptr)
+
+
+def merge_round(state: RelayState, proto: prototypes.ProtoState) -> RelayState:
+    """Inter-client aggregation (Alg. 1): recompute t-bar^c from the merged
+    per-class sums and tick the clock."""
+    return base.merge_protos(state, proto)
+
+
+def gumbel(m_down: int, cap: int, generator: Optional[torch.Generator] = None):
+    """Standard Gumbel noise (m_down, cap) f32 on the CPU."""
+    u = torch.rand(m_down, cap, generator=generator)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+
+
+def sample_teacher(state: RelayState, client_id: int, m_down: int,
+                   noise=None, obs_pick: int = 0) -> Dict:
+    """Observations of OTHER users, chosen at random (paper section 4).
+
+    Uniform with-replacement sampling over the ring slots not owned by
+    `client_id`, as argmax(where(pool, 0, -inf) + noise) with Gumbel noise
+    (m_down, cap): the form `jax.random.categorical` takes, so the
+    reference's own noise reproduces its indices. Falls back to the whole
+    filled buffer when every slot is the client's own, and to a zero,
+    invalid teacher when the buffer is empty. `obs_pick` picks which of the
+    m_down observations the loss uses."""
+    cap = state.capacity
+    dev = state.obs.device
+    if noise is None:
+        noise = gumbel(m_down, cap)
+    noise = noise.to(dev, torch.float32)
+    usable = state.owner != EMPTY_OWNER
+    others = usable & (state.owner != int(client_id))
+    pool = torch.where(others.any(), others, usable)
+    any_pool = pool.any()
+    scores = torch.where(pool[None, :], noise,
+                         torch.tensor(float("-inf"), device=dev))
+    idx = torch.where(any_pool, scores.argmax(-1), 0)                 # (M,)
+    obs = torch.where(any_pool, state.obs[idx], 0.0)                  # (M, C, d')
+    valid_o = torch.where(any_pool, state.valid[idx].all(0), False)
+    return {"global_protos": state.global_protos,
+            "valid_g": state.valid_g,
+            "obs": obs, "valid_o": valid_o,
+            "obs_pick": int(obs_pick),
+            "mean_logits": state.mean_logits}
