@@ -8,17 +8,28 @@ Phases (each failure raises, so the process exits non-zero):
   2. build: compiles the hand-written kernels (`kernels/csrc/*.cu`);
   3. precision: TF32 off for cuDNN convolutions and matmuls;
   4. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes and larger ones, with times, the bound from
+     the main paths' shapes and larger ones, with times, the bound from
      bytes and operations, and a library call's time where one PyTorch call
      computes the same function;
   5. slice: 3 synchronous CoRS rounds of 5 LeNet clients (the example's data
      sizes) on the card, with the kernels' launch counts asserted, then the
      same 3 rounds on the CPU: ring state and ledger equal, accuracies close;
   6. profile: one more round under torch.profiler (device busy share, time by
-     kernel).
+     kernel);
+  7. serve: full-width TinyLlama-1.1B (22 layers, bf16, random weights from
+     seed 0) prefills 4 prompts of 1024 tokens and decodes 32 greedy tokens
+     through `repro_torch.serve_lm.serve`; 22 flash_attention launches
+     asserted, logits finite;
+  8. serve check: the same width in float32 with 256-token prompts: prefill
+     logits of the kernel path against the plain attention, and one decode
+     step after a prefill of S-1 tokens against the prefill of S;
+  9. serve profile: one prefill and 4 decode steps under torch.profiler
+     (device busy share, flash_attention's device time per launch and its
+     share of the prefill's device time).
 It prints a JSON line of per-kernel results before the last line, and as the
 last line {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import math
 import re
@@ -34,9 +45,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 MEM_BPS = 3.35e12          # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor cores
 TOL = 1e-5                 # max |kernel - plain| <= TOL * max(1, max |plain|)
 ROUNDS, CLIENTS = 3, 5
 STEPS = 7                  # 240 samples a client / batch 32, remainder dropped
+# flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
+# first, then tests/test_kernels.py's and a ragged one. Tolerance as there:
+FLASH_SHAPES = ((4, 1024, 32, 4, 64), (2, 128, 4, 2, 64), (1, 256, 8, 8, 128),
+                (2, 128, 4, 1, 32), (2, 100, 4, 2, 64))
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 32
+CHECK_PROMPT = 256
+# float32 serving check: |kernel path - plain| <= CHECK_TOL * max(1, |plain|)
+# over the last position's logits: 22 layers of float32 products summed in
+# another order (the same bound for decode against prefill).
+CHECK_TOL = 1e-3
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -54,19 +77,19 @@ def time_ms(fn, reps=50, warmup=5):
     return t0.elapsed_time(t1) / reps
 
 
-def bound_ms(nbytes, flops):
-    t_b, t_o = nbytes / MEM_BPS * 1e3, flops / F32_FLOPS * 1e3
+def bound_ms(nbytes, flops, peak=F32_FLOPS):
+    t_b, t_o = nbytes / MEM_BPS * 1e3, flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def max_err(got, want, what):
+def max_err(got, want, what, tol=TOL):
     """Largest |got - want| over the outputs; raises past the tolerance."""
     worst = 0.0
     for a, b in zip(got, want):
         e = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
         scale = max(1.0, float(b.float().abs().max()) if b.numel() else 0.0)
-        if not e <= TOL * scale:
-            raise AssertionError(f"{what}: max error {e:.3e} > {TOL} x {scale:.3e}")
+        if not e <= tol * scale:
+            raise AssertionError(f"{what}: max error {e:.3e} > {tol} x {scale:.3e}")
         worst = max(worst, e)
     return worst
 
@@ -162,10 +185,46 @@ def check_proto(n, d, C, dtype, dev, gen):
     return r
 
 
+def check_flash(B, S, H, G, hd, dtype, causal, dev, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    q = torch.randn(B, S, H, hd, generator=gen).to(dtype).to(dev)
+    k = torch.randn(B, S, G, hd, generator=gen).to(dtype).to(dev)
+    v = torch.randn(B, S, G, hd, generator=gen).to(dtype).to(dev)
+    tag = (f"flash_attention ({B}, {S}, {H}, {G}, {hd}) "
+           f"{str(dtype).split('.')[-1]} {'causal' if causal else 'full'}")
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    err = max_err([out], [ref.flash_attention(q, k, v, causal=causal)], tag,
+                  tol)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    reps = 20 if S >= 1024 else 50
+    r = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                        reps),
+             plain_ms=time_ms(lambda: ref.flash_attention(q, k, v,
+                                                          causal=causal), reps),
+             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal, enable_gqa=True), reps),
+             max_abs_err=err)
+    # q and k/v read once, the output written once; 4 B H S S hd operations
+    # (two products), half of them unmasked when causal
+    flops = 4 * B * H * S * S * hd / (2 if causal else 1)
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        (2 * B * S * H + 2 * B * S * G) * hd * q.element_size(), flops,
+        BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    print(f"[kernels] {tag}: max_abs_err {err:.3e} (tol {tol} x max(1, "
+          f"|plain|)) kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+          f"library_ms {r['library_ms']:.4f} (scaled_dot_product_attention) "
+          f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    return r
+
+
 def phase_kernels(dev):
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(0)
-    res = {"disc_loss_fwd": [], "disc_loss_bwd": [], "proto_accum": []}
+    res = {"disc_loss_fwd": [], "disc_loss_bwd": [], "proto_accum": [],
+           "flash_attention": []}
     for B, C, M in ((32, 10, 10), (320, 10, 10), (2048, 4096, 256)):
         for with_valid in (False, True):
             fwd, bwd = check_disc(B, C, M, with_valid, dev, gen)
@@ -183,6 +242,13 @@ def phase_kernels(dev):
     from repro_torch.kernels import ref
     max_err(ops.proto_accum(f, lab, 300), ref.proto_accum(f, lab, 300),
             "proto_accum out-of-range labels")
+    for B, S, H, G, hd in FLASH_SHAPES:        # the main path's row first
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                r = check_flash(B, S, H, G, hd, dtype, causal, dev, gen)
+                res["flash_attention"].append(dict(
+                    r, shape=[B, S, H, G, hd, str(dtype).split(".")[-1],
+                              "causal" if causal else "full"]))
     return res
 
 
@@ -203,7 +269,7 @@ def phase_slice(dev):
     print(f"[slice] launches {launches}; seconds per round {secs}")
     want = {"disc_loss_fwd": CLIENTS * STEPS * ROUNDS,
             "disc_loss_bwd": CLIENTS * STEPS * ROUNDS,
-            "proto_accum": CLIENTS * ROUNDS}
+            "proto_accum": CLIENTS * ROUNDS, "flash_attention": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     for h in gpu.history:
@@ -232,33 +298,170 @@ def phase_slice(dev):
     return gpu, launches, secs
 
 
-def phase_profile(gpu):
-    """One more round under torch.profiler: device busy share and the
-    device time by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(fn):
+    """fn() under torch.profiler -> (host wall s, the device events of
+    key_averages())."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gpu.run_round()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ev = [e for e in prof.key_averages()
           if getattr(e, "device_type", None) is not None
           and str(e.device_type).endswith("CUDA")]
+    return wall, ev
+
+
+def report_profile(tag, wall, ev, top=12):
+    """Prints busy share and the top kernels; returns busy us and, for each
+    LAUNCHES key of the port, (launches, device us) of its kernels."""
+    from repro_torch.kernels import ops
     busy_us = sum(e.self_device_time_total for e in ev)
-    print(f"[profile] round wall {wall * 1e3:.1f} ms, device busy "
+    print(f"[{tag}] wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}%), "
           f"{sum(e.count for e in ev)} device ops")
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:12]
-    for e in top:
-        print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:5d}  {e.key[:90]}")
-    for e in ev:
-        hit = re.search(r"(disc_\w+|proto_accum_kernel<\w+>)", e.key)
-        if hit:
-            print(f"[profile] port kernel {hit.group(1)}: x{e.count}, "
-                  f"{e.self_device_time_total / e.count:.2f} us device time "
-                  f"per launch")
+    port = {}
+    for name in ops.LAUNCHES:
+        pat = re.compile(r"\b(" + "|".join(ops.KERNEL_SYMBOLS[name]) + r")\b")
+        hits = [e for e in ev if pat.search(e.key)]
+        if hits:
+            n = sum(e.count for e in hits)
+            us = sum(e.self_device_time_total for e in hits)
+            port[name] = (n, us)
+            print(f"[{tag}] port kernel {name}: x{n}, {us / n:.2f} us device "
+                  f"time per launch")
+    return busy_us, port
+
+
+def phase_profile(gpu):
+    """One more round under torch.profiler: device busy share and the
+    device time by kernel name."""
+    wall, ev = profile(gpu.run_round)
+    report_profile("profile", wall, ev)
+
+
+def phase_serve(dev):
+    """Full-width TinyLlama-1.1B in bf16 through the serving twin."""
+    from repro_torch import serve_lm
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    cfg = get_arch("tinyllama-1.1b")
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    prompts = serve_lm.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"H={cfg.num_heads} G={cfg.num_kv_heads} {cfg.dtype}, {n_par / 1e9:.3f}"
+          f" B parameters, set up in {time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        serve_lm.serve(params, cfg, prompts, 2)          # warm-up
+        ops.reset_launches()
+        r = serve_lm.serve(params, cfg, prompts, SERVE_TOKENS)
+        launches = dict(ops.LAUNCHES)
+    print(f"[serve] launches {launches}")
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": 0,
+            "flash_attention": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"serving launch counts {launches} != {want}")
+    if not bool(torch.isfinite(r["logits"]).all()):
+        raise AssertionError("non-finite serving logits")
+    if r["ids"].shape != (SERVE_BATCH, SERVE_TOKENS):
+        raise AssertionError(f"generated ids of shape {tuple(r['ids'].shape)}")
+    n = SERVE_BATCH * SERVE_TOKENS
+    print(f"[serve] prefill {SERVE_BATCH}x{SERVE_PROMPT} tokens: "
+          f"{r['prefill_s'] * 1e3:.2f} ms; decode {SERVE_TOKENS} steps x batch "
+          f"{SERVE_BATCH}: {r['decode_s'] * 1e3:.2f} ms "
+          f"({r['decode_s'] * 1e3 / SERVE_TOKENS:.3f} ms/step, "
+          f"{n / r['decode_s']:.1f} tok/s); ids[0][:8] {r['ids'][0][:8].tolist()}")
+    return cfg, params, prompts, launches, r
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def phase_serve_check(dev):
+    """Float32 full width: the kernel path against the plain attention, and
+    decode against prefill."""
+    from repro_torch import serve_lm
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+    from repro_torch.nn import attention
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), dtype="float32")
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    toks = torch.as_tensor(serve_lm.make_prompts(cfg, SERVE_BATCH,
+                                                 CHECK_PROMPT), device=dev)
+    with torch.inference_mode():
+        kern = lm.forward(params, cfg, {"tokens": toks},
+                          mode="prefill")["logits"][:, -1]
+        with attention.prefill_attention(ref.flash_attention):
+            plain = lm.forward(params, cfg, {"tokens": toks},
+                               mode="prefill")["logits"][:, -1]
+        pre = lm.forward(params, cfg, {"tokens": toks[:, :-1]}, mode="prefill")
+        dec = lm.decode_step(params, cfg, {"tokens": toks[:, -1:]},
+                             lm.pad_cache_for_decode(cfg, pre["caches"]))
+    scale = max(1.0, float(plain.abs().max()))
+    e_k = float((kern - plain).abs().max())
+    e_d = float((dec["logits"][:, 0] - kern).abs().max())
+    print(f"[check] float32 full width, {SERVE_BATCH}x{CHECK_PROMPT} tokens: "
+          f"max |kernel path - plain attention| {e_k:.3e}, max |decode - "
+          f"prefill| {e_d:.3e} at the last position, max |logit| {scale:.3e} "
+          f"(tol {CHECK_TOL} x max(1, |logit|))")
+    for what, e in (("kernel path vs plain", e_k), ("decode vs prefill", e_d)):
+        if not e <= CHECK_TOL * scale:
+            raise AssertionError(f"{what}: {e:.3e} > {CHECK_TOL} x {scale:.3e}")
+    if not bool(torch.isfinite(kern).all()):
+        raise AssertionError("non-finite float32 logits")
+    return e_k, e_d
+
+
+def phase_serve_profile(cfg, params, prompts):
+    """One prefill, then 4 decode steps, each under torch.profiler."""
+    from repro_torch import serve_lm
+    from repro_torch.launch import serve
+    dev = params["final_norm"]["scale"].device
+    toks = torch.as_tensor(prompts, device=dev)
+    prefill = serve.make_prefill_step(cfg)
+    decode = serve.make_decode_step(cfg)
+    state = {}
+    with torch.inference_mode():
+        def run_prefill():
+            out = prefill(params, {"tokens": toks})
+            state["caches"] = serve_lm._grow_caches(cfg, out["caches"], 4)
+            state["nxt"] = out["logits"][:, -1].argmax(-1)[:, None]
+        wall, ev = profile(run_prefill)
+        busy, port = report_profile("serve profile prefill", wall, ev)
+        n, us = port["flash_attention"]
+        print(f"[serve profile prefill] flash_attention: {us / n:.2f} us per "
+              f"launch, {100 * us / busy:.1f}% of the prefill's device time")
+
+        def run_decode():
+            nxt = state["nxt"]
+            for i in range(4):
+                out = decode(params, {"tokens": nxt}, state["caches"],
+                             cache_index=toks.shape[1] + i, masked=True)
+                nxt = out["logits"][:, -1].argmax(-1)[:, None]
+        wall_d, ev_d = profile(run_decode)
+        busy_d, _ = report_profile("serve profile decode x4", wall_d, ev_d,
+                                   top=8)
+        print(f"[serve profile decode x4] {sum(e.count for e in ev_d) / 4:.0f}"
+              f" device ops and {wall_d / 4 * 1e3:.2f} ms a step")
+    return {"flash_device_us": us / n, "flash_share": us / busy,
+            "prefill_busy": busy / 1e6 / wall, "decode_busy": busy_d / 1e6 / wall_d}
 
 
 def main():
@@ -269,12 +472,21 @@ def main():
     res = phase_kernels(dev)
     gpu, launches, _ = phase_slice(dev)
     phase_profile(gpu)
+    del gpu
+    cfg, params, prompts, serve_launches, _ = phase_serve(dev)
+    prof = phase_serve_profile(cfg, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_check(dev)
+    launches["flash_attention"] = serve_launches["flash_attention"]
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
         "disc_loss_fwd": (src + "disc_loss.cu", "src/repro/kernels/disc_loss.py:30"),
         "disc_loss_bwd": (src + "disc_loss.cu", "src/repro/kernels/disc_loss.py:30"),
         "proto_accum": (src + "proto_accum.cu", "src/repro/kernels/proto_accum.py:22"),
+        "flash_attention": (src + "flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:25"),
     }
     kernels = []
     for name, rows in res.items():
@@ -287,6 +499,8 @@ def main():
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
             "shapes": rows})
+    kernels[-1]["device_us_per_launch"] = prof["flash_device_us"]
+    kernels[-1]["share_of_prefill_device_time"] = prof["flash_share"]
     print(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
 """Parameter conversion between the reference's layout and the port's.
 
-The reference's parameters travel as a dict of numpy arrays (for example
-`{k: np.asarray(v) for k, v in jax_params.items()}`), so this module needs
-neither JAX nor the reference package. The only layout change is the conv
-weights: HWIO in the reference (`repro/models/cnn.py:26-44`), OIHW in the
-port. Dense weights keep their (in, out) layout, and the LeNet flattens its
-pooled activation in NHWC order (`models/cnn.py`), so `fc1` is copied as is.
+The reference's parameters travel as numpy arrays (for example
+`{k: np.asarray(v) for k, v in jax_params.items()}`, or `jax.tree.map`
+of `np.asarray` over an LM pytree), so this module needs neither JAX nor
+the reference package. The only layout change of the image models is the
+conv weights: HWIO in the reference (`repro/models/cnn.py:26-44`), OIHW in
+the port. Dense weights keep their (in, out) layout, and the LeNet flattens
+its pooled activation in NHWC order (`models/cnn.py`), so `fc1` is copied as
+is. An LM's stacked segments are split into per-layer dicts.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -46,4 +48,44 @@ def params_to_numpy(params: Dict[str, torch.Tensor],
         if k in _CONV[kind]:
             a = a.transpose(2, 3, 1, 0)                      # OIHW -> HWIO
         out[k] = np.ascontiguousarray(a)
+    return out
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """numpy array -> tensor of the same dtype (bfloat16 arrays, which numpy
+    knows only through an extension dtype, by their bits)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The reference's `lm.init_lm` pytree, its leaves as numpy arrays ->
+    the port's LM parameters (`models/lm.py`) on `device`, same dtypes.
+
+    `segments[i]` is a dict of leaves stacked on a leading layer axis in the
+    reference; here it becomes a list of per-layer dicts. Dense weights keep
+    the reference's (in, out) layout (the port multiplies `x @ w`), so no
+    leaf is transposed."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if k == "segments":
+            segs = []
+            for seg in v:
+                n = len(np.asarray(seg["norm1"]["scale"]))
+                segs.append([_map(seg, lambda a, i=i: _tensor(np.asarray(a)[i],
+                                                               dev))
+                             for i in range(n)])
+            out[k] = segs
+        else:
+            out[k] = _map(v, lambda a: _tensor(a, dev))
     return out

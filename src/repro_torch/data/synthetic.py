@@ -1,5 +1,6 @@
-"""Synthetic class-conditional images: a numpy copy of the reference's
-`repro/data/synthetic.py:class_images`, bit-equal for the same arguments."""
+"""Synthetic data: numpy copies of the reference's
+`repro/data/synthetic.py:class_images` and `token_stream`, bit-equal for
+the same arguments."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -44,3 +45,23 @@ def class_images(n: int, *, num_classes: int = 10, image: int = 28,
         img = img * rng.uniform(0.8, 1.2) + rng.normal(0, noise, (image, image))
         xs[i, :, :, 0] = img
     return np.clip(xs, -2, 2).astype(np.float32), y
+
+
+def token_stream(n_tokens: int, *, vocab: int = 512, order: int = 2,
+                 seed: int = 0) -> np.ndarray:
+    """Markov token stream: learnable structure (per-context peaked
+    next-token distributions)."""
+    rng = np.random.default_rng(seed)
+    # sparse transition structure: each context maps to 4 likely tokens
+    n_ctx = 4096
+    ctx_next = rng.integers(0, vocab, size=(n_ctx, 4))
+    toks = np.zeros(n_tokens, np.int32)
+    toks[:order] = rng.integers(0, vocab, order)
+    h = 0
+    for i in range(order, n_tokens):
+        h = (h * 31 + int(toks[i - 1])) % n_ctx
+        if rng.random() < 0.8:
+            toks[i] = ctx_next[h, rng.integers(4)]
+        else:
+            toks[i] = rng.integers(vocab)
+    return toks

@@ -20,7 +20,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("disc_loss", "proto_accum")
+SOURCES = ("disc_loss", "proto_accum", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +35,10 @@ SIGNATURES = {
     "proto_accum": {
         "proto_accum_f32": [_P] * 4 + [_I] * 3 + [_P],
         "proto_accum_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    },
+    "flash_attention": {
+        "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_P],
+        "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_P],
     },
 }
 

@@ -15,7 +15,17 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"disc_loss_fwd": 0, "disc_loss_bwd": 0,
-                            "proto_accum": 0}
+                            "proto_accum": 0, "flash_attention": 0}
+
+# The device symbols (`__global__` functions in csrc/) each wrapper launches,
+# by the wrapper's LAUNCHES key: how a profile's kernel names map back to it.
+KERNEL_SYMBOLS: Dict[str, tuple] = {
+    "disc_loss_fwd": ("disc_fwd",),
+    "disc_loss_bwd": ("disc_bwd_rows", "disc_bwd_dq"),
+    "proto_accum": ("proto_accum_kernel",),
+    "flash_attention": ("flash_attention_kernel",),
+}
+FLASH_HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches() -> None:
@@ -173,3 +183,39 @@ def proto_accum(features, labels, num_classes: int):
                           counts.data_ptr(), n, d, C, _stream()), "proto_accum")
     LAUNCHES["proto_accum"] += 1
     return sums, counts
+
+
+# -- flash_attention ----------------------------------------------------------
+def flash_attention(q, k, v, causal: bool = True):
+    """q (B, Sq, H, hd); k, v (B, Sk, G, hd), H % G == 0, float32 or bf16,
+    hd in FLASH_HEAD_DIMS -> (B, Sq, H, hd) in q's dtype; see
+    `ref.flash_attention`."""
+    if (q.dim() != 4 or k.dim() != 4 or v.shape != k.shape
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]):
+        raise ValueError(f"need q (B, Sq, H, hd) and k, v (B, Sk, G, hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    if G < 1 or H % G != 0:
+        raise ValueError(f"query heads {H} must be a multiple of KV heads {G}")
+    if Sk < 1:
+        raise ValueError("flash_attention needs at least one key")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head_dim in {FLASH_HEAD_DIMS}, "
+                         f"got {hd}")
+    fn = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}.get(q.dtype)
+    if fn is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not _on_cuda(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal)
+    L = build.lib("flash_attention")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if B and Sq:
+        _check(getattr(L, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), B, Sq, Sk, H, G, hd,
+                              int(bool(causal)), _stream()), "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    return out

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 EPS = 1e-7
+NEG_INF = -1e30
 
 
 def one_hot(labels, n: int):
@@ -86,3 +87,22 @@ def disc_loss_bwd(g, student_logits, teacher_probs, labels, valid, row_max,
     ds = p * (G @ q - gh[:, None])
     dq = G.T @ p
     return ds, dq
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q (B, Sq, H, hd); k, v (B, Sk, G, hd), H % G == 0 -> (B, Sq, H, hd) in
+    q's dtype. GQA by reshaping q to (B, Sq, G, H/G, hd): query head h reads
+    KV head h // (H/G). q is scaled by hd^-0.5 in float32, scores and softmax
+    in float32; the causal mask keeps q_pos >= k_pos, both from 0 (masked
+    scores -1e30), as `repro/kernels/ref.py:flash_attention`."""
+    B, Sq, H, hd = q.shape
+    G = k.shape[2]
+    qf = q.reshape(B, Sq, G, H // G, hd).float() * (hd ** -0.5)
+    s = torch.einsum("bqghd,bkgd->bgqhk", qf, k.float())
+    if causal:
+        mask = torch.ones(Sq, k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~mask[None, None, :, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgqhk,bkgd->bgqhd", p, v.float())
+    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).to(q.dtype)

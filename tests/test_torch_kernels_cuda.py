@@ -126,7 +126,7 @@ def test_trainer_on_the_card_matches_the_cpu(cuda):
     ops.reset_launches()
     a = run(cuda)
     assert ops.LAUNCHES == {"disc_loss_fwd": 12, "disc_loss_bwd": 12,
-                            "proto_accum": 6}
+                            "proto_accum": 6, "flash_attention": 0}
     b = run("cpu")
     for f in ("ptr", "owner", "valid", "stamp", "clock", "valid_g"):
         assert torch.equal(getattr(a.server.state, f).cpu(),
@@ -134,3 +134,46 @@ def test_trainer_on_the_card_matches_the_cpu(cuda):
     assert a.ledger.by_round == b.ledger.by_round
     for ra, rb in zip(a.history, b.history):
         assert max(abs(p - q) for p, q in zip(ra["accs"], rb["accs"])) <= 2e-2
+
+
+# -- flash_attention: the test shapes of tests/test_kernels.py, a ragged one
+# and the serving prefill's. Tolerance as there: 2e-5 (f32) / 2e-2 (bf16)
+# x max(1, max|plain|), the same float32 math summed in another order.
+FLASH_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 8, 128),
+                (2, 128, 128, 4, 1, 32), (2, 100, 100, 4, 2, 64),
+                (1, 77, 130, 8, 2, 128), (4, 1024, 1024, 32, 4, 64)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, G, hd,
+                                              causal, dtype):
+    g = torch.Generator().manual_seed(B + Sq + H + hd)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(dtype).to(cuda)
+    k = torch.randn(B, Sk, G, hd, generator=g).to(dtype).to(cuda)
+    v = torch.randn(B, Sk, G, hd, generator=g).to(dtype).to(cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= tol * max(1.0, float(want.float().abs().max())), err
+
+
+def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
+    q = torch.randn(1, 8, 4, 48, device=cuda)
+    k = torch.randn(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k)                      # head_dim 48
+    q = torch.randn(1, 8, 4, 64, device=cuda)
+    k = torch.randn(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, torch.randn(1, 8, 3, 64, device=cuda),
+                            torch.randn(1, 8, 3, 64, device=cuda))
