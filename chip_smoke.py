@@ -50,16 +50,23 @@ TOL = 1e-5                 # max |kernel - plain| <= TOL * max(1, max |plain|)
 ROUNDS, CLIENTS = 3, 5
 STEPS = 7                  # 240 samples a client / batch 32, remainder dropped
 # flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
-# first, then tests/test_kernels.py's and a ragged one. Tolerance as there:
+# first, then tests/test_kernels.py's and a ragged one. Kernel and plain do the
+# same float32 math, summed in another order. float32: |kernel - plain| <=
+# FLASH_F32_TOL x max(1, max|plain|), as tests/test_kernels.py. bf16: both
+# round that float32 result to bf16, so they differ by at most one bf16 step,
+# element by element: |kernel - plain| <= BF16_ATOL + BF16_RTOL |plain|.
 FLASH_SHAPES = ((4, 1024, 32, 4, 64), (2, 128, 4, 2, 64), (1, 256, 8, 8, 128),
                 (2, 128, 4, 1, 32), (2, 100, 4, 2, 64))
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_F32_TOL = 2e-5
+BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 32
 CHECK_PROMPT = 256
 # float32 serving check: |kernel path - plain| <= CHECK_TOL * max(1, |plain|)
 # over the last position's logits: 22 layers of float32 products summed in
-# another order (the same bound for decode against prefill).
-CHECK_TOL = 1e-3
+# another order (the same bound for decode against prefill). The H100 reads
+# about 3.4e-6 x max|logit| for both; bf16 attention in the same model must
+# fail it.
+CHECK_TOL = 5e-5
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -82,14 +89,14 @@ def bound_ms(nbytes, flops, peak=F32_FLOPS):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def max_err(got, want, what, tol=TOL):
+def max_err(got, want, what):
     """Largest |got - want| over the outputs; raises past the tolerance."""
     worst = 0.0
     for a, b in zip(got, want):
         e = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
         scale = max(1.0, float(b.float().abs().max()) if b.numel() else 0.0)
-        if not e <= tol * scale:
-            raise AssertionError(f"{what}: max error {e:.3e} > {tol} x {scale:.3e}")
+        if not e <= TOL * scale:
+            raise AssertionError(f"{what}: max error {e:.3e} > {TOL} x {scale:.3e}")
         worst = max(worst, e)
     return worst
 
@@ -185,6 +192,69 @@ def check_proto(n, d, C, dtype, dev, gen):
     return r
 
 
+def flash_excess(got, want):
+    """Largest |got - want| over its limit, element by element (> 1 fails):
+    one bf16 step for bf16, FLASH_F32_TOL x max(1, max|want|) for float32."""
+    d = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        return float((d / (BF16_ATOL + BF16_RTOL * want.float().abs())).max())
+    return float(d.max()) / (FLASH_F32_TOL * max(1.0, float(want.abs().max())))
+
+
+def flash_bf16_accumulating(q, k, v, causal, bk=32):
+    """A faulty flash kernel, emulated: the online softmax over key tiles of
+    `bk` with its running sum and accumulator rounded to bf16 after every
+    tile. The bf16 check must reject it."""
+    B, Sq, H, hd = q.shape
+    G = k.shape[2]
+    qf = q.reshape(B, Sq, G, H // G, hd).float() * hd ** -0.5
+    m = torch.full((B, G, Sq, H // G, 1), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, G, Sq, H // G, hd, device=q.device)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    for k0 in range(0, k.shape[1], bk):
+        kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
+        s = torch.einsum("bqghd,bkgd->bgqhk", qf, kt)
+        if causal:
+            k_pos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
+            s = s.masked_fill(~(q_pos >= k_pos)[None, None, :, None, :], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p, alpha = torch.exp(s - m_new), torch.exp(m - m_new)
+        l = (l * alpha + p.sum(-1, keepdim=True)).bfloat16().float()
+        acc = (acc * alpha + torch.einsum("bgqhk,bkgd->bgqhd", p, vt)
+               ).bfloat16().float()
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_controls(B, S, H, G, hd, dev, gen):
+    """Two faulty results at the serving shape, bf16 causal, that the bf16
+    check must reject: the bf16-accumulating emulation, and attention that
+    drops the last 16 keys. -> {name: (excess, old excess)}, the old being
+    against 2e-2 x max(1, max|plain|)."""
+    from repro_torch.kernels import ref
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen).bfloat16().to(dev)
+               for n in (H, G, G))
+    want = ref.flash_attention(q, k, v, causal=True)
+    old_lim = 2e-2 * max(1.0, float(want.float().abs().max()))
+    out = {}
+    for name, bad in (
+            ("bf16 accumulator", flash_bf16_accumulating(q, k, v, True)),
+            ("last 16 keys dropped",
+             ref.flash_attention(q, k[:, :-16], v[:, :-16], causal=True))):
+        ex = flash_excess(bad, want)
+        old = float((bad.float() - want.float()).abs().max()) / old_lim
+        print(f"[kernels] control ({B}, {S}, {H}, {G}, {hd}) bf16 causal, "
+              f"{name}: {ex:.2f} x the limit (the old 2e-2 x max|plain| limit:"
+              f" {old:.2f} x)")
+        if not ex > 1:
+            raise AssertionError(f"the bf16 check passes a faulty kernel "
+                                 f"({name}): {ex:.3f} x the limit")
+        out[name] = (ex, old)
+    return out
+
+
 def check_flash(B, S, H, G, hd, dtype, causal, dev, gen):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -194,10 +264,13 @@ def check_flash(B, S, H, G, hd, dtype, causal, dev, gen):
     tag = (f"flash_attention ({B}, {S}, {H}, {G}, {hd}) "
            f"{str(dtype).split('.')[-1]} {'causal' if causal else 'full'}")
     out = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    tol = FLASH_TOL[dtype]
-    err = max_err([out], [ref.flash_attention(q, k, v, causal=causal)], tag,
-                  tol)
+    err = float((out.float() - want.float()).abs().max())
+    excess = flash_excess(out, want)
+    if not excess <= 1:
+        raise AssertionError(f"{tag}: max error {err:.3e}, {excess:.3f} x the "
+                             f"limit")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     reps = 20 if S >= 1024 else 50
     r = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
@@ -206,15 +279,17 @@ def check_flash(B, S, H, G, hd, dtype, causal, dev, gen):
                                                           causal=causal), reps),
              library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=causal, enable_gqa=True), reps),
-             max_abs_err=err)
+             max_abs_err=err, limit_used=excess)
     # q and k/v read once, the output written once; 4 B H S S hd operations
     # (two products), half of them unmasked when causal
     flops = 4 * B * H * S * S * hd / (2 if causal else 1)
     r["bound_ms"], r["bound_by"] = bound_ms(
         (2 * B * S * H + 2 * B * S * G) * hd * q.element_size(), flops,
         BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-    print(f"[kernels] {tag}: max_abs_err {err:.3e} (tol {tol} x max(1, "
-          f"|plain|)) kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+    lim = ("1e-4 + 2^-7 |plain|" if dtype == torch.bfloat16
+           else f"{FLASH_F32_TOL} x max(1, |plain|)")
+    print(f"[kernels] {tag}: max_abs_err {err:.3e}, {excess:.3f} x the limit "
+          f"({lim}) kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
           f"library_ms {r['library_ms']:.4f} (scaled_dot_product_attention) "
           f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
     return r
@@ -249,6 +324,7 @@ def phase_kernels(dev):
                 res["flash_attention"].append(dict(
                     r, shape=[B, S, H, G, hd, str(dtype).split(".")[-1],
                               "causal" if causal else "full"]))
+    res["flash_controls"] = flash_controls(*FLASH_SHAPES[0], dev, gen)
     return res
 
 
@@ -411,28 +487,44 @@ def phase_serve_check(dev):
         with attention.prefill_attention(ref.flash_attention):
             plain = lm.forward(params, cfg, {"tokens": toks},
                                mode="prefill")["logits"][:, -1]
+        with attention.prefill_attention(bf16_attention):   # must fail
+            ctrl = lm.forward(params, cfg, {"tokens": toks},
+                              mode="prefill")["logits"][:, -1]
         pre = lm.forward(params, cfg, {"tokens": toks[:, :-1]}, mode="prefill")
         dec = lm.decode_step(params, cfg, {"tokens": toks[:, -1:]},
                              lm.pad_cache_for_decode(cfg, pre["caches"]))
     scale = max(1.0, float(plain.abs().max()))
     e_k = float((kern - plain).abs().max())
     e_d = float((dec["logits"][:, 0] - kern).abs().max())
+    e_c = float((ctrl - plain).abs().max())
     print(f"[check] float32 full width, {SERVE_BATCH}x{CHECK_PROMPT} tokens: "
           f"max |kernel path - plain attention| {e_k:.3e}, max |decode - "
           f"prefill| {e_d:.3e} at the last position, max |logit| {scale:.3e} "
-          f"(tol {CHECK_TOL} x max(1, |logit|))")
+          f"(tol {CHECK_TOL} x max(1, |logit|) = {CHECK_TOL * scale:.3e}); "
+          f"control, attention in bf16: {e_c:.3e}")
+    if not e_c > CHECK_TOL * scale:
+        raise AssertionError(f"the float32 check passes bf16 attention: "
+                             f"{e_c:.3e} <= {CHECK_TOL} x {scale:.3e}")
     for what, e in (("kernel path vs plain", e_k), ("decode vs prefill", e_d)):
         if not e <= CHECK_TOL * scale:
             raise AssertionError(f"{what}: {e:.3e} > {CHECK_TOL} x {scale:.3e}")
     if not bool(torch.isfinite(kern).all()):
         raise AssertionError("non-finite float32 logits")
-    return e_k, e_d
+    return e_k, e_d, e_c
+
+
+def bf16_attention(q, k, v, causal=True):
+    """Plain attention on bf16 copies of float32 q, k, v, back in float32:
+    the control the float32 serving check must reject."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                               causal=causal).float()
 
 
 def phase_serve_profile(cfg, params, prompts):
     """One prefill, then 4 decode steps, each under torch.profiler."""
-    from repro_torch import serve_lm
     from repro_torch.launch import serve
+    from repro_torch.models import lm
     dev = params["final_norm"]["scale"].device
     toks = torch.as_tensor(prompts, device=dev)
     prefill = serve.make_prefill_step(cfg)
@@ -441,7 +533,7 @@ def phase_serve_profile(cfg, params, prompts):
     with torch.inference_mode():
         def run_prefill():
             out = prefill(params, {"tokens": toks})
-            state["caches"] = serve_lm._grow_caches(cfg, out["caches"], 4)
+            state["caches"] = lm.pad_cache_for_decode(cfg, out["caches"], 4)
             state["nxt"] = out["logits"][:, -1].argmax(-1)[:, None]
         wall, ev = profile(run_prefill)
         busy, port = report_profile("serve profile prefill", wall, ev)
@@ -477,7 +569,7 @@ def main():
     prof = phase_serve_profile(cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
-    phase_serve_check(dev)
+    e_k, e_d, e_c = phase_serve_check(dev)
     launches["flash_attention"] = serve_launches["flash_attention"]
 
     src = "src/repro_torch/kernels/csrc/"
@@ -488,6 +580,7 @@ def main():
         "flash_attention": (src + "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:25"),
     }
+    controls = res.pop("flash_controls")
     kernels = []
     for name, rows in res.items():
         main_row = rows[0]                 # the main path's shape, first
@@ -501,6 +594,10 @@ def main():
             "shapes": rows})
     kernels[-1]["device_us_per_launch"] = prof["flash_device_us"]
     kernels[-1]["share_of_prefill_device_time"] = prof["flash_share"]
+    kernels[-1]["controls_times_limit"] = {k: c[0] for k, c in controls.items()}
+    kernels[-1]["serve_check_f32"] = {"kernel_vs_plain": e_k,
+                                      "decode_vs_prefill": e_d,
+                                      "bf16_attention_control": e_c}
     print(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -210,6 +210,13 @@ def flash_attention(q, k, v, causal: bool = True):
                          f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not _on_cuda(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel's output has no grad_fn: without this the gradient
+        # through attention would be dropped without a word
+        raise NotImplementedError(
+            "flash_attention has no backward kernel yet (ROADMAP: LM "
+            "training); on the card call it under torch.no_grad() or "
+            "torch.inference_mode(), or with inputs that do not require grad")
     L = build.lib("flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)

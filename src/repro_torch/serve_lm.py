@@ -27,9 +27,8 @@ from repro_torch.models import lm
 PROMPT_STRIDE = 100            # prompt i starts at token i * 100 of the stream
 
 
-def _grow_caches(cfg, caches, extra: int):
-    """Extend every attention-cache seq axis by `extra` empty slots."""
-    return lm.pad_cache_for_decode(cfg, caches, extra)
+# the reference example's name for extending every cache's seq axis
+_grow_caches = lm.pad_cache_for_decode
 
 
 def make_prompts(cfg, batch: int, prompt_len: int) -> np.ndarray:

@@ -140,6 +140,26 @@ def test_gqa_block_raises_outside_the_kernel_path():
                             **KW)
 
 
+def test_gqa_block_gradient_on_cpu_matches_reference():
+    """On the CPU `ops.flash_attention` runs its plain version, which is
+    differentiable: the weights' gradients through attention equal
+    jax.grad of the reference (the card raises instead, having no backward
+    kernel yet)."""
+    import jax
+    p = _gqa_params(64, 4, 2, 32)
+    x = np.random.default_rng(7).standard_normal((2, 17, 64)).astype(np.float32)
+    w = np.random.default_rng(8).standard_normal((2, 17, 64)).astype(np.float32)
+    pos = jrope.default_positions(2, 17, "rope")
+    want = jax.grad(lambda q: jnp.sum(jatt.gqa_block(q, x, pos, **KW) * w))(p)
+    tp = {n: torch.from_numpy(a).requires_grad_(True) for n, a in p.items()}
+    y = attention.gqa_block(tp, torch.from_numpy(x),
+                            rope.default_positions(2, 17, "rope"), **KW)
+    (y * torch.from_numpy(w)).sum().backward()
+    for n in ("wq", "wk", "wv", "wo"):
+        np.testing.assert_allclose(tp[n].grad.numpy(), np.asarray(want[n]),
+                                   atol=ATT_TOL, rtol=ATT_TOL)
+
+
 @pytest.mark.parametrize("masked", [True, False])
 def test_gqa_decode_matches_reference(masked):
     p = _gqa_params(64, 4, 2, 32)
