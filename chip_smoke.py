@@ -5,7 +5,9 @@
 
 Phases (each failure raises, so the process exits non-zero):
   1. device: a CUDA device must be present; prints its name and power limit;
-  2. build: compiles the hand-written kernels (`kernels/csrc/*.cu`);
+  2. build: compiles the hand-written kernels (`kernels/csrc/*.cu`) and
+     prints the registers, shared memory and spills of the bf16 (tensor-core)
+     flash_attention kernel;
   3. precision: TF32 off for cuDNN convolutions and matmuls;
   4. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes and larger ones, with times, the bound from
@@ -26,8 +28,11 @@ Phases (each failure raises, so the process exits non-zero):
   9. serve profile: one prefill and 4 decode steps under torch.profiler
      (device busy share, flash_attention's device time per launch and its
      share of the prefill's device time).
-It prints a JSON line of per-kernel results before the last line, and as the
-last line {"ok": true, "device": {...}}.
+Phase 4 also holds three faulty flash results at the serving shape against
+the bf16 check, which must reject each: a bf16 accumulator, the last 16 keys
+dropped, and P rounded to bf16 once before P V.
+It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
+over ms) before the last line, and as the last line {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -50,13 +55,16 @@ TOL = 1e-5                 # max |kernel - plain| <= TOL * max(1, max |plain|)
 ROUNDS, CLIENTS = 3, 5
 STEPS = 7                  # 240 samples a client / batch 32, remainder dropped
 # flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
-# first, then tests/test_kernels.py's and a ragged one. Kernel and plain do the
-# same float32 math, summed in another order. float32: |kernel - plain| <=
-# FLASH_F32_TOL x max(1, max|plain|), as tests/test_kernels.py. bf16: both
-# round that float32 result to bf16, so they differ by at most one bf16 step,
-# element by element: |kernel - plain| <= BF16_ATOL + BF16_RTOL |plain|.
+# first, then tests/test_kernels.py's, a ragged one, and the serving shape at
+# head_dim 32 and 128. Kernel and plain do the same float32 math, summed in
+# another order (the bf16 kernel splits P into two bf16 halves to keep it).
+# float32: |kernel - plain| <= FLASH_F32_TOL x max(1, max|plain|), as
+# tests/test_kernels.py. bf16: both round that float32 result to bf16, so
+# they differ by at most one bf16 step, element by element:
+# |kernel - plain| <= BF16_ATOL + BF16_RTOL |plain|.
 FLASH_SHAPES = ((4, 1024, 32, 4, 64), (2, 128, 4, 2, 64), (1, 256, 8, 8, 128),
-                (2, 128, 4, 1, 32), (2, 100, 4, 2, 64))
+                (2, 128, 4, 1, 32), (2, 100, 4, 2, 64), (4, 1024, 32, 4, 32),
+                (4, 1024, 32, 4, 128))
 FLASH_F32_TOL = 2e-5
 BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 32
@@ -122,6 +130,42 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line:
                 print(f"[build] {name}: {line.strip()}")
+    res = flash_resources(build.BUILD_LOG["flash_attention"],
+                          build.lib("flash_attention"))
+    for tag, r in res.items():
+        print(f"[build] flash_attention_bf16_kernel {tag}: {r['registers']} "
+              f"registers a thread at entry (setmaxnreg moves them between "
+              f"producer and consumers), {r['smem_bytes']} bytes of dynamic shared "
+              f"memory, {r['spill_stores']} / {r['spill_loads']} bytes of spill"
+              f" stores / loads")
+    return res
+
+
+def flash_resources(log, lib):
+    """ptxas -v's registers and spills of each bf16 flash kernel, and its
+    dynamic shared memory -> {"hd64 causal": {...}, ...}."""
+    res, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*flash_attention_bf16_kernel"
+                      r"ILi(\d+)ELb(\d)", line)
+        if m:
+            hd = int(m.group(1))
+            cur = f"hd{hd} {'causal' if m.group(2) == '1' else 'full'}"
+            res[cur] = {"smem_bytes": lib.flash_attention_bf16_smem(hd)}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            res[cur]["spill_stores"] = int(m.group(1))
+            res[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            res[cur]["registers"] = int(m.group(1))
+            cur = None
+    if len(res) != 6 or any(len(r) != 4 for r in res.values()):
+        raise AssertionError(f"ptxas -v did not report the six bf16 flash "
+                             f"kernels: {res}")
+    return res
 
 
 def phase_precision():
@@ -201,10 +245,13 @@ def flash_excess(got, want):
     return float(d.max()) / (FLASH_F32_TOL * max(1.0, float(want.abs().max())))
 
 
-def flash_bf16_accumulating(q, k, v, causal, bk=32):
+def flash_faulty(q, k, v, causal, fault, bk):
     """A faulty flash kernel, emulated: the online softmax over key tiles of
-    `bk` with its running sum and accumulator rounded to bf16 after every
-    tile. The bf16 check must reject it."""
+    `bk` with float32 running state, but for one fault: "bf16 accumulator"
+    rounds the running sum and accumulator to bf16 after every tile; "P
+    rounded to bf16 once" rounds P to bf16 before P V, as FlashAttention-2/3
+    do where the kernel splits P into two bf16 halves. The bf16 check must
+    reject both."""
     B, Sq, H, hd = q.shape
     G = k.shape[2]
     qf = q.reshape(B, Sq, G, H // G, hd).float() * hd ** -0.5
@@ -220,19 +267,22 @@ def flash_bf16_accumulating(q, k, v, causal, bk=32):
             s = s.masked_fill(~(q_pos >= k_pos)[None, None, :, None, :], -1e30)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p, alpha = torch.exp(s - m_new), torch.exp(m - m_new)
-        l = (l * alpha + p.sum(-1, keepdim=True)).bfloat16().float()
-        acc = (acc * alpha + torch.einsum("bgqhk,bkgd->bgqhd", p, vt)
-               ).bfloat16().float()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if fault == "P rounded to bf16 once":
+            p = p.bfloat16().float()
+        acc = acc * alpha + torch.einsum("bgqhk,bkgd->bgqhd", p, vt)
+        if fault == "bf16 accumulator":
+            l, acc = l.bfloat16().float(), acc.bfloat16().float()
         m = m_new
     o = acc / l.clamp_min(1e-30)
     return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def flash_controls(B, S, H, G, hd, dev, gen):
-    """Two faulty results at the serving shape, bf16 causal, that the bf16
-    check must reject: the bf16-accumulating emulation, and attention that
-    drops the last 16 keys. -> {name: (excess, old excess)}, the old being
-    against 2e-2 x max(1, max|plain|)."""
+    """Three faulty results at the serving shape, bf16 causal, that the bf16
+    check must reject: the bf16-accumulating emulation, attention that drops
+    the last 16 keys, and P rounded to bf16 once. -> {name: (excess, old
+    excess)}, the old being against 2e-2 x max(1, max|plain|)."""
     from repro_torch.kernels import ref
     q, k, v = (torch.randn(B, S, n, hd, generator=gen).bfloat16().to(dev)
                for n in (H, G, G))
@@ -240,9 +290,12 @@ def flash_controls(B, S, H, G, hd, dev, gen):
     old_lim = 2e-2 * max(1.0, float(want.float().abs().max()))
     out = {}
     for name, bad in (
-            ("bf16 accumulator", flash_bf16_accumulating(q, k, v, True)),
+            ("bf16 accumulator",
+             flash_faulty(q, k, v, True, "bf16 accumulator", bk=32)),
             ("last 16 keys dropped",
-             ref.flash_attention(q, k[:, :-16], v[:, :-16], causal=True))):
+             ref.flash_attention(q, k[:, :-16], v[:, :-16], causal=True)),
+            ("P rounded to bf16 once",
+             flash_faulty(q, k, v, True, "P rounded to bf16 once", bk=128))):
         ex = flash_excess(bad, want)
         old = float((bad.float() - want.float()).abs().max()) / old_lim
         print(f"[kernels] control ({B}, {S}, {H}, {G}, {hd}) bf16 causal, "
@@ -286,12 +339,14 @@ def check_flash(B, S, H, G, hd, dtype, causal, dev, gen):
     r["bound_ms"], r["bound_by"] = bound_ms(
         (2 * B * S * H + 2 * B * S * G) * hd * q.element_size(), flops,
         BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
     lim = ("1e-4 + 2^-7 |plain|" if dtype == torch.bfloat16
            else f"{FLASH_F32_TOL} x max(1, |plain|)")
     print(f"[kernels] {tag}: max_abs_err {err:.3e}, {excess:.3f} x the limit "
           f"({lim}) kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
           f"library_ms {r['library_ms']:.4f} (scaled_dot_product_attention) "
-          f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+          f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']}), "
+          f"{r['share_of_bound']:.3f} of the bound")
     return r
 
 
@@ -559,7 +614,7 @@ def phase_serve_profile(cfg, params, prompts):
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
-    phase_build()
+    resources = phase_build()
     phase_precision()
     res = phase_kernels(dev)
     gpu, launches, _ = phase_slice(dev)
@@ -590,11 +645,13 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "share_of_bound": main_row["bound_ms"] / main_row["ms"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
             "shapes": rows})
     kernels[-1]["device_us_per_launch"] = prof["flash_device_us"]
     kernels[-1]["share_of_prefill_device_time"] = prof["flash_share"]
     kernels[-1]["controls_times_limit"] = {k: c[0] for k, c in controls.items()}
+    kernels[-1]["bf16_kernel_resources"] = resources
     kernels[-1]["serve_check_f32"] = {"kernel_vs_plain": e_k,
                                       "decode_vs_prefill": e_d,
                                       "bf16_attention_control": e_c}

@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# argtypes of every C entry point; every one returns a cudaError_t as int.
+# argtypes of every C entry point; each returns a cudaError_t as int, but for
+# the queries `disc_loss_max_m` and `flash_attention_bf16_smem`.
 SIGNATURES = {
     "disc_loss": {
         "disc_loss_fwd": [_P] * 8 + [_I] * 3 + [_P],
@@ -39,11 +40,13 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_P],
         "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_P],
+        "flash_attention_bf16_smem": [_I],
     },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}          # name -> nvcc output (ptxas -v)
+# name -> nvcc output (ptxas -v), kept beside the library as lib*.log
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -74,6 +77,9 @@ def build_all() -> float:
     for name in SOURCES:
         out = _target(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            if log.exists():
+                BUILD_LOG[name] = log.read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -87,6 +93,7 @@ def build_all() -> float:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

@@ -23,7 +23,8 @@ KERNEL_SYMBOLS: Dict[str, tuple] = {
     "disc_loss_fwd": ("disc_fwd",),
     "disc_loss_bwd": ("disc_bwd_rows", "disc_bwd_dq"),
     "proto_accum": ("proto_accum_kernel",),
-    "flash_attention": ("flash_attention_kernel",),
+    "flash_attention": ("flash_attention_bf16_kernel",      # tensor cores
+                        "flash_attention_kernel"),          # float32
 }
 FLASH_HEAD_DIMS = (32, 64, 128)
 

@@ -6,6 +6,11 @@
   shapes in f32 and bf16; tolerance 2e-5 / 2e-2 (atol and rtol), the
   reference's own for its kernel. A ragged shape (lengths no block divides)
   against the jnp oracle only: the Pallas wrapper asserts whole blocks.
+- The bf16 tensor-core kernel's arithmetic (`csrc/flash_attention.cu`),
+  emulated here tile by tile: within one bf16 step of the plain version and
+  of the jnp oracle, element by element (|got - want| <= 1e-4 + 2^-7 |want|,
+  the card's check), and the same walk with P rounded to bf16 once outside
+  that limit.
 - `full_attention`, `chunked_attention`, `gqa_block` and `gqa_decode`
   (masked with a cache_index, and unmasked) against `repro.nn.attention` on
   the same numpy inputs and weights, f32, within 1e-5: the same float32
@@ -84,6 +89,86 @@ def test_ops_flash_raises_on_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 4, 2, 64))
     with pytest.raises(ValueError):
         ops.flash_attention(q.double(), k.double(), v.double())
+
+
+# -- the bf16 kernel's tile walk, emulated --------------------------------------
+LOG2E = 1.4426950408889634
+BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7
+WALK_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 100, 100, 8, 2, 128),
+               (2, 77, 130, 4, 1, 32)]
+
+
+def _tile_walk(q, k, v, causal, split):
+    """The bf16 kernel's arithmetic in plain torch: key tiles of BK (64 at
+    hd 128, else 128), scores q.k in float32 scaled by float32(hd^-0.5 log2 e)
+    and exponentiated with exp2, float32 running max, sum and accumulator,
+    P V from P_hi = bf16(p) and P_lo = bf16(p - P_hi) (`split`), or from
+    P_hi alone (P rounded to bf16 once, as FlashAttention-2/3)."""
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    bk = 64 if hd == 128 else 128
+    c = torch.tensor(LOG2E / np.sqrt(hd), dtype=torch.float32)
+    qf = q.float().reshape(B, Sq, G, H // G, hd)
+    m = torch.full((B, G, Sq, H // G, 1), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros(B, G, Sq, H // G, hd)
+    q_pos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, bk):
+        kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
+        s = torch.einsum("bqghd,bkgd->bgqhk", qf, kt) * c
+        if causal:
+            k_pos = torch.arange(k0, k0 + kt.shape[1])
+            s = s.masked_fill(~(q_pos >= k_pos)[None, None, :, None, :], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p, alpha = torch.exp2(s - m_new), torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = torch.einsum("bgqhk,bkgd->bgqhd", p_hi, vt)
+        if split:
+            p_lo = (p - p_hi).bfloat16().float()
+            pv = pv + torch.einsum("bgqhk,bkgd->bgqhd", p_lo, vt)
+        o, m = o * alpha + pv, m_new
+    o = o / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).bfloat16()
+
+
+def _bf16_excess(got, want):
+    """Largest |got - want| over 1e-4 + 2^-7 |want|, element by element."""
+    d = (got.float() - want.float()).abs()
+    return float((d / (BF16_ATOL + BF16_RTOL * want.float().abs())).max())
+
+
+def _walk_case(B, Sq, Sk, H, G, hd, causal):
+    """bf16 inputs from numpy (seed 9), the plain version's output, and the
+    jnp oracle's on the same values in float32, rounded to bf16 once (on bf16
+    arrays the oracle scales q in bf16, which the kernel's contract does
+    not: ref.py computes q * hd^-0.5 in q's dtype)."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(B, Sq, Sk, H, G, hd, seed=9))
+    plain = ref.flash_attention(q, k, v, causal=causal)
+    oracle = jref.flash_attention(*(t.float().numpy() for t in (q, k, v)),
+                                  causal=causal)
+    return (q, k, v), plain, torch.from_numpy(np.array(oracle)).bfloat16()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,hd", WALK_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_walk_is_within_one_bf16_step(B, Sq, Sk, H, G, hd,
+                                                  causal):
+    qkv, plain, oracle = _walk_case(B, Sq, Sk, H, G, hd, causal)
+    got = _tile_walk(*qkv, causal, split=True)
+    assert _bf16_excess(got, plain) <= 1
+    assert _bf16_excess(got, oracle) <= 1
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,hd", WALK_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_p_rounded_to_bf16_once_breaks_the_limit(B, Sq, Sk, H, G, hd,
+                                                  causal):
+    qkv, plain, oracle = _walk_case(B, Sq, Sk, H, G, hd, causal)
+    got = _tile_walk(*qkv, causal, split=False)
+    assert _bf16_excess(got, plain) > 1
+    assert _bf16_excess(got, oracle) > 1
 
 
 @pytest.mark.parametrize("causal,window,q_offset", [(True, 0, 0),

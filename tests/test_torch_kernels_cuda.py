@@ -11,6 +11,8 @@ relative) for float outputs, float32 sums of up to C*M terms in another
 order; counts and ring bookkeeping exactly; flash_attention's bf16 output
 within one bf16 step of the plain version's, element by element (below).
 """
+import re
+
 import pytest
 import torch
 
@@ -137,15 +139,23 @@ def test_trainer_on_the_card_matches_the_cpu(cuda):
         assert max(abs(p - q) for p, q in zip(ra["accs"], rb["accs"])) <= 2e-2
 
 
-# -- flash_attention: the test shapes of tests/test_kernels.py, a ragged one
-# and the serving prefill's. Both sides do the same float32 math, summed in
-# another order. float32: 2e-5 x max(1, max|plain|), as tests/test_kernels.py.
-# bf16: both round that float32 result to bf16, so they differ by at most one
-# bf16 step per element: |kernel - plain| <= 1e-4 + 2^-7 |plain|.
+# -- flash_attention: the test shapes of tests/test_kernels.py, a ragged one,
+# the serving prefill's (at hd 64, and at 32 and 128), and the edges of the
+# bf16 kernel's 128-row query tiles and 64-row warpgroups. Both sides do the
+# same float32 math, summed in another order (the bf16 kernel splits P into
+# two bf16 halves to keep it). float32: 2e-5 x max(1, max|plain|), as
+# tests/test_kernels.py. bf16: both round that float32 result to bf16, so
+# they differ by at most one bf16 step per element:
+# |kernel - plain| <= 1e-4 + 2^-7 |plain|.
 BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7
+SERVE_SHAPE = (4, 1024, 1024, 32, 4, 64)
 FLASH_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 8, 128),
                 (2, 128, 128, 4, 1, 32), (2, 100, 100, 4, 2, 64),
-                (1, 77, 130, 8, 2, 128), (4, 1024, 1024, 32, 4, 64)]
+                (1, 77, 130, 8, 2, 128), SERVE_SHAPE,
+                (2, 1, 1, 4, 2, 64), (1, 63, 63, 4, 2, 64),
+                (1, 65, 65, 8, 2, 128), (1, 127, 127, 4, 1, 32),
+                (1, 129, 129, 8, 2, 64), (1, 1000, 1000, 8, 2, 64),
+                (4, 1024, 1024, 32, 4, 32), (4, 1024, 1024, 32, 4, 128)]
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,G,hd", FLASH_SHAPES)
@@ -168,6 +178,32 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, G, hd,
     else:
         limit = BF16_ATOL + BF16_RTOL * want.float().abs()
     assert bool((diff <= limit).all()), float(diff.max())
+
+
+def test_flash_attention_launches_one_kernel_by_dtype(cuda):
+    """At the serving shape a bf16 call launches the tensor-core kernel once
+    and a float32 call the CUDA-core kernel once, by the profiler's names."""
+    from torch.profiler import ProfilerActivity, profile
+    B, Sq, Sk, H, G, hd = SERVE_SHAPE
+    g = torch.Generator().manual_seed(0)
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, Sq, H, hd, generator=g).to(dtype).to(cuda)
+        k = torch.randn(B, Sk, G, hd, generator=g).to(dtype).to(cuda)
+        before = ops.LAUNCHES["flash_attention"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.flash_attention(q, k, k, causal=True)
+            torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == before + 1
+        names[dtype] = [(e.key, e.count) for e in prof.key_averages()
+                        if "flash_attention" in e.key
+                        and str(e.device_type).endswith("CUDA")]
+    tensor_core = re.compile(r"\bflash_attention_bf16_kernel\b")
+    cuda_core = re.compile(r"\bflash_attention_kernel\b")
+    bf, f32 = names[torch.bfloat16], names[torch.float32]
+    assert len(bf) == 1 and bf[0][1] == 1 and tensor_core.search(bf[0][0]), bf
+    assert len(f32) == 1 and f32[0][1] == 1 and cuda_core.search(f32[0][0]), f32
 
 
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
