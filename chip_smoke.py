@@ -31,8 +31,11 @@ Phases (each failure raises, so the process exits non-zero):
 Phase 4 also holds three faulty flash results at the serving shape against
 the bf16 check, which must reject each: a bf16 accumulator, the last 16 keys
 dropped, and P rounded to bf16 once before P V.
+Phase 4 also runs every disc_loss and proto_accum shape twice and requires
+equal bits; phase 6 requires one kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
-over ms) before the last line, and as the last line {"ok": true, ...}.
+over ms, and device_us_per_launch from the profiles) before the last line,
+and as the last line {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -185,7 +188,12 @@ def check_disc(B, C, M, with_valid, dev, gen):
     tag = f"disc_loss ({B}, {C}, {M}){' valid' if with_valid else ''}"
     out, want = ops.disc_loss_fwd(s, q, y, v), ref.disc_loss_fwd(s, q, y, v)
     grads = ops.disc_loss_bwd(g, s, q, y, v, *out[1:])
+    again = ops.disc_loss_fwd(s, q, y, v)
+    grads_again = ops.disc_loss_bwd(g, s, q, y, v, *again[1:])
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out + grads,
+                                                 again + grads_again)):
+        raise AssertionError(f"{tag}: two launches disagree")
     e_f = max_err(out, want, tag + " fwd")
     e_b = max_err(grads, ref.disc_loss_bwd(g, s, q, y, v, *want[1:]),
                   tag + " bwd")
@@ -204,10 +212,12 @@ def check_disc(B, C, M, with_valid, dev, gen):
         4 * (B * C + M * C + 4 * B + M + B * M) + 4 * (B * C + M * C),
         4 * B * C * M + 6 * B * C + 8 * B * M)
     for name, r in (("fwd", fwd), ("bwd", bwd)):
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
         print(f"[kernels] {tag} {name}: max_abs_err {r['max_abs_err']:.3e} "
-              f"(tol {TOL} x max(1, |plain|)) kernel_ms {r['ms']:.4f} "
-              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.6f} "
-              f"({r['bound_by']})")
+              f"(tol {TOL} x max(1, |plain|)), two launches bit-equal, "
+              f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']}), "
+              f"{r['share_of_bound']:.3f} of the bound")
     return fwd, bwd
 
 
@@ -230,9 +240,12 @@ def check_proto(n, d, C, dtype, dev, gen):
              max_abs_err=err)
     r["bound_ms"], r["bound_by"] = bound_ms(
         n * d * f.element_size() + 4 * n + 4 * (C * d + C), n * d)
-    print(f"[kernels] {tag}: max_abs_err {err:.3e} kernel_ms {r['ms']:.4f} "
-          f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-          f"(index_add_ on f32) bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print(f"[kernels] {tag}: max_abs_err {err:.3e}, two launches bit-equal, "
+          f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+          f"{r['library_ms']:.4f} (index_add_ on f32) bound_ms "
+          f"{r['bound_ms']:.6f} ({r['bound_by']}), {r['share_of_bound']:.3f} "
+          f"of the bound")
     return r
 
 
@@ -355,7 +368,8 @@ def phase_kernels(dev):
     gen = torch.Generator().manual_seed(0)
     res = {"disc_loss_fwd": [], "disc_loss_bwd": [], "proto_accum": [],
            "flash_attention": []}
-    for B, C, M in ((32, 10, 10), (320, 10, 10), (2048, 4096, 256)):
+    for B, C, M in ((32, 10, 10), (320, 10, 10), (2048, 4096, 256),
+                    (100, 777, 33), (16, 64, 7000)):
         for with_valid in (False, True):
             fwd, bwd = check_disc(B, C, M, with_valid, dev, gen)
             shape = [B, C, M, "valid" if with_valid else "all"]
@@ -471,10 +485,22 @@ def report_profile(tag, wall, ev, top=12):
 
 
 def phase_profile(gpu):
-    """One more round under torch.profiler: device busy share and the
-    device time by kernel name."""
+    """One more round under torch.profiler: device busy share, the device
+    time by kernel name, and one kernel symbol a wrapper call for the slice's
+    kernels (KERNEL_SYMBOLS)."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
     wall, ev = profile(gpu.run_round)
-    report_profile("profile", wall, ev)
+    calls = dict(ops.LAUNCHES)
+    _, port = report_profile("profile", wall, ev)
+    for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
+        if port.get(name, (0, 0))[0] != calls[name]:
+            raise AssertionError(f"{name}: {port.get(name)} kernels for "
+                                 f"{calls[name]} wrapper calls")
+    total = sum(us for n, us in port.values())
+    print(f"[profile] one kernel a wrapper call; the port's kernels "
+          f"{total / 1e3:.4f} ms of device time a round")
+    return {name: us / n for name, (n, us) in port.items()}
 
 
 def phase_serve(dev):
@@ -618,7 +644,7 @@ def main():
     phase_precision()
     res = phase_kernels(dev)
     gpu, launches, _ = phase_slice(dev)
-    phase_profile(gpu)
+    dev_us = phase_profile(gpu)
     del gpu
     cfg, params, prompts, serve_launches, _ = phase_serve(dev)
     prof = phase_serve_profile(cfg, params, prompts)
@@ -648,6 +674,8 @@ def main():
             "share_of_bound": main_row["bound_ms"] / main_row["ms"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
             "shapes": rows})
+    for k in kernels[:-1]:
+        k["device_us_per_launch"] = dev_us[k["name"]]
     kernels[-1]["device_us_per_launch"] = prof["flash_device_us"]
     kernels[-1]["share_of_prefill_device_time"] = prof["flash_share"]
     kernels[-1]["controls_times_limit"] = {k: c[0] for k, c in controls.items()}

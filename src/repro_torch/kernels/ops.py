@@ -8,6 +8,7 @@ Outputs and scratch are allocated here; kernels run on the current stream.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -20,8 +21,8 @@ LAUNCHES: Dict[str, int] = {"disc_loss_fwd": 0, "disc_loss_bwd": 0,
 # The device symbols (`__global__` functions in csrc/) each wrapper launches,
 # by the wrapper's LAUNCHES key: how a profile's kernel names map back to it.
 KERNEL_SYMBOLS: Dict[str, tuple] = {
-    "disc_loss_fwd": ("disc_fwd",),
-    "disc_loss_bwd": ("disc_bwd_rows", "disc_bwd_dq"),
+    "disc_loss_fwd": ("disc_fwd", "disc_fwd_small"),
+    "disc_loss_bwd": ("disc_bwd",),
     "proto_accum": ("proto_accum_kernel",),
     "flash_attention": ("flash_attention_bf16_kernel",      # tensor cores
                         "flash_attention_kernel"),          # float32
@@ -37,16 +38,25 @@ def reset_launches() -> None:
 def _on_cuda(*tensors) -> bool:
     """True if every tensor is on the card, False if every one is on the
     CPU; anything else raises."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cpu"}:
+    dev = None
+    for t in tensors:
+        if t is None:
+            continue
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            kinds = {t.device.type for t in tensors if t is not None}
+            if kinds == {"cuda"}:
+                devs = {t.device for t in tensors if t is not None}
+                raise ValueError(f"tensors on several CUDA devices: {devs}")
+            raise ValueError(f"tensors must all be on the CPU or all on one "
+                             f"CUDA device; got {sorted(kinds)}")
+    if dev is None or dev.type == "cpu":
         return False
-    if kinds == {"cuda"}:
-        devs = {t.device for t in tensors if t is not None}
-        if len(devs) > 1:
-            raise ValueError(f"tensors on several CUDA devices: {devs}")
+    if dev.type == "cuda":
         return True
     raise ValueError(f"tensors must all be on the CPU or all on one CUDA "
-                     f"device; got {sorted(kinds)}")
+                     f"device; got {[dev.type]}")
 
 
 def _check(err: int, what: str) -> None:
@@ -54,25 +64,64 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: Optional[torch.device] = None) -> int:
+    """The current stream of `device` (default: the current device) as an
+    int, by PyTorch's raw-stream query (a Stream object per call costs
+    microseconds of host time)."""
+    idx = torch.cuda.current_device() if device is None else device.index
+    return torch._C._cuda_getCurrentRawStream(idx)
 
 
-def _valid_f32(valid, M: int, like: torch.Tensor) -> torch.Tensor:
-    if valid is not None and valid.shape != (M,):
+def _valid_ptr(valid, M: int):
+    """valid (M,) bool as the kernels read it, or None (all valid)."""
+    if valid is None:
+        return None
+    if valid.shape != (M,):
         raise ValueError(f"valid must have shape ({M},), got {tuple(valid.shape)}")
-    return ref.valid_f32(valid, M, like.device).contiguous()
+    if valid.dtype != torch.bool:
+        raise ValueError(f"the kernels take a bool valid mask, got {valid.dtype}")
+    return valid.contiguous()
 
 
-def _labels_i32(labels, n: int) -> torch.Tensor:
+def _labels(labels, n: int):
+    """-> (labels as the kernels read them, 1 if int64 else 0)."""
     if labels.shape != (n,):
         raise ValueError(f"labels must have shape ({n},), got {tuple(labels.shape)}")
     if labels.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"labels must be int32 or int64, got {labels.dtype}")
-    return labels.to(torch.int32).contiguous()
+    return labels.contiguous(), int(labels.dtype == torch.int64)
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+# Zeroed int counters by (device, stream): a kernel that adds partial results
+# across blocks lets its last block find itself by one counter a tile and
+# resets that counter to 0 before it ends, so a buffer serves every launch on
+# its stream.
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 # -- disc_loss ----------------------------------------------------------------
+@functools.lru_cache(maxsize=256)
+def _disc_plan(B: int, C: int, M: int):
+    """-> ((workspace floats, counters) of the forward, the same of the
+    backward); 0 for none."""
+    L = build.lib("disc_loss")
+    return ((L.disc_loss_fwd_workspace(B, C, M), L.disc_loss_fwd_counters(B, C, M)),
+            (L.disc_loss_bwd_workspace(B, C, M), L.disc_loss_bwd_counters(B, C, M)))
+
+
 def _disc_shapes(s, q):
     if s.dim() != 2 or q.dim() != 2 or s.shape[1] != q.shape[1]:
         raise ValueError(f"need s (B, C) and q (M, C); got {tuple(s.shape)} "
@@ -89,21 +138,24 @@ def disc_loss_fwd(s, q, labels, valid=None):
         return ref.disc_loss_fwd(s, q, labels, valid)
     B, C, M = _disc_shapes(s, q)
     L = build.lib("disc_loss")
-    if M > L.disc_loss_max_m():
-        raise ValueError(f"disc_loss kernel takes M <= {L.disc_loss_max_m()}, "
-                         f"got {M}")
     s, q = s.contiguous(), q.contiguous()
-    lab = _labels_i32(labels, B)
-    v = _valid_f32(valid, M, s)
+    lab, lab64 = _labels(labels, B)
+    v = _valid_ptr(valid, M)
     loss = torch.empty(B, dtype=torch.float32, device=s.device)
     row_max = torch.empty_like(loss)
     log_z = torch.empty_like(loss)
     h_raw = torch.empty(B, M, dtype=torch.float32, device=s.device)
     if B:
-        _check(L.disc_loss_fwd(s.data_ptr(), q.data_ptr(), lab.data_ptr(),
-                               v.data_ptr(), loss.data_ptr(), row_max.data_ptr(),
-                               log_z.data_ptr(), h_raw.data_ptr(), B, C, M,
-                               _stream()), "disc_loss_fwd")
+        n_ws, n_cnt = _disc_plan(B, C, M)[0]
+        stream = _stream(s.device)
+        ws = cnt = None
+        if n_ws:               # partials of M tiles and class-axis splits
+            ws = torch.empty(n_ws, dtype=torch.float32, device=s.device)
+            cnt = _counters(s.device, stream, n_cnt)
+        _check(L.disc_loss_fwd(s.data_ptr(), q.data_ptr(), lab.data_ptr(), lab64,
+                               _ptr(v), loss.data_ptr(), row_max.data_ptr(),
+                               log_z.data_ptr(), h_raw.data_ptr(), _ptr(ws),
+                               _ptr(cnt), B, C, M, stream), "disc_loss_fwd")
         LAUNCHES["disc_loss_fwd"] += 1
     return loss, row_max, log_z, h_raw
 
@@ -118,19 +170,24 @@ def disc_loss_bwd(g, s, q, labels, valid, row_max, log_z, h_raw):
     L = build.lib("disc_loss")
     s, q = s.contiguous(), q.contiguous()
     g = g.to(torch.float32).contiguous()
-    lab = _labels_i32(labels, B)
-    v = _valid_f32(valid, M, s)
-    G = torch.empty(B, M, dtype=torch.float32, device=s.device)   # scratch
+    lab, lab64 = _labels(labels, B)
+    v = _valid_ptr(valid, M)
     ds = torch.empty_like(s)
     dq = torch.empty_like(q) if B else torch.zeros_like(q)
     if B:
+        n_ws, n_cnt = _disc_plan(B, C, M)[1]
+        stream = _stream(s.device)
+        ws = cnt = None
+        if n_ws:               # the row splits' dq partials, added in order
+            ws = torch.empty(n_ws, dtype=torch.float32, device=s.device)
+            cnt = _counters(s.device, stream, n_cnt)
         _check(L.disc_loss_bwd(g.data_ptr(), s.data_ptr(), q.data_ptr(),
-                               lab.data_ptr(), v.data_ptr(),
+                               lab.data_ptr(), lab64, _ptr(v),
                                row_max.contiguous().data_ptr(),
                                log_z.contiguous().data_ptr(),
-                               h_raw.contiguous().data_ptr(), G.data_ptr(),
-                               ds.data_ptr(), dq.data_ptr(), B, C, M,
-                               _stream()), "disc_loss_bwd")
+                               h_raw.contiguous().data_ptr(), ds.data_ptr(),
+                               dq.data_ptr(), _ptr(ws), _ptr(cnt), B, C, M, stream),
+               "disc_loss_bwd")
         LAUNCHES["disc_loss_bwd"] += 1
     return ds, dq
 
@@ -159,6 +216,14 @@ def disc_loss(student_logits, teacher_probs, labels,
 
 
 # -- proto_accum --------------------------------------------------------------
+@functools.lru_cache(maxsize=256)
+def _proto_plan(n: int, d: int, C: int):
+    """-> (row chunks K, workspace floats, counters) for the kernel."""
+    L = build.lib("proto_accum")
+    K = L.proto_accum_plan(n, d, C)
+    return K, L.proto_accum_workspace(K, d, C), L.proto_accum_counters(K, d, C)
+
+
 def proto_accum(features, labels, num_classes: int):
     """features (n, d) f32 or bf16; labels (n,) int -> (sums (C, d) f32,
     counts (C,) f32). Labels outside [0, C) contribute nothing."""
@@ -177,11 +242,18 @@ def proto_accum(features, labels, num_classes: int):
                          f"got {features.dtype}")
     L = build.lib("proto_accum")
     f = features.contiguous()
-    lab = _labels_i32(labels, n)
+    lab, lab64 = _labels(labels, n)
     sums = torch.empty(C, d, dtype=torch.float32, device=f.device)
     counts = torch.empty(C, dtype=torch.float32, device=f.device)
-    _check(getattr(L, fn)(f.data_ptr(), lab.data_ptr(), sums.data_ptr(),
-                          counts.data_ptr(), n, d, C, _stream()), "proto_accum")
+    K, n_ws, n_cnt = _proto_plan(n, d, C)
+    stream = _stream(f.device)
+    ws = cnt = None
+    if n_ws:               # past one cluster: the chunks' partials, added in order
+        ws = torch.empty(n_ws, dtype=torch.float32, device=f.device)
+        cnt = _counters(f.device, stream, n_cnt)
+    _check(getattr(L, fn)(f.data_ptr(), lab.data_ptr(), lab64, sums.data_ptr(),
+                          counts.data_ptr(), _ptr(ws), _ptr(cnt), n, d, C, K,
+                          stream), "proto_accum")
     LAUNCHES["proto_accum"] += 1
     return sums, counts
 

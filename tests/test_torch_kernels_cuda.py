@@ -93,6 +93,137 @@ def test_proto_accum_kernel_matches_plain(cuda, n, d, C, dtype):
     assert torch.equal(s, s2) and torch.equal(c, c2)       # deterministic
 
 
+# Tile edges of the kernels: disc_fwd's 64-row, 64-teacher-row and 32-class
+# tiles, disc_bwd's 32-class, 64-row and 256-teacher-row tiles (M past 256
+# walks several), M = 1, C = 1, B = 1 and M past the old limit of 6752;
+# shapes whose rows are not 16-byte aligned take the 4-byte copies.
+DISC_EDGES = [(1, 1, 1), (2, 5, 1), (10, 1, 3), (63, 31, 63), (64, 32, 64),
+              (65, 33, 65), (129, 100, 257), (70, 40, 513), (16, 64, 7000)]
+
+
+@pytest.mark.parametrize("B,C,M", DISC_EDGES)
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
+def test_disc_loss_kernels_at_tile_edges(cuda, B, C, M, label_dtype):
+    s, q, y, v = _disc_inputs(B, C, M, True, cuda)
+    y = y.to(label_dtype)
+    out = ops.disc_loss_fwd(s, q, y, v)
+    want = ref.disc_loss_fwd(s, q, y, v)
+    for a, b in zip(out, want):
+        _close(a, b)
+    g = torch.randn(B, generator=torch.Generator().manual_seed(0)).to(cuda)
+    for a, b in zip(ops.disc_loss_bwd(g, s, q, y, v, *out[1:]),
+                    ref.disc_loss_bwd(g, s, q, y, v, *want[1:])):
+        _close(a, b)
+
+
+def test_disc_loss_kernels_on_unaligned_rows(cuda):
+    """Rows that start off a 16-byte boundary (a storage offset of one
+    float) take the 4-byte copies and give the same results."""
+    B, C, M = 70, 64, 96
+    s0, q0, y, v = _disc_inputs(B, C, M, True, cuda)
+    s = torch.empty(B * C + 1, device=cuda)[1:].view(B, C).copy_(s0)
+    q = torch.empty(M * C + 1, device=cuda)[1:].view(M, C).copy_(q0)
+    out = ops.disc_loss_fwd(s, q, y, v)
+    for a, b in zip(out, ref.disc_loss_fwd(s0, q0, y, v)):
+        _close(a, b)
+    g = torch.randn(B, generator=torch.Generator().manual_seed(0)).to(cuda)
+    for a, b in zip(ops.disc_loss_bwd(g, s, q, y, v, *out[1:]),
+                    ref.disc_loss_bwd(g, s0, q0, y, v, *out[1:])):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("B,C,M", [(32, 10, 10), (2048, 4096, 256),
+                                   (16, 64, 7000), (100, 777, 33)])
+def test_disc_loss_kernels_are_deterministic(cuda, B, C, M):
+    s, q, y, v = _disc_inputs(B, C, M, True, cuda)
+    g = torch.randn(B, generator=torch.Generator().manual_seed(0)).to(cuda)
+    runs = []
+    for _ in range(2):
+        out = ops.disc_loss_fwd(s, q, y, v)
+        runs.append(out + ops.disc_loss_bwd(g, s, q, y, v, *out[1:]))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_disc_loss_partly_masked_logits_make_no_nan(cuda):
+    """Logits of -inf on whole class tiles (a masked vocabulary) must not
+    turn the running softmax into NaN."""
+    B, C, M = 8, 100, 12
+    s, q, y, v = _disc_inputs(B, C, M, False, cuda)
+    s[:, :40] = float("-inf")
+    s[3, 50:] = float("-inf")
+    out = ops.disc_loss_fwd(s, q, y, v)
+    want = ref.disc_loss_fwd(s, q, y, v)
+    for a, b in zip(out, want):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b)
+
+
+def _proto_edge_cases(dev):
+    g = torch.Generator().manual_seed(5)
+    f = lambda n, d: torch.randn(n, d, generator=g)
+    return {
+        "n = 1": (f(1, 84), torch.tensor([3]), 10),
+        "one class holds every row": (f(300, 84), torch.full((300,), 7), 10),
+        "one class of many holds every row": (f(3000, 64),
+                                              torch.full((3000,), 299), 300),
+        "an empty class": (f(240, 84), torch.randint(0, 9, (240,),
+                                                     generator=g), 10),
+        "C = 1": (f(100, 20), torch.randint(-1, 2, (100,), generator=g), 1),
+        "C = 33, past one class tile": (f(500, 130), torch.randint(
+            0, 33, (500,), generator=g), 33),
+        "many groups a chunk": (f(20000, 84), torch.randint(
+            0, 10, (20000,), generator=g), 10),
+        "d = 3, rows not 16-byte aligned": (f(77, 3), torch.randint(
+            0, 5, (77,), generator=g), 5),
+    }
+
+
+@pytest.mark.parametrize("case", list(_proto_edge_cases("cpu")))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
+def test_proto_accum_kernel_at_tile_edges(cuda, case, dtype, label_dtype):
+    f, lab, C = _proto_edge_cases("cpu")[case]
+    f, lab = f.to(dtype).to(cuda), lab.to(label_dtype).to(cuda)
+    s, c = ops.proto_accum(f, lab, C)
+    rs, rc = ref.proto_accum(f, lab, C)
+    _close(s, rs)
+    assert torch.equal(c, rc)
+    s2, c2 = ops.proto_accum(f, lab, C)
+    assert torch.equal(s, s2) and torch.equal(c, c2)
+
+
+def test_disc_and_proto_launch_one_kernel_each(cuda):
+    """disc_loss_fwd, disc_loss_bwd and proto_accum each launch exactly one
+    kernel a call, by the profiler's names (`ops.KERNEL_SYMBOLS`), at the
+    main path's shapes and the LM shape."""
+    from torch.profiler import ProfilerActivity, profile
+    for B, C, M in ((32, 10, 10), (2048, 4096, 256)):
+        s, q, y, v = _disc_inputs(B, C, M, True, cuda)
+        g = torch.ones(B, device=cuda)
+        out = ops.disc_loss_fwd(s, q, y, v)
+        calls = {"disc_loss_fwd": lambda: ops.disc_loss_fwd(s, q, y, v),
+                 "disc_loss_bwd": lambda: ops.disc_loss_bwd(g, s, q, y, v,
+                                                            *out[1:])}
+        f = torch.randn(240 if C == 10 else 8192, 84 if C == 10 else 512,
+                        device=cuda)
+        lab = torch.randint(0, C, (f.shape[0],), device=cuda)
+        calls["proto_accum"] = lambda: ops.proto_accum(f, lab, C)
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kern = [(e.key, e.count) for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")
+                    and not e.key.startswith("Memset")]
+            pat = re.compile(r"\b(" + "|".join(ops.KERNEL_SYMBOLS[name])
+                             + r")\b")
+            ours = [k for k in kern if pat.search(k[0])]
+            assert len(ours) == 1 and ours[0][1] == 1, (name, B, kern)
+
+
 def test_ops_raise_on_what_the_kernels_do_not_take(cuda):
     s, q, y, _ = _disc_inputs(8, 10, 10, False, cuda)
     with pytest.raises(ValueError):
@@ -103,6 +234,8 @@ def test_ops_raise_on_what_the_kernels_do_not_take(cuda):
         ops.proto_accum(s.half(), y, 10)
     with pytest.raises(ValueError):
         ops.disc_loss_fwd(s, q.cpu(), y)
+    with pytest.raises(ValueError):                       # valid must be bool
+        ops.disc_loss_fwd(s, q, y, torch.ones(10, device=cuda))
 
 
 def test_trainer_on_the_card_matches_the_cpu(cuda):
