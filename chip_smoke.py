@@ -14,10 +14,19 @@ Phases (each failure raises, so the process exits non-zero):
      bytes and operations, and a library call's time where one PyTorch call
      computes the same function;
   5. slice: 3 synchronous CoRS rounds of 5 LeNet clients (the example's data
-     sizes) on the card, with the kernels' launch counts asserted, then the
-     same 3 rounds on the CPU: ring state and ledger equal, accuracies close;
-  6. profile: one more round under torch.profiler (device busy share, time by
-     kernel);
+     sizes) in the sequential engine on the card, with the kernels' launch
+     counts asserted, then the same 3 rounds on the CPU: ring state and
+     ledger equal, accuracies close;
+  5b. vec: the same 3 rounds in the vectorized engine (one batched round
+     step for all clients, every round step under CUDA sync-debug mode
+     "error", so a host sync inside it fails), with the batched kernels'
+     launch counts asserted (21 / 21 / 3), ring and ledger equal to the
+     sequential engine's on the card, accuracies within 2e-2; s/round of
+     both engines;
+  6. profile: one more round of each engine under torch.profiler (device
+     busy share, device ops, time by kernel), then 2 rounds of each engine
+     at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
+     s/round at N = 5 and N = 32;
   7. serve: full-width TinyLlama-1.1B (22 layers, bf16, random weights from
      seed 0) prefills 4 prompts of 1024 tokens and decodes 32 greedy tokens
      through `repro_torch.serve_lm.serve`; 22 flash_attention launches
@@ -32,7 +41,9 @@ Phase 4 also holds three faulty flash results at the serving shape against
 the bf16 check, which must reject each: a bf16 accumulator, the last 16 keys
 dropped, and P rounded to bf16 once before P V.
 Phase 4 also runs every disc_loss and proto_accum shape twice and requires
-equal bits; phase 6 requires one kernel symbol a wrapper call.
+equal bits, and runs the kernels with a leading client axis (the vectorized
+engine's shapes), whose results must be bit-equal to one launch a client;
+phase 6 requires one kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, and device_us_per_launch from the profiles) before the last line,
 and as the last line {"ok": true, ...}.
@@ -57,6 +68,7 @@ BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor cores
 TOL = 1e-5                 # max |kernel - plain| <= TOL * max(1, max |plain|)
 ROUNDS, CLIENTS = 3, 5
 STEPS = 7                  # 240 samples a client / batch 32, remainder dropped
+SCALE_CLIENTS, SCALE_ROUNDS = 32, 2   # class_images(7680): 240 samples a client
 # flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
 # first, then tests/test_kernels.py's, a ragged one, and the serving shape at
 # head_dim 32 and 128. Kernel and plain do the same float32 math, summed in
@@ -204,13 +216,9 @@ def check_disc(B, C, M, with_valid, dev, gen):
                plain_ms=time_ms(lambda: ref.disc_loss_bwd(g, s, q, y, v,
                                                           *want[1:])),
                max_abs_err=e_b, library_ms=None)
-    # bytes: each input read once, each output written once (f32 / int32)
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-        4 * (B * C + M * C + B + M) + 4 * (3 * B + B * M),
-        2 * B * C * M + 4 * B * C + 6 * B * M)
-    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
-        4 * (B * C + M * C + 4 * B + M + B * M) + 4 * (B * C + M * C),
-        4 * B * C * M + 6 * B * C + 8 * B * M)
+    (fb, fo), (bb, bo) = _disc_bytes_ops(B, C, M)
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(fb, fo)
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(bb, bo)
     for name, r in (("fwd", fwd), ("bwd", bwd)):
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         print(f"[kernels] {tag} {name}: max_abs_err {r['max_abs_err']:.3e} "
@@ -246,6 +254,98 @@ def check_proto(n, d, C, dtype, dev, gen):
           f"{r['library_ms']:.4f} (index_add_ on f32) bound_ms "
           f"{r['bound_ms']:.6f} ({r['bound_by']}), {r['share_of_bound']:.3f} "
           f"of the bound")
+    return r
+
+
+def _disc_bytes_ops(B, C, M):
+    """(bytes, operations) of one client's forward and backward: each input
+    read once, each output written once (f32 / int32)."""
+    return ((4 * (B * C + M * C + B + M) + 4 * (3 * B + B * M),
+             2 * B * C * M + 4 * B * C + 6 * B * M),
+            (4 * (B * C + M * C + 4 * B + M + B * M) + 4 * (B * C + M * C),
+             4 * B * C * M + 6 * B * C + 8 * B * M))
+
+
+def check_disc_batched(N, B, C, M, with_valid, dev, gen):
+    """disc_loss with a leading axis of N clients (the vectorized engine's
+    call): one launch, bit-equal to N launches of one client, within TOL of
+    the batched plain version."""
+    from repro_torch.kernels import ops, ref
+    s = (torch.randn(N, B, C, generator=gen) * 2).to(dev)
+    q = torch.softmax(torch.randn(N, M, C, generator=gen) * 2, -1).to(dev)
+    y = torch.randint(0, M, (N, B), generator=gen, dtype=torch.int32).to(dev)
+    v = (torch.rand(N, M, generator=gen) > 0.3).to(dev) if with_valid else None
+    g = torch.randn(N, B, generator=gen).to(dev)
+    vi = lambda i: None if v is None else v[i]
+    tag = f"disc_loss batched ({N}, {B}, {C}, {M}){' valid' if with_valid else ''}"
+    out = ops.disc_loss_fwd(s, q, y, v)
+    grads = ops.disc_loss_bwd(g, s, q, y, v, *out[1:])
+    per = [ops.disc_loss_fwd(s[i], q[i], y[i], vi(i)) for i in range(N)]
+    per_g = [ops.disc_loss_bwd(g[i], s[i], q[i], y[i], vi(i), *per[i][1:])
+             for i in range(N)]
+    torch.cuda.synchronize()
+    for k, a in enumerate(out):
+        if not torch.equal(a, torch.stack([p[k] for p in per])):
+            raise AssertionError(f"{tag}: forward output {k} differs from one "
+                                 f"launch a client")
+    for k, a in enumerate(grads):
+        if not torch.equal(a, torch.stack([p[k] for p in per_g])):
+            raise AssertionError(f"{tag}: backward output {k} differs from one "
+                                 f"launch a client")
+    want = ref.disc_loss_fwd(s, q, y, v)
+    e_f = max_err(out, want, tag + " fwd")
+    e_b = max_err(grads, ref.disc_loss_bwd(g, s, q, y, v, *want[1:]), tag + " bwd")
+    fwd = dict(ms=time_ms(lambda: ops.disc_loss_fwd(s, q, y, v)),
+               plain_ms=time_ms(lambda: ref.disc_loss_fwd(s, q, y, v)),
+               max_abs_err=e_f, library_ms=None)
+    bwd = dict(ms=time_ms(lambda: ops.disc_loss_bwd(g, s, q, y, v, *out[1:])),
+               plain_ms=time_ms(lambda: ref.disc_loss_bwd(g, s, q, y, v,
+                                                          *want[1:])),
+               max_abs_err=e_b, library_ms=None)
+    (fb, fo), (bb, bo) = _disc_bytes_ops(B, C, M)
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(N * fb, N * fo)
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(N * bb, N * bo)
+    for name, r in (("fwd", fwd), ("bwd", bwd)):
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        print(f"[kernels] {tag} {name}: max_abs_err {r['max_abs_err']:.3e} "
+              f"(tol {TOL} x max(1, |plain|)), bit-equal to {N} one-client "
+              f"launches, kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']}), "
+              f"{r['share_of_bound']:.3f} of the bound")
+    return fwd, bwd
+
+
+def check_proto_batched(N, n, d, C, dtype, dev, gen):
+    """proto_accum with a leading axis of N clients: one launch, bit-equal
+    to N launches of one client, within TOL of the batched plain version;
+    the library call is one `index_add_` over the clients' classes."""
+    from repro_torch.kernels import ops, ref
+    f = torch.randn(N, n, d, generator=gen).to(dtype).to(dev)
+    lab = torch.randint(0, C, (N, n), generator=gen, dtype=torch.int32).to(dev)
+    tag = f"proto_accum batched ({N}, {n}, {d}, {C}) {str(dtype).split('.')[-1]}"
+    out = ops.proto_accum(f, lab, C)
+    per = [ops.proto_accum(f[i], lab[i], C) for i in range(N)]
+    torch.cuda.synchronize()
+    for k in range(2):
+        if not torch.equal(out[k], torch.stack([p[k] for p in per])):
+            raise AssertionError(f"{tag}: output {k} differs from one launch "
+                                 f"a client")
+    err = max_err(out, ref.proto_accum(f, lab, C), tag)
+    f32 = f.float().reshape(N * n, d)
+    rows = (lab.long() + C * torch.arange(N, device=dev)[:, None]).reshape(-1)
+    r = dict(ms=time_ms(lambda: ops.proto_accum(f, lab, C)),
+             plain_ms=time_ms(lambda: ref.proto_accum(f, lab, C)),
+             library_ms=time_ms(lambda: torch.zeros(N * C, d, device=dev)
+                                .index_add_(0, rows, f32)),
+             max_abs_err=err)
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        N * (n * d * f.element_size() + 4 * n + 4 * (C * d + C)), N * n * d)
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print(f"[kernels] {tag}: max_abs_err {err:.3e}, bit-equal to {N} "
+          f"one-client launches, kernel_ms {r['ms']:.4f} plain_ms "
+          f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} (index_add_ "
+          f"on f32) bound_ms {r['bound_ms']:.6f} ({r['bound_by']}), "
+          f"{r['share_of_bound']:.3f} of the bound")
     return r
 
 
@@ -367,7 +467,8 @@ def phase_kernels(dev):
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(0)
     res = {"disc_loss_fwd": [], "disc_loss_bwd": [], "proto_accum": [],
-           "flash_attention": []}
+           "flash_attention": [], "disc_loss_fwd_batched": [],
+           "disc_loss_bwd_batched": [], "proto_accum_batched": []}
     for B, C, M in ((32, 10, 10), (320, 10, 10), (2048, 4096, 256),
                     (100, 777, 33), (16, 64, 7000)):
         for with_valid in (False, True):
@@ -386,6 +487,18 @@ def phase_kernels(dev):
     from repro_torch.kernels import ref
     max_err(ops.proto_accum(f, lab, 300), ref.proto_accum(f, lab, 300),
             "proto_accum out-of-range labels")
+    # the vectorized engine's calls: the main path's (5, 32, 10, 10) first,
+    # then a shape that takes the split forward
+    for N, B, C, M in ((CLIENTS, 32, 10, 10), (3, 100, 777, 33)):
+        for with_valid in (False, True):
+            fwd, bwd = check_disc_batched(N, B, C, M, with_valid, dev, gen)
+            shape = [N, B, C, M, "valid" if with_valid else "all"]
+            res["disc_loss_fwd_batched"].append(dict(fwd, shape=shape))
+            res["disc_loss_bwd_batched"].append(dict(bwd, shape=shape))
+    for dtype in (torch.float32, torch.bfloat16):
+        r = check_proto_batched(CLIENTS, 240, 84, 10, dtype, dev, gen)
+        res["proto_accum_batched"].append(
+            dict(r, shape=[CLIENTS, 240, 84, 10, str(dtype).split(".")[-1]]))
     for B, S, H, G, hd in FLASH_SHAPES:        # the main path's row first
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
@@ -400,7 +513,7 @@ def phase_kernels(dev):
 def phase_slice(dev):
     from repro_torch.collab_image_classification import build_trainer
     from repro_torch.kernels import ops
-    gpu = build_trainer(CLIENTS, "cors", seed=0, device=dev)
+    gpu = build_trainer(CLIENTS, "cors", seed=0, device=dev, engine="seq")
     ops.reset_launches()
     secs = []
     for _ in range(ROUNDS):
@@ -422,7 +535,7 @@ def phase_slice(dev):
             if not all(math.isfinite(v) for v in m.values()):
                 raise AssertionError(f"non-finite metrics {m}")
 
-    cpu = build_trainer(CLIENTS, "cors", seed=0, device="cpu")
+    cpu = build_trainer(CLIENTS, "cors", seed=0, device="cpu", engine="seq")
     for _ in range(ROUNDS):
         cpu.run_round()
     sg, sc = gpu.server.state, cpu.server.state
@@ -484,23 +597,111 @@ def report_profile(tag, wall, ev, top=12):
     return busy_us, port
 
 
-def phase_profile(gpu):
-    """One more round under torch.profiler: device busy share, the device
-    time by kernel name, and one kernel symbol a wrapper call for the slice's
-    kernels (KERNEL_SYMBOLS)."""
+def phase_vec(dev, seq):
+    """The paper's scenario in the vectorized engine: the same 3 rounds as
+    phase 5, every round step under sync-debug mode "error", held against
+    the sequential engine's run on the card (`seq`, 3 rounds)."""
+    from repro_torch.collab_image_classification import build_trainer
+    from repro_torch.kernels import ops
+    vec = build_trainer(CLIENTS, "cors", seed=0, device=dev, engine="vec")
+    step = vec._round_step
+
+    def no_sync_step(*args):
+        torch.cuda.set_sync_debug_mode("error")   # a host sync raises
+        try:
+            return step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    vec._round_step = no_sync_step
+    ops.reset_launches()
+    secs = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        rec = vec.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        print(f"[vec] round {rec['round']}: acc {rec['acc_mean']:.4f} accs "
+              f"{rec['accs']} {secs[-1]:.3f} s")
+    vec._round_step = step
+    launches = dict(ops.LAUNCHES)
+    print(f"[vec] launches {launches}; seconds per round {secs}; no host sync "
+          f"inside the round step")
+    want = {"disc_loss_fwd": STEPS * ROUNDS, "disc_loss_bwd": STEPS * ROUNDS,
+            "proto_accum": ROUNDS, "flash_attention": 0}
+    if launches != want:
+        raise AssertionError(f"vec launch counts {launches} != {want}")
+    for h in vec.history:
+        for m in h["metrics"]:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"non-finite metrics {m}")
+    sv, ss = vec.relay_state, seq.server.state
+    for f in ("ptr", "owner", "valid", "stamp", "clock", "valid_g"):
+        if not torch.equal(getattr(sv, f), getattr(ss, f)):
+            raise AssertionError(f"ring field {f} differs between vec and seq")
+    if vec.ledger.by_round != seq.ledger.by_round:
+        raise AssertionError("ledgers differ between vec and seq")
+    for hv, hs in zip(vec.history, seq.history):
+        d = max(abs(a - b) for a, b in zip(hv["accs"], hs["accs"]))
+        if d > 2e-2:
+            raise AssertionError(f"round {hv['round']}: vec and seq accuracies "
+                                 f"differ by {d}")
+    d_obs = float((sv.obs - ss.obs).abs().max())
+    d_gp = float((sv.global_protos - ss.global_protos).abs().max())
+    print(f"[vec] vec vs seq on the card: ring and ledger equal; accs vec "
+          f"{vec.history[-1]['accs']} seq {seq.history[-1]['accs']}; max |obs| "
+          f"diff {d_obs:.3e}, max |global_protos| diff {d_gp:.3e}")
+    return vec, launches, secs
+
+
+def phase_profile(engine, tag, batched):
+    """One more round under torch.profiler: device busy share, device ops,
+    the device time by kernel name, and one kernel symbol a wrapper call for
+    the slice's kernels (KERNEL_SYMBOLS). -> (device us a launch by kernel,
+    device ops, busy share)."""
     from repro_torch.kernels import ops
     ops.reset_launches()
-    wall, ev = profile(gpu.run_round)
+    wall, ev = profile(engine.run_round)
     calls = dict(ops.LAUNCHES)
-    _, port = report_profile("profile", wall, ev)
+    busy, port = report_profile(tag, wall, ev)
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         if port.get(name, (0, 0))[0] != calls[name]:
             raise AssertionError(f"{name}: {port.get(name)} kernels for "
                                  f"{calls[name]} wrapper calls")
     total = sum(us for n, us in port.values())
-    print(f"[profile] one kernel a wrapper call; the port's kernels "
+    print(f"[{tag}] one kernel a wrapper call; the port's kernels "
           f"{total / 1e3:.4f} ms of device time a round")
-    return {name: us / n for name, (n, us) in port.items()}
+    sfx = "_batched" if batched else ""
+    return ({name + sfx: us / n for name, (n, us) in port.items()},
+            sum(e.count for e in ev), busy / 1e6 / wall)
+
+
+def phase_scale(dev, secs_seq5, secs_vec5):
+    """s/round of both engines at N = 32 (240 samples each), and the
+    vec-over-seq ratio at N = 5 (phases 5 and 5b, steady rounds 2-3) and
+    N = 32 (round 2)."""
+    from repro_torch.collab_image_classification import build_trainer
+    secs = {}
+    for engine in ("vec", "seq"):
+        t = build_trainer(SCALE_CLIENTS, "cors", seed=0, device=dev,
+                          engine=engine, n_train=240 * SCALE_CLIENTS)
+        secs[engine] = []
+        for _ in range(SCALE_ROUNDS):
+            t0 = time.perf_counter()
+            rec = t.run_round()
+            torch.cuda.synchronize()
+            secs[engine].append(time.perf_counter() - t0)
+        print(f"[scale] N={SCALE_CLIENTS} {engine}: seconds per round "
+              f"{secs[engine]}, acc {rec['acc_mean']:.4f}")
+        del t
+    steady = lambda x: sum(x[1:]) / len(x[1:])
+    r5 = steady(secs_seq5) / steady(secs_vec5)
+    r32 = secs["seq"][-1] / secs["vec"][-1]
+    print(f"[scale] s/round seq over vec: N={CLIENTS} {r5:.3f}x "
+          f"({steady(secs_seq5):.4f} / {steady(secs_vec5):.4f} s), "
+          f"N={SCALE_CLIENTS} {r32:.3f}x ({secs['seq'][-1]:.4f} / "
+          f"{secs['vec'][-1]:.4f} s)")
+    return {"n5": r5, "n32": r32, "secs32": secs}
 
 
 def phase_serve(dev):
@@ -643,47 +844,58 @@ def main():
     resources = phase_build()
     phase_precision()
     res = phase_kernels(dev)
-    gpu, launches, _ = phase_slice(dev)
-    dev_us = phase_profile(gpu)
-    del gpu
+    gpu, launches, secs_seq = phase_slice(dev)
+    vec, launches_vec, secs_vec = phase_vec(dev, gpu)
+    dev_us, ops_seq, busy_seq = phase_profile(gpu, "profile seq", False)
+    dev_us_vec, ops_vec, busy_vec = phase_profile(vec, "profile vec", True)
+    dev_us.update(dev_us_vec)
+    print(f"[profile] device ops a round: vec {ops_vec}, seq {ops_seq} "
+          f"({ops_vec / ops_seq:.3f} of seq); device busy vec "
+          f"{100 * busy_vec:.1f}%, seq {100 * busy_seq:.1f}%")
+    del gpu, vec
+    scale = phase_scale(dev, secs_seq, secs_vec)
+    torch.cuda.empty_cache()
     cfg, params, prompts, serve_launches, _ = phase_serve(dev)
     prof = phase_serve_profile(cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
     e_k, e_d, e_c = phase_serve_check(dev)
     launches["flash_attention"] = serve_launches["flash_attention"]
+    for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
+        launches[name + "_batched"] = launches_vec[name]
+    dev_us["flash_attention"] = prof["flash_device_us"]
 
     src = "src/repro_torch/kernels/csrc/"
-    meta = {
-        "disc_loss_fwd": (src + "disc_loss.cu", "src/repro/kernels/disc_loss.py:30"),
-        "disc_loss_bwd": (src + "disc_loss.cu", "src/repro/kernels/disc_loss.py:30"),
-        "proto_accum": (src + "proto_accum.cu", "src/repro/kernels/proto_accum.py:22"),
-        "flash_attention": (src + "flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:25"),
-    }
+    disc = (src + "disc_loss.cu", "src/repro/kernels/disc_loss.py:30")
+    proto = (src + "proto_accum.cu", "src/repro/kernels/proto_accum.py:22")
+    meta = {"disc_loss_fwd": disc, "disc_loss_bwd": disc, "proto_accum": proto,
+            "flash_attention": (src + "flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:25"),
+            "disc_loss_fwd_batched": disc, "disc_loss_bwd_batched": disc,
+            "proto_accum_batched": proto}
     controls = res.pop("flash_controls")
     kernels = []
     for name, rows in res.items():
         main_row = rows[0]                 # the main path's shape, first
-        kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "share_of_bound": main_row["bound_ms"] / main_row["ms"],
-            "library_ms": main_row["library_ms"], "shape": main_row["shape"],
-            "shapes": rows})
-    for k in kernels[:-1]:
-        k["device_us_per_launch"] = dev_us[k["name"]]
-    kernels[-1]["device_us_per_launch"] = prof["flash_device_us"]
-    kernels[-1]["share_of_prefill_device_time"] = prof["flash_share"]
-    kernels[-1]["controls_times_limit"] = {k: c[0] for k, c in controls.items()}
-    kernels[-1]["bf16_kernel_resources"] = resources
-    kernels[-1]["serve_check_f32"] = {"kernel_vs_plain": e_k,
-                                      "decode_vs_prefill": e_d,
-                                      "bf16_attention_control": e_c}
-    print(f"[card] {smi}")
+        k = {"name": name, "route": "cuda", "source": meta[name][0],
+             "replaces": meta[name][1], "launches": launches[name],
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+             "share_of_bound": main_row["bound_ms"] / main_row["ms"],
+             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
+             "device_us_per_launch": dev_us[name], "shapes": rows}
+        if name == "flash_attention":
+            k["share_of_prefill_device_time"] = prof["flash_share"]
+            k["controls_times_limit"] = {n: c[0] for n, c in controls.items()}
+            k["bf16_kernel_resources"] = resources
+            k["serve_check_f32"] = {"kernel_vs_plain": e_k,
+                                    "decode_vs_prefill": e_d,
+                                    "bf16_attention_control": e_c}
+        kernels.append(k)
+    print(f"[card] {smi}; vec over seq s/round: N={CLIENTS} "
+          f"{scale['n5']:.3f}x, N={SCALE_CLIENTS} {scale['n32']:.3f}x; device "
+          f"ops a round vec {ops_vec} seq {ops_seq}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """End-to-end run of the port (the twin of
-examples/collab_image_classification.py with `--engine seq`): N = 5 LeNet
-clients on sparse local data, CoRS or IL, per-round accuracy, exact
-communication accounting and the kernels' launch counts.
+examples/collab_image_classification.py): N = 5 LeNet clients on sparse
+local data, CoRS or IL, per-round accuracy, exact communication accounting
+and the kernels' launch counts. `--engine vec` (the default, as in the
+reference's example) runs all clients in one batched round step, `seq` the
+sequential engine.
 
   PYTHONPATH=src python -m repro_torch.collab_image_classification \
-      [--rounds R] [--clients N] [--mode cors|il] [--device cuda|cpu]
+      [--rounds R] [--clients N] [--mode cors|il] [--engine vec|seq] \
+      [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import time
 
 import torch
 
-from repro_torch.core import client as client_lib, collab
+from repro_torch.core import client as client_lib, collab, vec_collab
 from repro_torch.data import partition, synthetic
 from repro_torch.kernels import ops
 from repro_torch.models import cnn
@@ -23,22 +26,26 @@ CNN_SPEC = client_lib.ClientSpec(apply=cnn.apply,
                                  head=lambda p: (p["head_w"], p["head_b"]))
 
 
+ENGINES = {"vec": vec_collab.VectorizedCollabTrainer,
+           "seq": collab.CollabTrainer}
+
+
 def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
                   lambda_kd: float = 2.0, lambda_disc: float = 1.0,
-                  device=None) -> collab.CollabTrainer:
-    """The example's fleet: `class_images(1200)` split uniformly over the
+                  device=None, engine: str = "vec", n_train: int = 1200):
+    """The example's fleet: `class_images(n_train)` split uniformly over the
     clients, 2000 test images, batch 32, LeNet clients with random weights
-    from `seed`."""
-    x, y = synthetic.class_images(1200, seed=0, noise=0.8)
+    from `seed`, in the `engine` trainer."""
+    x, y = synthetic.class_images(n_train, seed=0, noise=0.8)
     tx, ty = synthetic.class_images(2000, seed=99, noise=0.8)
     parts = partition.uniform_split(x, y, clients, seed=1)
     g = torch.Generator().manual_seed(seed)
     params = [cnn.init_cnn(g, device="cpu") for _ in range(clients)]
     ccfg = CollabConfig(mode=mode, num_classes=10, d_feature=84,
                         lambda_kd=lambda_kd, lambda_disc=lambda_disc)
-    return collab.CollabTrainer([CNN_SPEC] * clients, params, parts, (tx, ty),
-                                ccfg, TrainConfig(batch_size=32), seed=seed,
-                                device=device)
+    return ENGINES[engine]([CNN_SPEC] * clients, params, parts, (tx, ty),
+                           ccfg, TrainConfig(batch_size=32), seed=seed,
+                           device=device)
 
 
 def main(argv=None):
@@ -46,6 +53,7 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--clients", type=int, default=5)
     ap.add_argument("--mode", default="cors", choices=["cors", "il"])
+    ap.add_argument("--engine", default="vec", choices=sorted(ENGINES))
     ap.add_argument("--lambda-kd", type=float, default=2.0)
     ap.add_argument("--lambda-disc", type=float, default=1.0)
     ap.add_argument("--device", default=None,
@@ -54,10 +62,10 @@ def main(argv=None):
 
     trainer = build_trainer(args.clients, args.mode,
                             lambda_kd=args.lambda_kd,
-                            lambda_disc=args.lambda_disc, device=args.device)
-    n0 = trainer.clients[0].data_x.shape[0]
-    print(f"{args.clients} clients × {n0} samples each, mode={args.mode}, "
-          f"device={trainer.device}")
+                            lambda_disc=args.lambda_disc, device=args.device,
+                            engine=args.engine)
+    print(f"{args.clients} clients sharing 1200 samples, mode={args.mode}, "
+          f"engine={args.engine}, device={trainer.device}")
     ops.reset_launches()
     for _ in range(args.rounds):
         t0 = time.perf_counter()

@@ -7,11 +7,12 @@ the reference package. The only layout change of the image models is the
 conv weights: HWIO in the reference (`repro/models/cnn.py:26-44`), OIHW in
 the port. Dense weights keep their (in, out) layout, and the LeNet flattens
 its pooled activation in NHWC order (`models/cnn.py`), so `fc1` is copied as
-is. An LM's stacked segments are split into per-layer dicts.
+is. A leading client axis (the vectorized engines' stacked parameters) is
+kept. An LM's stacked segments are split into per-layer dicts.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
@@ -21,10 +22,16 @@ from repro_torch.device import resolve_device
 _CONV = {"cnn": ("conv1", "conv2"), "mlp": ()}
 
 
+def _conv_axes(ndim: int, perm):
+    """`perm` of a 4-d conv weight, after any leading (client) axes."""
+    lead = ndim - 4
+    return tuple(range(lead)) + tuple(lead + i for i in perm)
+
+
 def params_from_jax(np_params: Dict[str, np.ndarray], kind: str = "cnn",
                     device=None) -> Dict[str, torch.Tensor]:
     """Reference parameters (numpy, JAX layout) -> port parameters (float32
-    tensors on `device`)."""
+    tensors on `device`); stacked parameters keep their client axis."""
     if kind not in _CONV:
         raise ValueError(f"kind must be one of {sorted(_CONV)}, got {kind!r}")
     dev = resolve_device(device)
@@ -32,21 +39,32 @@ def params_from_jax(np_params: Dict[str, np.ndarray], kind: str = "cnn",
     for k, v in np_params.items():
         a = np.array(v, np.float32)                        # own copy
         if k in _CONV[kind]:
-            a = a.transpose(3, 2, 0, 1)                      # HWIO -> OIHW
+            a = a.transpose(_conv_axes(a.ndim, (3, 2, 0, 1)))   # HWIO -> OIHW
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return out
 
 
+def stacked_params_from_jax(np_params_list: Sequence[Dict[str, np.ndarray]],
+                            kind: str = "cnn",
+                            device=None) -> Dict[str, torch.Tensor]:
+    """N clients' reference parameters -> the port's stacked parameters
+    (every leaf with a leading client axis), as the vectorized engine holds
+    them; `VectorizedCollabTrainer.client_params(i)` unstacks client i."""
+    return params_from_jax({k: np.stack([np.asarray(p[k]) for p in np_params_list])
+                            for k in np_params_list[0]}, kind, device)
+
+
 def params_to_numpy(params: Dict[str, torch.Tensor],
                     kind: str = "cnn") -> Dict[str, np.ndarray]:
-    """Port parameters -> numpy arrays in the reference's layout."""
+    """Port parameters (one client's, or stacked) -> numpy arrays in the
+    reference's layout."""
     if kind not in _CONV:
         raise ValueError(f"kind must be one of {sorted(_CONV)}, got {kind!r}")
     out = {}
     for k, v in params.items():
         a = v.detach().cpu().numpy()
         if k in _CONV[kind]:
-            a = a.transpose(2, 3, 1, 0)                      # OIHW -> HWIO
+            a = a.transpose(_conv_axes(a.ndim, (2, 3, 1, 0)))   # OIHW -> HWIO
         out[k] = np.ascontiguousarray(a)
     return out
 

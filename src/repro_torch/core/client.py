@@ -6,6 +6,14 @@ A client is (apply, head): `apply(params, x) -> (features, logits)` and
 discriminator. The reference's two `lax.scan`s (epochs x batches) are Python
 loops here. `loss_fn` reads no randomness in cors and il modes, so a local
 update is deterministic given the parameters and the teacher.
+
+`stacked=True` is the vectorized engine's form, the counterpart of
+`jax.vmap` over these functions: every parameter, batch and teacher entry
+carries a leading client axis. The model runs under `torch.func.vmap` over
+the stacked parameters; the losses (and so the kernels) take the client
+axis explicitly, outside the vmap, one launch for the fleet; one gradient
+of the sum of the N clients' losses is each client's own gradient, since
+the clients share no parameter.
 """
 from __future__ import annotations
 
@@ -45,13 +53,20 @@ def bucketize(specs: Sequence[ClientSpec],
     return [(k[0], ids) for k, ids in buckets.items()]
 
 
-def loss_fn(spec: ClientSpec, params, batch, teacher, ccfg: CollabConfig):
+def _apply(spec: ClientSpec, stacked: bool):
+    return torch.func.vmap(spec.apply) if stacked else spec.apply
+
+
+def loss_fn(spec: ClientSpec, params, batch, teacher, ccfg: CollabConfig,
+            stacked: bool = False):
     """One mini-batch of Algorithm 2's inner loop -> (total, metrics).
 
     teacher: dict(global_protos (C,d'), valid_g (C,), obs (M,C,d'),
-    valid_o (C,), obs_pick (int: which m to use), mean_logits (C,C))."""
+    valid_o (C,), obs_pick (int: which m to use), mean_logits (C,C)).
+    stacked: every argument has a leading client axis (obs_pick an (N,)
+    tensor), and total and metrics are (N,)."""
     x, y = batch["x"], batch["y"]
-    feats, logits = spec.apply(params, x)
+    feats, logits = _apply(spec, stacked)(params, x)
     l_ce = losses.ce_loss(logits, y)
     metrics = {"ce": l_ce}
     total = l_ce
@@ -59,7 +74,11 @@ def loss_fn(spec: ClientSpec, params, batch, teacher, ccfg: CollabConfig):
         w, b = spec.head(params)
         l_kd = losses.kd_loss(feats, teacher["global_protos"], y,
                               valid=teacher["valid_g"])
-        obs_m = teacher["obs"][int(teacher.get("obs_pick", 0))]   # (C, d')
+        obs, pick = teacher["obs"], teacher.get("obs_pick", 0)
+        if stacked:                                          # (N, C, d')
+            obs_m = obs[torch.arange(obs.shape[0], device=obs.device), pick]
+        else:
+            obs_m = obs[int(pick)]                           # (C, d')
         l_disc = losses.disc_loss(feats, obs_m, y, w, b,
                                   valid=teacher["valid_o"],
                                   student_logits=logits)
@@ -89,28 +108,35 @@ def empty_teacher(ccfg: CollabConfig, device) -> Dict:
 
 
 def make_local_update_fn(spec: ClientSpec, ccfg: CollabConfig,
-                         tcfg: TrainConfig):
+                         tcfg: TrainConfig, stacked: bool = False):
     """fn(params, opt_state, batches, teacher) -> (params, opt_state,
     metrics). `batches` = {"x": (n_batches, bs, ...), "y": (n_batches, bs)},
     run for E local epochs (Algorithm 2). Metrics are those of the last
-    batch, as 0-d tensors, with the step's global gradient norm."""
+    batch, as 0-d tensors, with the step's global gradient norm.
+
+    stacked: params, Adam moments, batches ({"x": (N, n_batches, bs, ...),
+    "y": (N, n_batches, bs)}) and teacher carry a leading client axis;
+    metrics are (N,), the gradient norm each client's own."""
 
     def run(params, opt_state, batches, teacher):
-        n = batches["y"].shape[0]
+        n = batches["y"].shape[1 if stacked else 0]
         keys = sorted(params)
         metrics = zero_metrics(ccfg)
         for _ in range(tcfg.local_epochs):
             for j in range(n):
                 p = {k: v.detach().requires_grad_(True)
                      for k, v in params.items()}
-                total, metrics = loss_fn(
-                    spec, p, {"x": batches["x"][j], "y": batches["y"][j]},
-                    teacher, ccfg)
+                batch = ({"x": batches["x"][:, j], "y": batches["y"][:, j]}
+                         if stacked else
+                         {"x": batches["x"][j], "y": batches["y"][j]})
+                total, metrics = loss_fn(spec, p, batch, teacher, ccfg,
+                                         stacked)
                 grads = dict(zip(keys, torch.autograd.grad(
-                    total, [p[k] for k in keys])))
+                    total.sum() if stacked else total, [p[k] for k in keys])))
                 metrics = {k: v.detach() for k, v in metrics.items()}
                 metrics["grad_norm"] = torch.sqrt(sum(
-                    torch.sum(torch.square(grads[k])) for k in keys))
+                    torch.square(grads[k]).reshape(total.shape + (-1,)).sum(-1)
+                    for k in keys))
                 params, opt_state = adam_update(
                     params, grads, opt_state, lr=tcfg.learning_rate,
                     b1=tcfg.beta1, b2=tcfg.beta2, eps=tcfg.eps)
@@ -130,14 +156,18 @@ def zero_metrics(ccfg: CollabConfig) -> Dict:
 
 @torch.no_grad()
 def compute_uploads(spec: ClientSpec, params, data_x, data_y,
-                    ccfg: CollabConfig, prio) -> Dict:
+                    ccfg: CollabConfig, prio, stacked: bool = False) -> Dict:
     """End-of-round uploads (Algorithm 1): the client's per-class sums (for
     t-bar) and M_up observations (for the L_disc buffers). prio (m_up, n):
-    the observation draw's priorities (see `prototypes.observations`)."""
-    feats, _ = spec.apply(params, data_x)
+    the observation draw's priorities (see `prototypes.observations`).
+    stacked: all N clients' uploads at once, each entry with a leading
+    client axis (one proto_accum launch for the fleet)."""
+    feats, _ = _apply(spec, stacked)(params, data_x)
     state = prototypes.accumulate(
         prototypes.init_state(ccfg.num_classes, feats.shape[-1],
-                              feats.device), feats, data_y)
+                              feats.device,
+                              feats.shape[0] if stacked else None),
+        feats, data_y)
     obs, valid = prototypes.observations(prio, feats, data_y,
                                          ccfg.num_classes, ccfg.n_avg)
     return {"proto": state, "obs": obs, "valid": valid}

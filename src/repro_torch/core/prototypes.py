@@ -7,7 +7,9 @@ port of `repro/core/prototypes.py`.
 
 The per-class accumulation runs through the hand-written proto_accum kernel
 on the card (`kernels/ops.py`); the observation draw is a weighted sum that
-stays plain torch, as the reference leaves it to XLA.
+stays plain torch, as the reference leaves it to XLA. Both take an optional
+leading client axis (the vectorized engine's fleet): one kernel launch, one
+batched draw.
 """
 from __future__ import annotations
 
@@ -19,22 +21,26 @@ from repro_torch.kernels import ops, ref
 
 
 class ProtoState(NamedTuple):
-    """Running per-class sums. sum: (C, d') f32; count: (C,) f32."""
+    """Running per-class sums. sum: (..., C, d') f32; count: (..., C) f32."""
     sum: torch.Tensor
     count: torch.Tensor
 
     @property
     def num_classes(self) -> int:
-        return self.sum.shape[0]
+        return self.sum.shape[-2]
 
 
-def init_state(num_classes: int, d_feature: int, device) -> ProtoState:
-    return ProtoState(torch.zeros(num_classes, d_feature, device=device),
-                      torch.zeros(num_classes, device=device))
+def init_state(num_classes: int, d_feature: int, device,
+               clients: Optional[int] = None) -> ProtoState:
+    """Zero sums, (C, d') and (C,), or with `clients` (N, C, d') and (N, C)."""
+    lead = () if clients is None else (clients,)
+    return ProtoState(torch.zeros(*lead, num_classes, d_feature, device=device),
+                      torch.zeros(*lead, num_classes, device=device))
 
 
 def accumulate(state: ProtoState, features, labels) -> ProtoState:
-    """features (n, d'); labels (n,) int. Adds per-class sums/counts."""
+    """features (..., n, d'); labels (..., n) int. Adds per-class
+    sums/counts."""
     s, c = ops.proto_accum(features.float(), labels, state.num_classes)
     return ProtoState(state.sum + s, state.count + c)
 
@@ -62,19 +68,18 @@ def observations(prio, features, labels, num_classes: int, n_avg: int):
     `jax.random.uniform`, `prototypes.py:90`); each draw keeps the n_avg
     highest-priority samples of every class. features (n, d'); labels (n,).
     Classes with fewer than n_avg samples average what is present; empty
-    classes give zero rows and a False validity.
+    classes give zero rows and a False validity. A leading client axis on
+    all three batches the draws.
 
-    Returns obs (m_up, C, d') f32, valid (C,) bool.
+    Returns obs (..., m_up, C, d') f32, valid (..., C) bool.
     """
     feats = features.float()
-    onehot = ref.one_hot(labels, num_classes)                # (n, C)
-    obs = []
-    for row in prio:
-        order = torch.argsort(-row, stable=True)
-        ranked = onehot[order]                               # (n, C)
-        rank_in_class = torch.cumsum(ranked, 0) * ranked
-        w = ((rank_in_class > 0) & (rank_in_class <= n_avg)).float()
-        s = w.T @ feats[order]
-        cnt = w.sum(0).clamp(min=1.0)
-        obs.append(s / cnt[:, None])
-    return torch.stack(obs), onehot.sum(0) > 0
+    onehot = ref.one_hot(labels, num_classes)                # (..., n, C)
+    order = torch.argsort(-prio, dim=-1, stable=True)[..., None]   # (..., m, n, 1)
+    ranked = torch.take_along_dim(onehot[..., None, :, :], order, dim=-2)
+    rank_in_class = torch.cumsum(ranked, -2) * ranked        # (..., m, n, C)
+    w = ((rank_in_class > 0) & (rank_in_class <= n_avg)).float()
+    s = w.transpose(-1, -2) @ torch.take_along_dim(feats[..., None, :, :], order,
+                                                   dim=-2)   # (..., m, C, d')
+    cnt = w.sum(-2).clamp(min=1.0)
+    return s / cnt[..., None], onehot.sum(-2) > 0

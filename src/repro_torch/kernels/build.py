@@ -29,18 +29,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the queries (`*_tiles`, `*_counters`, `proto_accum_plan`, `*_workspace`,
 # `flash_attention_bf16_smem`). Labels are int32 or int64 (the int after the
 # labels pointer says which); valid is a bool pointer, or null for all valid.
+# The launches take the number of clients N before the per-client shape.
 SIGNATURES = {
     "disc_loss": {
-        "disc_loss_fwd": [_P] * 3 + [_I] + [_P] * 7 + [_I] * 3 + [_P],
-        "disc_loss_bwd": [_P] * 4 + [_I] + [_P] * 8 + [_I] * 3 + [_P],
+        "disc_loss_fwd": [_P] * 3 + [_I] + [_P] * 7 + [_I] * 4 + [_P],
+        "disc_loss_bwd": [_P] * 4 + [_I] + [_P] * 8 + [_I] * 4 + [_P],
         "disc_loss_bwd_workspace": [_I] * 3,
         "disc_loss_bwd_counters": [_I] * 3,
         "disc_loss_fwd_workspace": [_I] * 3,
         "disc_loss_fwd_counters": [_I] * 3,
     },
     "proto_accum": {
-        "proto_accum_f32": [_P] * 2 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
-        "proto_accum_bf16": [_P] * 2 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
+        "proto_accum_f32": [_P] * 2 + [_I] + [_P] * 4 + [_I] * 5 + [_P],
+        "proto_accum_bf16": [_P] * 2 + [_I] + [_P] * 4 + [_I] * 5 + [_P],
         "proto_accum_plan": [_I] * 3,
         "proto_accum_workspace": [_I] * 3,
         "proto_accum_counters": [_I] * 3,

@@ -70,6 +70,16 @@
 //   rows are split (`bwd_plan`: 2 there); each split writes its dq to a
 //   workspace and the last split of the class tile adds them in split order.
 // Both kernels are deterministic: every sum is taken in a fixed order.
+//
+// Client axis. Every input and output may carry a leading axis of N clients
+// (the vectorized engine's whole fleet in one launch, as `jax.vmap` adds a
+// leading grid axis to a `pallas_call`). The client is folded into the
+// grid's z axis (`disc_fwd_small`: z = client; `disc_fwd`: z = client *
+// splits + split; `disc_bwd`: z = client) and each block first moves every
+// pointer to its client's slice (`at_client`), workspace and counters
+// included. The plan is that of one client, so each client's blocks do the
+// work of a launch for that client alone, in the same order: the result is
+// bit-equal to N separate launches.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -176,7 +186,25 @@ struct FwdArgs {
   int B, C, M;
   int n_mb, n_rb, splits, tps; // M tiles, row tiles, class-axis splits, tiles a split
   int part_floats;             // the M tiles' row sums, ahead of the splits' partials
+  long long ws_client;         // workspace floats a client
+  int cnt_client;              // counters a client
 };
+
+// The slice of client n: every pointer moved past the clients before it.
+__device__ __forceinline__ FwdArgs at_client(FwdArgs a, int n) {
+  const long long B = a.B, C = a.C, M = a.M;
+  a.s += n * B * C;
+  a.q += n * M * C;
+  a.labels = static_cast<const char*>(a.labels) + n * B * (a.lab64 ? 8 : 4);
+  if (a.valid) a.valid += n * M;
+  a.loss += n * B;
+  a.row_max += n * B;
+  a.log_z += n * B;
+  a.h_raw += n * B * M;
+  if (a.ws) a.ws += n * a.ws_client;
+  if (a.counters) a.counters += (long long)n * a.cnt_client;
+  return a;
+}
 
 struct FwdPlan {
   int n_mb, n_rb, splits, tps;
@@ -219,11 +247,12 @@ static_assert(FB_M * (FB_N + 1) <= F_STAGES * (FB_M + FB_N) * F_RAW,
 
 template <int V>
 __global__ void __launch_bounds__(F_THREADS, 1)
-disc_fwd(FwdArgs a) {
+disc_fwd(FwdArgs a0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
+  const FwdArgs a = at_client(a0, blockIdx.z / a0.splits);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mb = blockIdx.x, rb = blockIdx.y, ks = blockIdx.z;
+  const int mb = blockIdx.x, rb = blockIdx.y, ks = blockIdx.z % a0.splits;
   const int n0 = mb * FB_N, r0 = rb * FB_M;
   // h: rows ty*4 + i (i < 4) and 64 + ty*4 + i; teacher rows tx*4 + j and
   // 64 + tx*4 + j, so that a quarter-warp's 16-byte loads hit 32 banks
@@ -501,9 +530,10 @@ struct FwdSmallSmem {
 
 template <int V>
 __global__ void __launch_bounds__(S_THREADS)
-disc_fwd_small(FwdArgs a) {
+disc_fwd_small(FwdArgs a0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   FwdSmallSmem& sm = *reinterpret_cast<FwdSmallSmem*>(smem_raw);
+  const FwdArgs a = at_client(a0, blockIdx.z);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.x * SB_N, r0 = blockIdx.y * SB_M;
   const int ty = tid >> 4, tx = tid & 15;           // h: rows ty*4.., teacher rows tx*4..
@@ -680,7 +710,26 @@ struct BwdArgs {
   int* counters;               // one a class tile, zero between launches
   int B, C, M;
   int splits, rows_per_split;  // row splits of the grid, rows each
+  long long ws_client;         // workspace floats a client
+  int cnt_client;              // counters a client
 };
+
+__device__ __forceinline__ BwdArgs at_client(BwdArgs a, int n) {
+  const long long B = a.B, C = a.C, M = a.M;
+  a.g += n * B;
+  a.s += n * B * C;
+  a.q += n * M * C;
+  a.labels = static_cast<const char*>(a.labels) + n * B * (a.lab64 ? 8 : 4);
+  if (a.valid) a.valid += n * M;
+  a.row_max += n * B;
+  a.log_z += n * B;
+  a.h_raw += n * B * M;
+  a.ds += n * B * C;
+  a.dq += n * M * C;
+  if (a.ws) a.ws += n * a.ws_client;
+  if (a.counters) a.counters += (long long)n * a.cnt_client;
+  return a;
+}
 
 struct BwdPlan {
   int n_ct, splits, rows_per_split, ws_floats, counters;
@@ -717,9 +766,10 @@ struct BwdSmem {
 // VH: copy width of h_raw rows (stride M); VS: of s and q rows (stride C)
 template <int VH, int VS>
 __global__ void __launch_bounds__(B_THREADS)
-disc_bwd(BwdArgs a) {
+disc_bwd(BwdArgs a0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
+  const BwdArgs a = at_client(a0, blockIdx.z);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int c0 = blockIdx.x * BB_C;
   const int row_begin = blockIdx.y * a.rows_per_split;
@@ -961,71 +1011,79 @@ int smem_once(const void* fn, size_t bytes, bool (&done)[16]) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+constexpr int MAX_GRID_Z = 65535;
+
 template <int V>
-int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+int launch_fwd(const FwdArgs& a, int N, cudaStream_t stream) {
   if (a.M <= SB_N && a.splits == 1) {
     static bool done[16] = {};
     const int err = smem_once((const void*)disc_fwd_small<V>, sizeof(FwdSmallSmem), done);
     if (err) return err;
-    disc_fwd_small<V><<<dim3(1, (a.B + SB_M - 1) / SB_M), S_THREADS, sizeof(FwdSmallSmem),
+    disc_fwd_small<V><<<dim3(1, (a.B + SB_M - 1) / SB_M, N), S_THREADS, sizeof(FwdSmallSmem),
                         stream>>>(a);
     return (int)cudaGetLastError();
   }
+  if ((long long)N * a.splits > MAX_GRID_Z) return (int)cudaErrorInvalidConfiguration;
   static bool done[16] = {};
   const int err = smem_once((const void*)disc_fwd<V>, sizeof(FwdSmem), done);
   if (err) return err;
-  disc_fwd<V><<<dim3(a.n_mb, a.n_rb, a.splits), F_THREADS, sizeof(FwdSmem), stream>>>(a);
+  disc_fwd<V><<<dim3(a.n_mb, a.n_rb, N * a.splits), F_THREADS, sizeof(FwdSmem), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int VH, int VS>
-int launch_bwd(const BwdArgs& a, int n_ct, cudaStream_t stream) {
+int launch_bwd(const BwdArgs& a, int n_ct, int N, cudaStream_t stream) {
   static bool done[16] = {};
   const int err = smem_once((const void*)disc_bwd<VH, VS>, sizeof(BwdSmem), done);
   if (err) return err;
-  disc_bwd<VH, VS><<<dim3(n_ct, a.splits), B_THREADS, sizeof(BwdSmem), stream>>>(a);
+  disc_bwd<VH, VS><<<dim3(n_ct, a.splits, N), B_THREADS, sizeof(BwdSmem), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Teacher-row tiles of the forward: more than 1 needs a (tiles, B) float
-// workspace and one zeroed int counter per tile of 64 student rows.
-// The forward's workspace floats and zeroed int counters for (B, C, M); 0
-// where it needs none (one M tile, no split of the class axis).
+// The forward's workspace floats and zeroed int counters for one client of
+// (B, C, M); 0 where it needs none (one M tile, no split of the class axis).
+// A launch of N clients needs N times each.
 extern "C" int disc_loss_fwd_workspace(int B, int C, int M) {
   return fwd_plan(B, C, M).ws_floats;
 }
 extern "C" int disc_loss_fwd_counters(int B, int C, int M) { return fwd_plan(B, C, M).counters; }
 
+// N clients of (B, C, M), each a contiguous slice of every array; N = 1 is
+// the call for one client.
 extern "C" int disc_loss_fwd(const float* s, const float* q, const void* labels, int lab64,
                              const void* valid, float* loss, float* row_max, float* log_z,
-                             float* h_raw, float* ws, int* counters, int B, int C, int M,
-                             cudaStream_t stream) {
+                             float* h_raw, float* ws, int* counters, int N, int B, int C,
+                             int M, cudaStream_t stream) {
+  if (N < 1 || N > MAX_GRID_Z) return (int)cudaErrorInvalidConfiguration;
   const FwdPlan p = fwd_plan(B, C, M);
   FwdArgs a{s, q, labels, lab64, static_cast<const unsigned char*>(valid), loss, row_max,
             log_z, h_raw, ws, counters, B, C, M, p.n_mb, p.n_rb, p.splits, p.tps,
-            p.part_floats};
-  if (C % 4 == 0 && aligned16(s) && aligned16(q)) return launch_fwd<4>(a, stream);
-  return launch_fwd<1>(a, stream);
+            p.part_floats, p.ws_floats, p.counters};
+  if (C % 4 == 0 && aligned16(s) && aligned16(q)) return launch_fwd<4>(a, N, stream);
+  return launch_fwd<1>(a, N, stream);
 }
 
-// The backward's workspace floats and zeroed int counters (0 for none).
+// The backward's workspace floats and zeroed int counters for one client
+// (0 for none); N clients need N times each.
 extern "C" int disc_loss_bwd_workspace(int B, int C, int M) { return bwd_plan(B, C, M).ws_floats; }
 extern "C" int disc_loss_bwd_counters(int B, int C, int M) { return bwd_plan(B, C, M).counters; }
 
 extern "C" int disc_loss_bwd(const float* g, const float* s, const float* q, const void* labels,
                              int lab64, const void* valid, const float* row_max,
                              const float* log_z, const float* h_raw, float* ds, float* dq,
-                             float* ws, int* counters, int B, int C, int M,
+                             float* ws, int* counters, int N, int B, int C, int M,
                              cudaStream_t stream) {
+  if (N < 1 || N > MAX_GRID_Z) return (int)cudaErrorInvalidConfiguration;
   const BwdPlan p = bwd_plan(B, C, M);
   BwdArgs a{g, s, q, labels, lab64, static_cast<const unsigned char*>(valid), row_max, log_z,
-            h_raw, ds, dq, ws, counters, B, C, M, p.splits, p.rows_per_split};
+            h_raw, ds, dq, ws, counters, B, C, M, p.splits, p.rows_per_split,
+            p.ws_floats, p.counters};
   const bool vh = M % 4 == 0 && aligned16(h_raw);
   const bool vs = C % 4 == 0 && aligned16(s) && aligned16(q);
-  if (vh && vs) return launch_bwd<4, 4>(a, p.n_ct, stream);
-  if (vh) return launch_bwd<4, 1>(a, p.n_ct, stream);
-  if (vs) return launch_bwd<1, 4>(a, p.n_ct, stream);
-  return launch_bwd<1, 1>(a, p.n_ct, stream);
+  if (vh && vs) return launch_bwd<4, 4>(a, p.n_ct, N, stream);
+  if (vh) return launch_bwd<4, 1>(a, p.n_ct, N, stream);
+  if (vs) return launch_bwd<1, 4>(a, p.n_ct, N, stream);
+  return launch_bwd<1, 1>(a, p.n_ct, N, stream);
 }

@@ -43,6 +43,15 @@
 //    counter after __threadfence(), adds them in chunk order and resets the
 //    counter to 0. Every sum is thus taken in a fixed order whatever the
 //    scheduling.
+//  - Client axis: features (N, n, d) and labels (N, n) give sums (N, C, d)
+//    and counts (N, C) in one launch (the vectorized engine's whole fleet,
+//    as `jax.vmap` adds a leading grid axis to a `pallas_call`). The grid's
+//    x axis holds N * K blocks, client-major, so each cluster of K blocks
+//    is one client's chunks; a block moves every pointer to its client's
+//    slice (workspace and counters included) and then does the work of a
+//    launch for that client alone, in the same order: bit-equal to N
+//    separate launches. Clients are never folded into the class axis, which
+//    would change the kernel's plan.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -99,6 +108,8 @@ struct PAArgs {
   float* ws;          // K*C*d partial sums, then K*C partial counts (K > 1)
   int* counters;      // one a (class tile, column chunk), zero between launches
   int n, d, C, K, chunk;
+  long long ws_client; // workspace floats a client
+  int cnt_client;      // counters a client
 };
 
 // Dense (C <= PA_CT_DENSE, one class tile): groups of 32 rows, no row list.
@@ -119,7 +130,7 @@ struct PASmem {
 };
 
 // VB: bytes a cp.async moves (16 or 4), or 0 for plain element copies.
-// CLUSTER: the K row chunks of a tile are one thread block cluster (K <= 8)
+// CLUSTER: the K row chunks of a tile are one thread block cluster (K <= 16)
 // and add their partials through distributed shared memory.
 template <typename T, int VB, bool DENSE, bool CLUSTER>
 __global__ void __launch_bounds__(PA_THREADS)
@@ -128,7 +139,16 @@ proto_accum_kernel(PAArgs a) {
   constexpr int NS = 2, CT = Smem::CT, R = Smem::R;
   __shared__ __align__(16) Smem sm;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k = blockIdx.x;
+  const int client = blockIdx.x / a.K, k = blockIdx.x - client * a.K;
+  {                          // this client's slice of every array
+    const long long cn = client;
+    a.feats = static_cast<const T*>(a.feats) + cn * a.n * a.d;
+    a.labels = static_cast<const char*>(a.labels) + cn * a.n * (a.lab64 ? 8 : 4);
+    a.sums += cn * a.C * a.d;
+    a.counts += cn * a.C;
+    if (a.ws) a.ws += cn * a.ws_client;
+    if (a.counters) a.counters += cn * a.cnt_client;
+  }
   const int c0 = blockIdx.y * CT, c_hi = min(c0 + CT, a.C);
   const int col0 = blockIdx.z * PA_COLS, ncol = min(PA_COLS, a.d - col0);
   const int r_begin = min(a.n, k * a.chunk), r_end = min(a.n, r_begin + a.chunk);
@@ -388,12 +408,20 @@ cudaError_t launch_vb(const PAArgs& a, dim3 grid, cudaStream_t stream) {
   return launch_mode<T, VB, false>(a, grid, stream);
 }
 
+int ws_floats(int K, int d, int C) { return K > PA_CLUSTER ? K * C * (d + 1) : 0; }
+
+int n_counters(int K, int d, int C) {
+  const int ct = C <= PA_CT_DENSE ? C : PA_CT;
+  return K > PA_CLUSTER ? ((C + ct - 1) / ct) * ((d + PA_COLS - 1) / PA_COLS) : 0;
+}
+
 template <typename T>
 int launch(const void* feats, const void* labels, int lab64, float* sums, float* counts,
-           float* ws, int* counters, int n, int d, int C, int K, cudaStream_t stream) {
+           float* ws, int* counters, int N, int n, int d, int C, int K, cudaStream_t stream) {
+  if (N < 1 || K < 1 || (long long)N * K > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   PAArgs a{feats, labels, lab64, sums, counts, ws, counters, n, d, C, K,
-           K > 0 ? (n + K - 1) / K : n};
-  dim3 grid(K, C <= PA_CT_DENSE ? 1 : (C + PA_CT - 1) / PA_CT, (d + PA_COLS - 1) / PA_COLS);
+           (n + K - 1) / K, ws_floats(K, d, C), n_counters(K, d, C)};
+  dim3 grid(N * K, C <= PA_CT_DENSE ? 1 : (C + PA_CT - 1) / PA_CT, (d + PA_COLS - 1) / PA_COLS);
   const size_t row_bytes = (size_t)d * sizeof(T);
   const uintptr_t p = reinterpret_cast<uintptr_t>(feats);
   cudaError_t err;
@@ -408,9 +436,10 @@ int launch(const void* feats, const void* labels, int lab64, float* sums, float*
 
 }  // namespace
 
-// Row chunks K for (n, d, C). 1 < K <= 8: the chunks of a tile form one
-// cluster and need no workspace; K > 8 needs a workspace of K*C*(d + 1)
-// floats and one zeroed int counter per (class tile, column chunk).
+// Row chunks K for one client's (n, d, C). 1 < K <= 16: the chunks of a tile
+// form one cluster and need no workspace; K > 16 needs a workspace of
+// K*C*(d + 1) floats and one zeroed int counter per (class tile, column
+// chunk), N times each for N clients.
 extern "C" int proto_accum_plan(int n, int d, int C) {
   if (n <= 0 || C <= 0 || d <= 0) return 1;
   const int ct = C <= PA_CT_DENSE ? C : PA_CT;
@@ -423,25 +452,24 @@ extern "C" int proto_accum_plan(int n, int d, int C) {
   return K > 1 ? K : 1;
 }
 
-// The workspace floats and zeroed counters that K chunks need (0 for none).
-extern "C" int proto_accum_workspace(int K, int d, int C) {
-  return K > PA_CLUSTER ? K * C * (d + 1) : 0;
-}
+// The workspace floats and zeroed counters that K chunks of one client need
+// (0 for none).
+extern "C" int proto_accum_workspace(int K, int d, int C) { return ws_floats(K, d, C); }
 
-extern "C" int proto_accum_counters(int K, int d, int C) {
-  const int ct = C <= PA_CT_DENSE ? C : PA_CT;
-  return K > PA_CLUSTER ? ((C + ct - 1) / ct) * ((d + PA_COLS - 1) / PA_COLS) : 0;
-}
+extern "C" int proto_accum_counters(int K, int d, int C) { return n_counters(K, d, C); }
 
+// N clients of (n, d, C), each a contiguous slice of every array; N = 1 is
+// the call for one client.
 extern "C" int proto_accum_f32(const float* feats, const void* labels, int lab64, float* sums,
-                               float* counts, float* ws, int* counters, int n, int d, int C,
-                               int K, cudaStream_t stream) {
-  return launch<float>(feats, labels, lab64, sums, counts, ws, counters, n, d, C, K, stream);
+                               float* counts, float* ws, int* counters, int N, int n, int d,
+                               int C, int K, cudaStream_t stream) {
+  return launch<float>(feats, labels, lab64, sums, counts, ws, counters, N, n, d, C, K,
+                       stream);
 }
 
 extern "C" int proto_accum_bf16(const void* feats, const void* labels, int lab64, float* sums,
-                                float* counts, float* ws, int* counters, int n, int d, int C,
-                                int K, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(feats, labels, lab64, sums, counts, ws, counters, n, d, C, K,
-                               stream);
+                                float* counts, float* ws, int* counters, int N, int n, int d,
+                                int C, int K, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(feats, labels, lab64, sums, counts, ws, counters, N, n, d, C,
+                               K, stream);
 }

@@ -72,21 +72,22 @@ def _stream(device: Optional[torch.device] = None) -> int:
     return torch._C._cuda_getCurrentRawStream(idx)
 
 
-def _valid_ptr(valid, M: int):
-    """valid (M,) bool as the kernels read it, or None (all valid)."""
+def _valid_ptr(valid, shape):
+    """valid (M,) or (N, M) bool as the kernels read it, or None (all
+    valid)."""
     if valid is None:
         return None
-    if valid.shape != (M,):
-        raise ValueError(f"valid must have shape ({M},), got {tuple(valid.shape)}")
+    if tuple(valid.shape) != shape:
+        raise ValueError(f"valid must have shape {shape}, got {tuple(valid.shape)}")
     if valid.dtype != torch.bool:
         raise ValueError(f"the kernels take a bool valid mask, got {valid.dtype}")
     return valid.contiguous()
 
 
-def _labels(labels, n: int):
+def _labels(labels, shape):
     """-> (labels as the kernels read them, 1 if int64 else 0)."""
-    if labels.shape != (n,):
-        raise ValueError(f"labels must have shape ({n},), got {tuple(labels.shape)}")
+    if tuple(labels.shape) != shape:
+        raise ValueError(f"labels must have shape {shape}, got {tuple(labels.shape)}")
     if labels.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"labels must be int32 or int64, got {labels.dtype}")
     return labels.contiguous(), int(labels.dtype == torch.int64)
@@ -123,78 +124,90 @@ def _disc_plan(B: int, C: int, M: int):
 
 
 def _disc_shapes(s, q):
-    if s.dim() != 2 or q.dim() != 2 or s.shape[1] != q.shape[1]:
-        raise ValueError(f"need s (B, C) and q (M, C); got {tuple(s.shape)} "
-                         f"and {tuple(q.shape)}")
+    """-> (lead, N, B, C, M): s (B, C) and q (M, C), lead () and N 1; or s
+    (N, B, C) and q (N, M, C), one client a slice, lead (N,)."""
+    ok = (s.dim() in (2, 3) and q.dim() == s.dim() and s.shape[-1] == q.shape[-1]
+          and s.shape[:-2] == q.shape[:-2])
+    if not ok:
+        raise ValueError(f"need s (B, C) and q (M, C), or s (N, B, C) and q "
+                         f"(N, M, C); got {tuple(s.shape)} and {tuple(q.shape)}")
     if s.dtype != torch.float32 or q.dtype != torch.float32:
         raise ValueError("disc_loss takes float32 s and q")
-    return s.shape[0], s.shape[1], q.shape[0]
+    lead = tuple(s.shape[:-2])
+    return lead, (lead[0] if lead else 1), s.shape[-2], s.shape[-1], q.shape[-2]
 
 
 def disc_loss_fwd(s, q, labels, valid=None):
-    """-> loss (B,), row_max (B,), log_z (B,), h_raw (B, M); see
-    `ref.disc_loss_fwd`."""
+    """-> loss (..., B), row_max (..., B), log_z (..., B), h_raw (..., B, M)
+    for s (..., B, C), q (..., M, C), labels (..., B), valid (..., M) or
+    None, with an optional leading client axis: one launch for every
+    client. See `ref.disc_loss_fwd`."""
     if not _on_cuda(s, q, labels, valid):
         return ref.disc_loss_fwd(s, q, labels, valid)
-    B, C, M = _disc_shapes(s, q)
+    lead, N, B, C, M = _disc_shapes(s, q)
     L = build.lib("disc_loss")
     s, q = s.contiguous(), q.contiguous()
-    lab, lab64 = _labels(labels, B)
-    v = _valid_ptr(valid, M)
-    loss = torch.empty(B, dtype=torch.float32, device=s.device)
+    lab, lab64 = _labels(labels, lead + (B,))
+    v = _valid_ptr(valid, lead + (M,))
+    loss = torch.empty(*lead, B, dtype=torch.float32, device=s.device)
     row_max = torch.empty_like(loss)
     log_z = torch.empty_like(loss)
-    h_raw = torch.empty(B, M, dtype=torch.float32, device=s.device)
-    if B:
+    h_raw = torch.empty(*lead, B, M, dtype=torch.float32, device=s.device)
+    if B and N:
         n_ws, n_cnt = _disc_plan(B, C, M)[0]
         stream = _stream(s.device)
         ws = cnt = None
         if n_ws:               # partials of M tiles and class-axis splits
-            ws = torch.empty(n_ws, dtype=torch.float32, device=s.device)
-            cnt = _counters(s.device, stream, n_cnt)
+            ws = torch.empty(N * n_ws, dtype=torch.float32, device=s.device)
+            cnt = _counters(s.device, stream, N * n_cnt)
         _check(L.disc_loss_fwd(s.data_ptr(), q.data_ptr(), lab.data_ptr(), lab64,
                                _ptr(v), loss.data_ptr(), row_max.data_ptr(),
                                log_z.data_ptr(), h_raw.data_ptr(), _ptr(ws),
-                               _ptr(cnt), B, C, M, stream), "disc_loss_fwd")
+                               _ptr(cnt), N, B, C, M, stream), "disc_loss_fwd")
         LAUNCHES["disc_loss_fwd"] += 1
     return loss, row_max, log_z, h_raw
 
 
 def disc_loss_bwd(g, s, q, labels, valid, row_max, log_z, h_raw):
-    """-> (ds (B, C), dq (M, C)); see `ref.disc_loss_bwd`."""
+    """-> (ds (..., B, C), dq (..., M, C)), one launch for every client; see
+    `ref.disc_loss_bwd`."""
     if not _on_cuda(g, s, q, labels, valid, row_max, log_z, h_raw):
         return ref.disc_loss_bwd(g, s, q, labels, valid, row_max, log_z, h_raw)
-    B, C, M = _disc_shapes(s, q)
-    if g.shape != (B,) or h_raw.shape != (B, M):
-        raise ValueError("g must be (B,) and h_raw (B, M)")
+    lead, N, B, C, M = _disc_shapes(s, q)
+    if (tuple(g.shape) != lead + (B,) or tuple(row_max.shape) != lead + (B,)
+            or tuple(log_z.shape) != lead + (B,)
+            or tuple(h_raw.shape) != lead + (B, M)):
+        raise ValueError("g, row_max and log_z must be (..., B) and h_raw "
+                         "(..., B, M)")
     L = build.lib("disc_loss")
     s, q = s.contiguous(), q.contiguous()
     g = g.to(torch.float32).contiguous()
-    lab, lab64 = _labels(labels, B)
-    v = _valid_ptr(valid, M)
+    lab, lab64 = _labels(labels, lead + (B,))
+    v = _valid_ptr(valid, lead + (M,))
     ds = torch.empty_like(s)
     dq = torch.empty_like(q) if B else torch.zeros_like(q)
-    if B:
+    if B and N:
         n_ws, n_cnt = _disc_plan(B, C, M)[1]
         stream = _stream(s.device)
         ws = cnt = None
         if n_ws:               # the row splits' dq partials, added in order
-            ws = torch.empty(n_ws, dtype=torch.float32, device=s.device)
-            cnt = _counters(s.device, stream, n_cnt)
+            ws = torch.empty(N * n_ws, dtype=torch.float32, device=s.device)
+            cnt = _counters(s.device, stream, N * n_cnt)
         _check(L.disc_loss_bwd(g.data_ptr(), s.data_ptr(), q.data_ptr(),
                                lab.data_ptr(), lab64, _ptr(v),
                                row_max.contiguous().data_ptr(),
                                log_z.contiguous().data_ptr(),
                                h_raw.contiguous().data_ptr(), ds.data_ptr(),
-                               dq.data_ptr(), _ptr(ws), _ptr(cnt), B, C, M, stream),
-               "disc_loss_bwd")
+                               dq.data_ptr(), _ptr(ws), _ptr(cnt), N, B, C, M,
+                               stream), "disc_loss_bwd")
         LAUNCHES["disc_loss_bwd"] += 1
     return ds, dq
 
 
 class DiscLoss(torch.autograd.Function):
     """Per-sample L_disc with its gradient in s and q: the forward kernel,
-    then the backward kernel (their plain versions for CPU tensors)."""
+    then the backward kernel (their plain versions for CPU tensors), one
+    launch each a call, with or without a leading client axis."""
 
     @staticmethod
     def forward(ctx, s, q, labels, valid):
@@ -210,7 +223,7 @@ class DiscLoss(torch.autograd.Function):
 
 def disc_loss(student_logits, teacher_probs, labels,
               valid: Optional[torch.Tensor] = None):
-    """Differentiable per-sample loss (B,); `ref.disc_loss`'s contract."""
+    """Differentiable per-sample loss (..., B); `ref.disc_loss`'s contract."""
     return DiscLoss.apply(student_logits.float(), teacher_probs.float(),
                           labels, valid)
 
@@ -225,13 +238,17 @@ def _proto_plan(n: int, d: int, C: int):
 
 
 def proto_accum(features, labels, num_classes: int):
-    """features (n, d) f32 or bf16; labels (n,) int -> (sums (C, d) f32,
-    counts (C,) f32). Labels outside [0, C) contribute nothing."""
+    """features (..., n, d) f32 or bf16; labels (..., n) int -> (sums (...,
+    C, d) f32, counts (..., C) f32), with an optional leading client axis:
+    one launch for every client. Labels outside [0, C) contribute nothing."""
     if not _on_cuda(features, labels):
         return ref.proto_accum(features, labels, num_classes)
-    if features.dim() != 2:
-        raise ValueError(f"features must be (n, d), got {tuple(features.shape)}")
-    n, d = features.shape
+    if features.dim() not in (2, 3):
+        raise ValueError(f"features must be (n, d) or (N, n, d), got "
+                         f"{tuple(features.shape)}")
+    lead = tuple(features.shape[:-2])
+    N = lead[0] if lead else 1
+    n, d = features.shape[-2:]
     C = int(num_classes)
     if C < 1 or d < 1:
         raise ValueError(f"proto_accum needs C >= 1 and d >= 1, got {C}, {d}")
@@ -242,19 +259,20 @@ def proto_accum(features, labels, num_classes: int):
                          f"got {features.dtype}")
     L = build.lib("proto_accum")
     f = features.contiguous()
-    lab, lab64 = _labels(labels, n)
-    sums = torch.empty(C, d, dtype=torch.float32, device=f.device)
-    counts = torch.empty(C, dtype=torch.float32, device=f.device)
-    K, n_ws, n_cnt = _proto_plan(n, d, C)
-    stream = _stream(f.device)
-    ws = cnt = None
-    if n_ws:               # past one cluster: the chunks' partials, added in order
-        ws = torch.empty(n_ws, dtype=torch.float32, device=f.device)
-        cnt = _counters(f.device, stream, n_cnt)
-    _check(getattr(L, fn)(f.data_ptr(), lab.data_ptr(), lab64, sums.data_ptr(),
-                          counts.data_ptr(), _ptr(ws), _ptr(cnt), n, d, C, K,
-                          stream), "proto_accum")
-    LAUNCHES["proto_accum"] += 1
+    lab, lab64 = _labels(labels, lead + (n,))
+    sums = torch.empty(*lead, C, d, dtype=torch.float32, device=f.device)
+    counts = torch.empty(*lead, C, dtype=torch.float32, device=f.device)
+    if N:
+        K, n_ws, n_cnt = _proto_plan(n, d, C)
+        stream = _stream(f.device)
+        ws = cnt = None
+        if n_ws:           # past one cluster: the chunks' partials, added in order
+            ws = torch.empty(N * n_ws, dtype=torch.float32, device=f.device)
+            cnt = _counters(f.device, stream, N * n_cnt)
+        _check(getattr(L, fn)(f.data_ptr(), lab.data_ptr(), lab64, sums.data_ptr(),
+                              counts.data_ptr(), _ptr(ws), _ptr(cnt), N, n, d, C,
+                              K, stream), "proto_accum")
+        LAUNCHES["proto_accum"] += 1
     return sums, counts
 
 

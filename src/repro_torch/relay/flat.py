@@ -77,17 +77,22 @@ def buffer_append(state: RelayState, obs_rows, valid_rows, owner_rows,
     obs_rows (k, C, d'), valid_rows (k, C), owner_rows (k,) int,
     row_mask (k,) bool or None: rows with row_mask False are dropped without
     consuming a ring slot. stamp_rows (k,) int or None (= born now). At most
-    `capacity` rows may be masked in."""
+    `capacity` rows may be masked in.
+
+    Fixed shapes throughout, so the write never waits on the card: every
+    row is scattered into a copy of the ring with one scratch slot past its
+    end, where the dropped rows land (their index is `capacity`), and the
+    copy without that slot is the new ring."""
     k = obs_rows.shape[0]
-    idx, new_ptr = base.ring_indices(state.ptr, k, state.capacity, row_mask)
+    cap = state.capacity
+    idx, new_ptr = base.ring_indices(state.ptr, k, cap, row_mask)
     stamps = base.stamps_or_now(state, k, stamp_rows)
-    keep = idx < state.capacity
-    idx = idx[keep].long()
+    idx = idx.long()
 
     def put(buf, rows):
-        out = buf.clone()
-        out[idx] = rows[keep].to(buf.dtype)
-        return out
+        out = torch.cat([buf, buf[:1]])
+        out[idx] = rows.to(buf.dtype)
+        return out[:cap]
 
     return state._replace(obs=put(state.obs, obs_rows.float()),
                           valid=put(state.valid, valid_rows),
@@ -107,33 +112,49 @@ def gumbel(m_down: int, cap: int, generator: Optional[torch.Generator] = None):
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 
+def sample_teachers(state: RelayState, client_ids, m_down: int, noise,
+                    obs_picks) -> Dict:
+    """Observations of OTHER users, chosen at random (paper section 4), for
+    N clients at once: the counterpart of `jax.vmap` over the reference's
+    `sample_teacher`, with no host read.
+
+    Uniform with-replacement sampling over the ring slots not owned by each
+    client, as argmax(where(pool, 0, -inf) + noise) with Gumbel noise
+    (N, m_down, cap): the form `jax.random.categorical` takes, so the
+    reference's own noise reproduces its indices. A client falls back to the
+    whole filled buffer when every slot is its own, and to a zero, invalid
+    teacher when the buffer is empty. client_ids (N,) int; obs_picks (N,)
+    int: which of the m_down observations each client's loss uses.
+
+    Returns a teacher dict whose every entry has the leading client axis."""
+    dev = state.obs.device
+    ids = client_ids.to(torch.int32)
+    N = ids.shape[0]
+    usable = state.owner != EMPTY_OWNER                               # (cap,)
+    others = usable & (state.owner[None, :] != ids[:, None])          # (N, cap)
+    pool = torch.where(others.any(-1, keepdim=True), others, usable)
+    any_pool = pool.any(-1)                                           # (N,)
+    scores = noise.to(torch.float32).masked_fill(~pool[:, None, :], float("-inf"))
+    idx = torch.where(any_pool[:, None], scores.argmax(-1), 0)        # (N, M)
+    obs = torch.where(any_pool[:, None, None, None], state.obs[idx], 0.0)
+    valid_o = any_pool[:, None] & state.valid[idx].all(1)             # (N, C)
+    C = state.valid_g.shape[0]
+    return {"global_protos": state.global_protos.expand(N, -1, -1),
+            "valid_g": state.valid_g.expand(N, C),
+            "obs": obs, "valid_o": valid_o,
+            "obs_pick": obs_picks.to(device=dev, dtype=torch.long),
+            "mean_logits": state.mean_logits.expand(N, -1, -1)}
+
+
 def sample_teacher(state: RelayState, client_id: int, m_down: int,
                    noise=None, obs_pick: int = 0) -> Dict:
-    """Observations of OTHER users, chosen at random (paper section 4).
-
-    Uniform with-replacement sampling over the ring slots not owned by
-    `client_id`, as argmax(where(pool, 0, -inf) + noise) with Gumbel noise
-    (m_down, cap): the form `jax.random.categorical` takes, so the
-    reference's own noise reproduces its indices. Falls back to the whole
-    filled buffer when every slot is the client's own, and to a zero,
-    invalid teacher when the buffer is empty. `obs_pick` picks which of the
-    m_down observations the loss uses."""
-    cap = state.capacity
+    """One client's teacher (see `sample_teachers`): noise (m_down, cap), or
+    drawn here; `obs_pick` an int."""
     dev = state.obs.device
     if noise is None:
-        noise = gumbel(m_down, cap)
-    noise = noise.to(dev, torch.float32)
-    usable = state.owner != EMPTY_OWNER
-    others = usable & (state.owner != int(client_id))
-    pool = torch.where(others.any(), others, usable)
-    any_pool = pool.any()
-    scores = torch.where(pool[None, :], noise,
-                         torch.tensor(float("-inf"), device=dev))
-    idx = torch.where(any_pool, scores.argmax(-1), 0)                 # (M,)
-    obs = torch.where(any_pool, state.obs[idx], 0.0)                  # (M, C, d')
-    valid_o = torch.where(any_pool, state.valid[idx].all(0), False)
-    return {"global_protos": state.global_protos,
-            "valid_g": state.valid_g,
-            "obs": obs, "valid_o": valid_o,
-            "obs_pick": int(obs_pick),
-            "mean_logits": state.mean_logits}
+        noise = gumbel(m_down, state.capacity)
+    t = sample_teachers(state, torch.full((1,), int(client_id), device=dev),
+                        m_down, noise.to(dev)[None], torch.zeros(1, device=dev))
+    t = {k: v[0] for k, v in t.items()}
+    t["obs_pick"] = int(obs_pick)
+    return t

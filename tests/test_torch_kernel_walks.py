@@ -293,3 +293,148 @@ def test_disc_loss_backward_tile_walk(B, C, M, with_valid):
     f = lambda ss, qq: jnp.sum(g * jref.disc_loss(ss, qq, y, v))
     for a, b in zip(got, jax.grad(f, argnums=(0, 1))(s, q)):
         _close_ref(a, b)
+
+
+# -- the client axis: workspace and counters a client ----------------------------
+# A launch of N clients gives each client a slice of the workspace (the plan's
+# floats for one client) and of the counters (the plan's counters for one
+# client), at client * size; every block moves its pointers there first
+# (`at_client` in disc_loss.cu, the client prologue of proto_accum_kernel).
+# The emulation below runs every block of every client in a random order over
+# one shared workspace and counter array, as the card may: each block writes
+# its partial into its region of its client's slice and bumps its tile's
+# counter; the last to arrive adds the tile's partials in order and resets the
+# counter. Any region or counter outside its client's slice, or shared by two
+# tiles, breaks the sums or leaves a counter set.
+PA_CT_DENSE, PA_CT, PA_COLS, PA_CLUSTER = 16, 32, 128, 16
+
+
+def fwd_plan(B, C, M):
+    """`fwd_plan` of disc_loss.cu -> (regions a tile, workspace floats,
+    counters) for one client: the class-axis splits' partials (one tile a
+    (row tile, M tile)) and the M tiles' row sums (one tile a row tile)."""
+    n_mb = -(-M // FB_N) if M > FB_N else 1
+    n_rb = -(-B // FB_M)
+    S, _ = fwd_splits(B, C, M)
+    tiles = n_mb * n_rb
+    per = FB_M * (FB_N + 2)
+    part = -(-(n_mb * B) // 4) * 4 if n_mb > 1 else 0
+    regions = []
+    if S > 1:
+        regions += [(t, [part + (ks * tiles + t) * per + np.arange(per)
+                         for ks in range(S)]) for t in range(tiles)]
+    if n_mb > 1:
+        base = tiles if S > 1 else 0
+        regions += [(base + rb, [mb * B + rb * FB_M + np.arange(min(FB_M, B - rb * FB_M))
+                                 for mb in range(n_mb)]) for rb in range(n_rb)]
+    ws = part + (S * tiles * per if S > 1 else 0)
+    cnt = (tiles if S > 1 else 0) + (n_rb if n_mb > 1 else 0)
+    return regions, ws, cnt
+
+
+def bwd_plan(B, C, M):
+    """`bwd_plan` of disc_loss.cu: each row split's dq of a class tile, in
+    the split's (M, C) slice of the workspace; one counter a class tile."""
+    rows = bwd_splits(B, C, M)
+    S = -(-B // rows)
+    n_ct = -(-C // BB_C)
+    if S == 1:
+        return [], 0, 0
+    cols = lambda ct: np.arange(ct * BB_C, min(C, (ct + 1) * BB_C))
+    regions = [(ct, [(k * M + np.arange(M)[:, None]) * C + cols(ct)[None, :]
+                     for k in range(S)]) for ct in range(n_ct)]
+    return regions, S * M * C, n_ct
+
+
+def proto_plan(n, d, C):
+    """`proto_accum_plan` and the workspace pass of proto_accum.cu (K > 16):
+    each chunk's sums and counts of a (class tile, column chunk)."""
+    ct = C if C <= PA_CT_DENSE else PA_CT
+    n_t, n_c = -(-C // ct), -(-d // PA_COLS)
+    K = min(-(-n // 32), n // C, -(-2 * 132 // (n_t * n_c)))
+    if n <= 4096 and K > PA_CLUSTER:
+        K = PA_CLUSTER
+    K = max(K, 1)
+    if K <= PA_CLUSTER:
+        return K, [], 0, 0
+    regions = []
+    for t in range(n_t):
+        cls = np.arange(t * ct, min(C, (t + 1) * ct))
+        for cc in range(n_c):
+            col = np.arange(cc * PA_COLS, min(d, (cc + 1) * PA_COLS))
+            parts = []
+            for k in range(K):
+                r = ((k * C + cls[:, None]) * d + col[None, :]).ravel()
+                if cc == 0:                              # the counts ride along
+                    r = np.concatenate([r, K * C * d + k * C + cls])
+                parts.append(r)
+            regions.append((t * n_c + cc, parts))
+    return K, regions, K * C * (d + 1), n_t * n_c
+
+
+def emulate_client_grid(N, regions, ws_client, cnt_client, seed):
+    rng = np.random.default_rng(seed)
+    ws = np.full(N * ws_client, np.nan, np.float32)
+    cnt = np.zeros(N * cnt_client, np.int64)
+    parts = {(c, t, p): rng.standard_normal(len(r.ravel())).astype(np.float32)
+             for c in range(N) for t, (_, rs) in enumerate(regions)
+             for p, r in enumerate(rs)}
+    order = list(parts)
+    rng.shuffle(order)
+    done = {}
+    for c, t, p in order:
+        counter, rs = regions[t]
+        idx = rs[p].ravel()
+        assert idx.min() >= 0 and idx.max() < ws_client and counter < cnt_client
+        ws[c * ws_client + idx] = parts[(c, t, p)]
+        cnt[c * cnt_client + counter] += 1
+        if cnt[c * cnt_client + counter] == len(rs):       # the last block
+            tot = np.zeros(len(idx), np.float32)
+            for r in rs:
+                tot += ws[c * ws_client + r.ravel()]
+            done[(c, t)] = tot
+            cnt[c * cnt_client + counter] = 0
+    assert not cnt.any()                                   # reset for the next launch
+    for (c, t), got in done.items():
+        want = np.zeros_like(got)
+        for p in range(len(regions[t][1])):
+            want += parts[(c, t, p)]
+        np.testing.assert_array_equal(got, want)
+    assert len(done) == N * len(regions)
+
+
+@pytest.mark.parametrize("N", [1, 2, 5])
+@pytest.mark.parametrize("kernel,shape", [
+    ("fwd", (100, 777, 33)),      # seven class-axis splits
+    ("fwd", (64, 64, 300)),       # three M tiles and two splits
+    ("fwd", (256, 1000, 256)),    # the LM shape's tiling, cut in rows
+    ("bwd", (100, 777, 33)),      # four row splits of 13 class tiles
+    ("bwd", (320, 10, 10)),
+    ("proto", (5000, 84, 10)),    # 157 chunks: the workspace pass
+    ("proto", (6000, 130, 40)),   # two class tiles, two column chunks
+])
+def test_client_axis_workspace_and_counters(N, kernel, shape):
+    plan = {"fwd": fwd_plan, "bwd": bwd_plan,
+            "proto": lambda *a: proto_plan(*a)[1:]}[kernel]
+    regions, ws, cnt = plan(*shape)
+    assert regions, "the shape must take the cross-block pass"
+    # every floats and counter of a client's slice is some tile's, once
+    covered = np.concatenate([r.ravel() for _, rs in regions for r in rs])
+    assert len(np.unique(covered)) == len(covered) <= ws
+    assert sorted({c for c, _ in regions}) == list(range(cnt))
+    for seed in range(3):
+        emulate_client_grid(N, regions, ws, cnt, seed)
+
+
+@pytest.mark.parametrize("n,d,C", [(240, 84, 10), (5000, 84, 10)])
+def test_proto_accum_client_axis_is_one_walk_a_client(n, d, C):
+    """The N clients' sums are each client's own chunk walk."""
+    K = proto_plan(n, d, C)[0]
+    rng = np.random.default_rng(n)
+    f = rng.standard_normal((3, n, d)).astype(np.float32)
+    lab = rng.integers(-1, C + 1, (3, n)).astype(np.int32)
+    rs, rc = ref.proto_accum(torch.from_numpy(f), torch.from_numpy(lab), C)
+    for i in range(3):
+        s, c = proto_walk(f[i], lab[i], C, K)
+        _close_plain(s, rs[i].numpy())
+        np.testing.assert_array_equal(c, rc[i].numpy())

@@ -224,6 +224,155 @@ def test_disc_and_proto_launch_one_kernel_each(cuda):
             assert len(ours) == 1 and ours[0][1] == 1, (name, B, kern)
 
 
+# -- the client axis: one launch for N clients, bit-equal to N launches of
+# one client (each client's blocks do that client's work in the same order),
+# across the tile edges, the split forward (C 777), several M tiles (M 257),
+# proto_accum's cluster (K <= 16) and workspace (K > 16) passes.
+@pytest.mark.parametrize("N", [1, 2, 5, 33])
+@pytest.mark.parametrize("B,C,M", [(32, 10, 10), (65, 33, 65), (100, 777, 33),
+                                   (129, 100, 257)])
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_disc_loss_client_axis_equals_one_launch_a_client(cuda, N, B, C, M,
+                                                          with_valid):
+    g = torch.Generator().manual_seed(N + B + C + M)
+    s = (torch.randn(N, B, C, generator=g) * 2).to(cuda)
+    q = torch.softmax(torch.randn(N, M, C, generator=g) * 2, -1).to(cuda)
+    y = torch.randint(0, M, (N, B), generator=g).to(cuda)
+    v = (torch.rand(N, M, generator=g) > 0.3).to(cuda) if with_valid else None
+    w = torch.randn(N, B, generator=g).to(cuda)
+    vi = lambda i: None if v is None else v[i]
+    before = dict(ops.LAUNCHES)
+    out = ops.disc_loss_fwd(s, q, y, v)
+    grads = ops.disc_loss_bwd(w, s, q, y, v, *out[1:])
+    assert ops.LAUNCHES["disc_loss_fwd"] == before["disc_loss_fwd"] + 1
+    assert ops.LAUNCHES["disc_loss_bwd"] == before["disc_loss_bwd"] + 1
+    for i in range(N):
+        one = ops.disc_loss_fwd(s[i], q[i], y[i], vi(i))
+        for a, b in zip(out, one):
+            assert torch.equal(a[i], b)
+        for a, b in zip(grads, ops.disc_loss_bwd(w[i], s[i], q[i], y[i], vi(i),
+                                                 *one[1:])):
+            assert torch.equal(a[i], b)
+    want = ref.disc_loss_fwd(s, q, y, v)
+    for a, b in zip(out, want):
+        _close(a, b)
+    for a, b in zip(grads, ref.disc_loss_bwd(w, s, q, y, v, *want[1:])):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("N", [1, 2, 5, 33])
+@pytest.mark.parametrize("n,d,C", [(240, 84, 10), (1024, 84, 10),
+                                   (3000, 64, 300), (20000, 84, 10), (77, 3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proto_accum_client_axis_equals_one_launch_a_client(cuda, N, n, d, C,
+                                                            dtype):
+    g = torch.Generator().manual_seed(N + n + d + C)
+    f = torch.randn(N, n, d, generator=g).to(dtype).to(cuda)
+    lab = torch.randint(-1, C + 1, (N, n), generator=g).to(cuda)
+    before = ops.LAUNCHES["proto_accum"]
+    s, c = ops.proto_accum(f, lab, C)
+    assert ops.LAUNCHES["proto_accum"] == before + 1
+    for i in range(N):
+        si, ci = ops.proto_accum(f[i], lab[i], C)
+        assert torch.equal(s[i], si) and torch.equal(c[i], ci)
+    rs, rc = ref.proto_accum(f, lab, C)
+    _close(s, rs)
+    assert torch.equal(c, rc)
+
+
+def _device_kernels(fn, tries=3):
+    """[(name, count)] of the device kernels in a profiler session around
+    fn(). Each session first launches a fill kernel, so that a session
+    that lost its events (not even the fill: taken again, at most `tries`
+    times) is told from a call that launched nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda")
+            fn()
+            torch.cuda.synchronize()
+        kern = [(e.key, e.count) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and not e.key.startswith("Memset")]
+        if kern:
+            return kern
+    raise AssertionError(f"the profiler recorded no device kernel in {tries} "
+                         f"sessions")
+
+
+def test_client_axis_calls_launch_one_kernel_each(cuda):
+    """With a client axis each wrapper call is still one kernel, by the
+    profiler's names (`ops.KERNEL_SYMBOLS`)."""
+    g = torch.Generator().manual_seed(0)
+    calls = {}
+    for N, B, C, M in ((5, 32, 10, 10), (3, 100, 777, 33)):
+        s = torch.randn(N, B, C, generator=g).to(cuda)
+        q = torch.softmax(torch.randn(N, M, C, generator=g), -1).to(cuda)
+        y = torch.randint(0, M, (N, B), generator=g).to(cuda)
+        out = ops.disc_loss_fwd(s, q, y)
+        w = torch.ones(N, B, device=cuda)
+        calls[("disc_loss_fwd", N, C)] = lambda s=s, q=q, y=y: ops.disc_loss_fwd(s, q, y)
+        calls[("disc_loss_bwd", N, C)] = (
+            lambda s=s, q=q, y=y, w=w, out=out: ops.disc_loss_bwd(w, s, q, y, None,
+                                                                  *out[1:]))
+    for N, n in ((5, 240), (2, 20000)):
+        f = torch.randn(N, n, 84, generator=g).to(cuda)
+        lab = torch.randint(0, 10, (N, n), generator=g).to(cuda)
+        calls[("proto_accum", N, n)] = lambda f=f, lab=lab: ops.proto_accum(f, lab, 10)
+    for key, fn in calls.items():
+        kern = _device_kernels(fn)
+        pat = re.compile(r"\b(" + "|".join(ops.KERNEL_SYMBOLS[key[0]]) + r")\b")
+        ours = [k for k in kern if pat.search(k[0])]
+        assert len(ours) == 1 and ours[0][1] == 1, (key, kern)
+
+
+def test_vec_round_on_the_card_never_syncs_and_matches_seq(cuda):
+    """Two CoRS rounds of a small MLP fleet in the vectorized engine, every
+    round step under CUDA sync-debug mode "error": one batched kernel launch
+    a local step and a round, ring and ledger equal to the sequential
+    engine's on the card, accuracies within 2e-2."""
+    from repro_torch.core import client, collab, vec_collab
+    from repro_torch.data import partition, synthetic
+    from repro_torch.models import mlp
+    from repro_torch.types import CollabConfig, TrainConfig
+    x, y = synthetic.class_images(192, seed=0, noise=0.4)
+    parts = partition.uniform_split(x, y, 3, seed=1)
+    spec = client.ClientSpec(apply=mlp.apply,
+                             head=lambda p: (p["head_w"], p["head_b"]))
+
+    def build(cls):
+        gen = torch.Generator().manual_seed(0)
+        ps = [mlp.init_mlp(gen, device="cpu") for _ in range(3)]
+        return cls([spec] * 3, ps, parts, (x, y), CollabConfig(lambda_kd=2.0),
+                   TrainConfig(), seed=0, device=cuda)
+
+    vec = build(vec_collab.VectorizedCollabTrainer)
+    step = vec._round_step
+
+    def no_sync_step(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    vec._round_step = no_sync_step
+    ops.reset_launches()
+    vec.run(2)
+    assert ops.LAUNCHES == {"disc_loss_fwd": 4, "disc_loss_bwd": 4,
+                            "proto_accum": 2, "flash_attention": 0}
+    seq = build(collab.CollabTrainer)
+    seq.run(2)
+    for f in ("ptr", "owner", "valid", "stamp", "clock", "valid_g"):
+        assert torch.equal(getattr(vec.relay_state, f),
+                           getattr(seq.server.state, f)), f
+    assert vec.ledger.by_round == seq.ledger.by_round
+    for ra, rb in zip(vec.history, seq.history):
+        assert max(abs(p - q) for p, q in zip(ra["accs"], rb["accs"])) <= 2e-2
+
+
 def test_ops_raise_on_what_the_kernels_do_not_take(cuda):
     s, q, y, _ = _disc_inputs(8, 10, 10, False, cuda)
     with pytest.raises(ValueError):

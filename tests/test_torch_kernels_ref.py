@@ -142,3 +142,90 @@ def test_ops_refuse_tensors_off_the_cpu_and_off_cuda():
         ops.proto_accum(s, y, 3)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         ops.proto_accum(torch.zeros(4, 5), y, 3)
+
+
+# -- the client axis: the batched plain versions (one batched product, as the
+# vectorized engine calls them) against `jax.vmap` of the reference's oracle
+# and of its Pallas kernels in interpret mode, and the batched backward
+# against `jax.grad` of the vmapped oracle; tolerances as above.
+@pytest.mark.parametrize("N,B,C,M", [(5, 32, 10, 10), (3, 100, 777, 33),
+                                     (2, 16, 64, 8)])
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_batched_disc_loss_plain_matches_vmapped_reference(N, B, C, M,
+                                                           with_valid):
+    rng = np.random.default_rng(N + B)
+    s = (rng.standard_normal((N, B, C)) * 2).astype(np.float32)
+    q = np.asarray(jax.nn.softmax(
+        (rng.standard_normal((N, M, C)) * 2).astype(np.float32), axis=-1))
+    y = rng.integers(0, M, (N, B)).astype(np.int32)
+    v = rng.random((N, M)) > 0.3 if with_valid else None
+    vv = np.ones((N, M), bool) if v is None else v
+    loss, row_max, log_z, h_raw = ref.disc_loss_fwd(_t(s), _t(q), _t(y), _t(v))
+    assert loss.shape == (N, B) and h_raw.shape == (N, B, M)
+    want = jax.vmap(jref.disc_loss)(s, q, y, vv)
+    pallas = jax.vmap(lambda a, b, c, d: jdl.disc_loss(
+        a, b, c, d, block_b=32, block_c=256, interpret=True))(s, q, y, vv)
+    for w in (want, pallas):
+        np.testing.assert_allclose(loss.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=2e-4)
+    for i in range(N):                  # each client's slice is its own call
+        one = ref.disc_loss_fwd(_t(s[i]), _t(q[i]), _t(y[i]),
+                                None if v is None else _t(v[i]))
+        for a, b in zip((loss, row_max, log_z, h_raw), one):
+            np.testing.assert_allclose(a[i].numpy(), b.numpy(), atol=1e-6,
+                                       rtol=1e-6)
+    g = rng.standard_normal((N, B)).astype(np.float32)
+    f = lambda ss, qq: jnp.sum(g * jax.vmap(jref.disc_loss)(ss, qq, y, vv))
+    want_ds, want_dq = jax.grad(f, argnums=(0, 1))(s, q)
+    ds, dq = ref.disc_loss_bwd(_t(g), _t(s), _t(q), _t(y), _t(v), row_max,
+                               log_z, h_raw)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want_ds), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want_dq), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("N,n,d,C", [(5, 240, 84, 10), (3, 100, 84, 10),
+                                     (2, 512, 128, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_proto_accum_plain_matches_vmapped_reference(N, n, d, C,
+                                                             dtype):
+    rng = np.random.default_rng(N + n)
+    f = rng.standard_normal((N, n, d)).astype(np.float32)
+    lab = rng.integers(0, C, (N, n)).astype(np.int32)
+    fj = jnp.asarray(f, getattr(jnp, dtype))
+    s, c = ref.proto_accum(torch.from_numpy(f).to(getattr(torch, dtype)),
+                           torch.from_numpy(lab), C)
+    assert s.shape == (N, C, d) and c.shape == (N, C)
+    rs, rc = jax.vmap(lambda a, b: jref.proto_accum(a, b, C))(fj, lab)
+    ps, pc = jax.vmap(lambda a, b: jpa.proto_accum(
+        a, b, C, block_n=128, block_c=64, interpret=True))(fj, lab)
+    for ws, wc in ((rs, rc), (ps, pc)):
+        np.testing.assert_allclose(s.numpy(), np.asarray(ws), atol=2e-4,
+                                   rtol=2e-4)
+        np.testing.assert_array_equal(c.numpy(), np.asarray(wc))
+
+
+def test_ops_take_a_client_axis_on_the_cpu():
+    """The wrappers pass a client axis through to the plain versions on the
+    CPU (no launch), and `ops.disc_loss`'s gradient with a client axis is
+    each client's own."""
+    rng = np.random.default_rng(7)
+    s = _t((rng.standard_normal((3, 8, 6)) * 2).astype(np.float32))
+    q = torch.softmax(_t(rng.standard_normal((3, 5, 6)).astype(np.float32)), -1)
+    y = _t(rng.integers(0, 5, (3, 8)).astype(np.int64))
+    v = _t(rng.random((3, 5)) > 0.2)
+    before = dict(ops.LAUNCHES)
+    st = s.clone().requires_grad_(True)
+    qt = q.clone().requires_grad_(True)
+    ds, dq = torch.autograd.grad(ops.disc_loss(st, qt, y, v).sum(), (st, qt))
+    for i in range(3):
+        si = s[i].clone().requires_grad_(True)
+        qi = q[i].clone().requires_grad_(True)
+        a, b = torch.autograd.grad(ops.disc_loss(si, qi, y[i], v[i]).sum(),
+                                   (si, qi))
+        np.testing.assert_allclose(ds[i].numpy(), a.numpy(), atol=1e-6)
+        np.testing.assert_allclose(dq[i].numpy(), b.numpy(), atol=1e-6)
+    sums, counts = ops.proto_accum(s, y, 5)
+    assert sums.shape == (3, 5, 6) and counts.shape == (3, 5)
+    assert ops.LAUNCHES == before
