@@ -23,6 +23,15 @@ Phases (each failure raises, so the process exits non-zero):
      launch counts asserted (21 / 21 / 3), ring and ledger equal to the
      sequential engine's on the card, accuracies within 2e-2; s/round of
      both engines;
+  5c. baselines: 3 rounds at N = 5 (cl: N = 1, all the data) in both
+     engines on the card, and in the sequential engine on the CPU, of each
+     of fd (flat relay), fedavg, cl, cors under the per_class relay and
+     cors under staleness:0.5: the kernels' launch counts asserted exactly
+     for each path, every vec round step under sync-debug mode "error",
+     vec's ring integers (and ages) and ledger equal to seq's on the card
+     and seq's on the card equal to the CPU's, accuracies within 2e-2, fd's
+     mean logits finite and within 1e-3 across engines; s/round of every
+     path in both engines;
   6. profile: one more round of each engine under torch.profiler (device
      busy share, device ops, time by kernel), then 2 rounds of each engine
      at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
@@ -45,7 +54,8 @@ equal bits, and runs the kernels with a leading client axis (the vectorized
 engine's shapes), whose results must be bit-equal to one launch a client;
 phase 6 requires one kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
-over ms, and device_us_per_launch from the profiles) before the last line,
+over ms, device_us_per_launch from the profiles, and launches_by_path from
+phase 5c) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -68,6 +78,20 @@ BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor cores
 TOL = 1e-5                 # max |kernel - plain| <= TOL * max(1, max |plain|)
 ROUNDS, CLIENTS = 3, 5
 STEPS = 7                  # 240 samples a client / batch 32, remainder dropped
+# Phase 5c's paths: (name, mode, relay policy, clients) and the launches
+# (disc_loss fwd, bwd, proto_accum) over ROUNDS rounds, seq then vec: fd
+# accumulates features and logits (two proto_accum launches an upload);
+# fedavg and cl run no kernel.
+CORS_LAUNCHES = ((CLIENTS * STEPS * ROUNDS,) * 2 + (CLIENTS * ROUNDS,),
+                 (STEPS * ROUNDS,) * 2 + (ROUNDS,))
+PATHS = (("fd", "fd", "flat", CLIENTS,
+          ((0, 0, 2 * CLIENTS * ROUNDS), (0, 0, 2 * ROUNDS))),
+         ("fedavg", "fedavg", "flat", CLIENTS, ((0, 0, 0), (0, 0, 0))),
+         ("cl", "cl", "flat", 1, ((0, 0, 0), (0, 0, 0))),
+         ("cors per_class", "cors", "per_class", CLIENTS, CORS_LAUNCHES),
+         ("cors staleness:0.5", "cors", "staleness:0.5", CLIENTS,
+          CORS_LAUNCHES))
+RING_INTS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g")
 SCALE_CLIENTS, SCALE_ROUNDS = 32, 2   # class_images(7680): 240 samples a client
 # flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
 # first, then tests/test_kernels.py's, a ragged one, and the serving shape at
@@ -481,6 +505,9 @@ def phase_kernels(dev):
             r = check_proto(n, d, C, dtype, dev, gen)
             res["proto_accum"].append(
                 dict(r, shape=[n, d, C, str(dtype).split(".")[-1]]))
+    # fd's per-class logit sums: 40-byte rows (d = C = 10)
+    r = check_proto(240, 10, 10, torch.float32, dev, gen)
+    res["proto_accum"].append(dict(r, shape=[240, 10, 10, "float32"]))
     # out-of-range labels contribute nothing
     f = torch.randn(1000, 64, generator=gen).to(dev)
     lab = torch.randint(-3, 303, (1000,), generator=gen).to(dev)
@@ -495,10 +522,11 @@ def phase_kernels(dev):
             shape = [N, B, C, M, "valid" if with_valid else "all"]
             res["disc_loss_fwd_batched"].append(dict(fwd, shape=shape))
             res["disc_loss_bwd_batched"].append(dict(bwd, shape=shape))
-    for dtype in (torch.float32, torch.bfloat16):
-        r = check_proto_batched(CLIENTS, 240, 84, 10, dtype, dev, gen)
+    for d, dtype in ((84, torch.float32), (84, torch.bfloat16),
+                     (10, torch.float32)):          # d 10: fd's logit sums
+        r = check_proto_batched(CLIENTS, 240, d, 10, dtype, dev, gen)
         res["proto_accum_batched"].append(
-            dict(r, shape=[CLIENTS, 240, 84, 10, str(dtype).split(".")[-1]]))
+            dict(r, shape=[CLIENTS, 240, d, 10, str(dtype).split(".")[-1]]))
     for B, S, H, G, hd in FLASH_SHAPES:        # the main path's row first
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
@@ -604,16 +632,7 @@ def phase_vec(dev, seq):
     from repro_torch.collab_image_classification import build_trainer
     from repro_torch.kernels import ops
     vec = build_trainer(CLIENTS, "cors", seed=0, device=dev, engine="vec")
-    step = vec._round_step
-
-    def no_sync_step(*args):
-        torch.cuda.set_sync_debug_mode("error")   # a host sync raises
-        try:
-            return step(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
-    vec._round_step = no_sync_step
+    step = no_sync(vec)
     ops.reset_launches()
     secs = []
     for _ in range(ROUNDS):
@@ -652,6 +671,110 @@ def phase_vec(dev, seq):
           f"{vec.history[-1]['accs']} seq {seq.history[-1]['accs']}; max |obs| "
           f"diff {d_obs:.3e}, max |global_protos| diff {d_gp:.3e}")
     return vec, launches, secs
+
+
+def no_sync(vec):
+    """Wraps the vec trainer's round step so that a host sync inside it
+    raises (CUDA sync-debug mode "error"); -> the unwrapped step."""
+    step = vec._round_step
+
+    def no_sync_step(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    vec._round_step = no_sync_step
+    return step
+
+
+def timed_rounds(trainer, tag):
+    """ROUNDS rounds with the launch counts set to 0 just before and read
+    just after -> (launches (fwd, bwd, proto), seconds per round)."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    secs = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        rec = trainer.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        for m in rec["metrics"]:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{tag}: non-finite metrics {m}")
+    n = dict(ops.LAUNCHES)
+    if n["flash_attention"]:
+        raise AssertionError(f"{tag}: flash_attention launched")
+    return (n["disc_loss_fwd"], n["disc_loss_bwd"], n["proto_accum"]), secs
+
+
+def same_ring(a, b, what):
+    """Ring integers (and ages) of two trainers' relay states equal."""
+    for f in RING_INTS + (("age",) if hasattr(a, "age") else ()):
+        if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()):
+            raise AssertionError(f"{what}: ring field {f} differs")
+
+
+def same_accs(ha, hb, what):
+    for ra, rb in zip(ha, hb):
+        d = max(abs(p - q) for p, q in zip(ra["accs"], rb["accs"]))
+        if d > 2e-2:
+            raise AssertionError(f"{what}, round {ra['round']}: accuracies "
+                                 f"differ by {d}")
+
+
+def phase_baselines(dev):
+    """The paper's Table 1 baselines and the relay policies (PATHS), each in
+    both engines on the card and in seq on the CPU. -> {path: {"seq":
+    launches, "vec": launches, "seq_s": [...], "vec_s": [...]}}."""
+    from repro_torch.collab_image_classification import build_trainer
+    out = {}
+    for name, mode, policy, n, (want_seq, want_vec) in PATHS:
+        mk = lambda device, engine: build_trainer(
+            n, mode, seed=0, device=device, engine=engine,
+            relay_policy=policy)
+        seq = mk(dev, "seq")
+        l_seq, s_seq = timed_rounds(seq, f"{name} seq")
+        vec = mk(dev, "vec")
+        step = no_sync(vec)
+        l_vec, s_vec = timed_rounds(vec, f"{name} vec")
+        vec._round_step = step
+        print(f"[baselines] {name}: launches (disc fwd, bwd, proto_accum) "
+              f"seq {l_seq} vec {l_vec}; s/round seq {s_seq} vec {s_vec}; no "
+              f"host sync inside the vec round step")
+        if l_seq != want_seq or l_vec != want_vec:
+            raise AssertionError(f"{name}: launches seq {l_seq} vec {l_vec} "
+                                 f"!= {want_seq} {want_vec}")
+        cpu = mk("cpu", "seq")
+        cpu.run(ROUNDS)
+        sv, ss, sc = vec.relay_state, seq.server.state, cpu.server.state
+        same_ring(sv, ss, f"{name}: vec and seq on the card")
+        same_ring(ss, sc, f"{name}: seq on the card and on the CPU")
+        if not vec.ledger.by_round == seq.ledger.by_round == cpu.ledger.by_round:
+            raise AssertionError(f"{name}: ledgers differ")
+        same_accs(vec.history, seq.history, f"{name}: vec and seq")
+        same_accs(seq.history, cpu.history, f"{name}: card and CPU")
+        d_ml = float((sv.mean_logits - ss.mean_logits).abs().max())
+        if mode == "fd":
+            for st in (sv, ss):
+                if not (bool(torch.isfinite(st.mean_logits).all())
+                        and float(st.mean_logits.abs().max()) > 0):
+                    raise AssertionError(f"{name}: mean logits not finite "
+                                         f"or still zero")
+            if not d_ml <= 1e-3:
+                raise AssertionError(f"{name}: mean logits of vec and seq "
+                                     f"differ by {d_ml:.3e}")
+        print(f"[baselines] {name}: ring{' and ages' if hasattr(sv, 'age') else ''}"
+              f" and ledger equal (vec = seq on the card = seq on the CPU); "
+              f"accs vec {vec.history[-1]['accs']} seq "
+              f"{seq.history[-1]['accs']} cpu {cpu.history[-1]['accs']}; max "
+              f"|mean_logits| vec - seq {d_ml:.3e}; comm "
+              f"{seq.ledger.total_bytes / 1e6:.3f} MB")
+        out[name] = {"seq": l_seq, "vec": l_vec, "seq_s": s_seq,
+                     "vec_s": s_vec}
+        del seq, vec, cpu
+    return out
 
 
 def phase_profile(engine, tag, batched):
@@ -846,6 +969,7 @@ def main():
     res = phase_kernels(dev)
     gpu, launches, secs_seq = phase_slice(dev)
     vec, launches_vec, secs_vec = phase_vec(dev, gpu)
+    paths = phase_baselines(dev)
     dev_us, ops_seq, busy_seq = phase_profile(gpu, "profile seq", False)
     dev_us_vec, ops_vec, busy_vec = phase_profile(vec, "profile vec", True)
     dev_us.update(dev_us_vec)
@@ -885,6 +1009,11 @@ def main():
              "share_of_bound": main_row["bound_ms"] / main_row["ms"],
              "library_ms": main_row["library_ms"], "shape": main_row["shape"],
              "device_us_per_launch": dev_us[name], "shapes": rows}
+        if name != "flash_attention":
+            j = name.startswith("disc_loss_bwd") + 2 * name.startswith("proto")
+            k["launches_by_path"] = {
+                p: v["vec" if name.endswith("_batched") else "seq"][j]
+                for p, v in paths.items()}
         if name == "flash_attention":
             k["share_of_prefill_device_time"] = prof["flash_share"]
             k["controls_times_limit"] = {n: c[0] for n, c in controls.items()}

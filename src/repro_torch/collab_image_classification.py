@@ -1,12 +1,16 @@
 """End-to-end run of the port (the twin of
 examples/collab_image_classification.py): N = 5 LeNet clients on sparse
-local data, CoRS or IL, per-round accuracy, exact communication accounting
-and the kernels' launch counts. `--engine vec` (the default, as in the
-reference's example) runs all clients in one batched round step, `seq` the
-sequential engine.
+local data, CoRS or one of the paper's Table 1 baselines (fd, fedavg, il),
+per-round accuracy, exact communication accounting and the kernels' launch
+counts. `--engine vec` (the default, as in the reference's example) runs all
+clients in one batched round step, `seq` the sequential engine.
+`--relay-policy` picks the server's relay (cors and fd). CL, il on one
+client holding all the data, is `build_trainer(1, "cl")`, as the reference's
+`benchmarks/common.run_mode("cl", 1)`.
 
   PYTHONPATH=src python -m repro_torch.collab_image_classification \
-      [--rounds R] [--clients N] [--mode cors|il] [--engine vec|seq] \
+      [--rounds R] [--clients N] [--mode cors|il|fd|fedavg] \
+      [--relay-policy flat|per_class|staleness[:lam]] [--engine vec|seq] \
       [--device cuda|cpu]
 """
 from __future__ import annotations
@@ -20,7 +24,7 @@ from repro_torch.core import client as client_lib, collab, vec_collab
 from repro_torch.data import partition, synthetic
 from repro_torch.kernels import ops
 from repro_torch.models import cnn
-from repro_torch.types import CollabConfig, TrainConfig
+from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
 
 CNN_SPEC = client_lib.ClientSpec(apply=cnn.apply,
                                  head=lambda p: (p["head_w"], p["head_b"]))
@@ -32,10 +36,11 @@ ENGINES = {"vec": vec_collab.VectorizedCollabTrainer,
 
 def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
                   lambda_kd: float = 2.0, lambda_disc: float = 1.0,
-                  device=None, engine: str = "vec", n_train: int = 1200):
+                  device=None, engine: str = "vec", n_train: int = 1200,
+                  relay_policy=None):
     """The example's fleet: `class_images(n_train)` split uniformly over the
     clients, 2000 test images, batch 32, LeNet clients with random weights
-    from `seed`, in the `engine` trainer."""
+    from `seed`, in the `engine` trainer with the `relay_policy` relay."""
     x, y = synthetic.class_images(n_train, seed=0, noise=0.8)
     tx, ty = synthetic.class_images(2000, seed=99, noise=0.8)
     parts = partition.uniform_split(x, y, clients, seed=1)
@@ -45,6 +50,7 @@ def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
                         lambda_kd=lambda_kd, lambda_disc=lambda_disc)
     return ENGINES[engine]([CNN_SPEC] * clients, params, parts, (tx, ty),
                            ccfg, TrainConfig(batch_size=32), seed=seed,
+                           fleet=FleetConfig(policy=relay_policy),
                            device=device)
 
 
@@ -52,7 +58,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--clients", type=int, default=5)
-    ap.add_argument("--mode", default="cors", choices=["cors", "il"])
+    ap.add_argument("--mode", default="cors",
+                    choices=["cors", "il", "fd", "fedavg"])
+    ap.add_argument("--relay-policy", default="flat",
+                    help="the server's relay: flat | per_class | "
+                         "staleness[:lam]")
     ap.add_argument("--engine", default="vec", choices=sorted(ENGINES))
     ap.add_argument("--lambda-kd", type=float, default=2.0)
     ap.add_argument("--lambda-disc", type=float, default=1.0)
@@ -63,9 +73,11 @@ def main(argv=None):
     trainer = build_trainer(args.clients, args.mode,
                             lambda_kd=args.lambda_kd,
                             lambda_disc=args.lambda_disc, device=args.device,
-                            engine=args.engine)
+                            engine=args.engine,
+                            relay_policy=args.relay_policy)
     print(f"{args.clients} clients sharing 1200 samples, mode={args.mode}, "
-          f"engine={args.engine}, device={trainer.device}")
+          f"relay={args.relay_policy}, engine={args.engine}, "
+          f"device={trainer.device}")
     ops.reset_launches()
     for _ in range(args.rounds):
         t0 = time.perf_counter()

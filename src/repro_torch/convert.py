@@ -8,7 +8,8 @@ conv weights: HWIO in the reference (`repro/models/cnn.py:26-44`), OIHW in
 the port. Dense weights keep their (in, out) layout, and the LeNet flattens
 its pooled activation in NHWC order (`models/cnn.py`), so `fc1` is copied as
 is. A leading client axis (the vectorized engines' stacked parameters) is
-kept. An LM's stacked segments are split into per-layer dicts.
+kept. An LM's stacked segments are split into per-layer dicts. A relay
+state of any policy converts field by field (`relay_state_to_numpy`).
 """
 from __future__ import annotations
 
@@ -107,3 +108,9 @@ def lm_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
         else:
             out[k] = _map(v, lambda a: _tensor(a, dev))
     return out
+
+
+def relay_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """Any relay policy's state (a NamedTuple of tensors) -> {field: numpy
+    array}, field by field, as the reference's state holds them."""
+    return {f: getattr(state, f).detach().cpu().numpy() for f in state._fields}

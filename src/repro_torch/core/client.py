@@ -4,8 +4,8 @@
 A client is (apply, head): `apply(params, x) -> (features, logits)` and
 `head(params) -> (W, b)` exposing the linear classifier tau_u used by the
 discriminator. The reference's two `lax.scan`s (epochs x batches) are Python
-loops here. `loss_fn` reads no randomness in cors and il modes, so a local
-update is deterministic given the parameters and the teacher.
+loops here. `loss_fn` reads no randomness in any mode, so a local update is
+deterministic given the parameters and the teacher.
 
 `stacked=True` is the vectorized engine's form, the counterpart of
 `jax.vmap` over these functions: every parameter, batch and teacher entry
@@ -25,6 +25,12 @@ import torch
 from repro_torch.core import losses, prototypes
 from repro_torch.optim import adam_update
 from repro_torch.types import CollabConfig, TrainConfig
+
+
+# The trainers' modes: CoRS, the paper's Table 1 baselines (federated
+# distillation, FedAvg, independent learning) and CL, which is il on one
+# client holding all the data.
+MODES = ("cors", "fd", "fedavg", "il", "cl")
 
 
 @dataclass(frozen=True)
@@ -59,7 +65,9 @@ def _apply(spec: ClientSpec, stacked: bool):
 
 def loss_fn(spec: ClientSpec, params, batch, teacher, ccfg: CollabConfig,
             stacked: bool = False):
-    """One mini-batch of Algorithm 2's inner loop -> (total, metrics).
+    """One mini-batch of Algorithm 2's inner loop -> (total, metrics):
+    L_CE, plus L_KD and L_disc in cors mode, plus the fd loss on the mean
+    logits in fd mode; il, cl and fedavg train on L_CE alone.
 
     teacher: dict(global_protos (C,d'), valid_g (C,), obs (M,C,d'),
     valid_o (C,), obs_pick (int: which m to use), mean_logits (C,C)).
@@ -86,18 +94,18 @@ def loss_fn(spec: ClientSpec, params, batch, teacher, ccfg: CollabConfig,
         metrics.update(kd=l_kd, disc=l_disc,
                        mi_bound=losses.mi_lower_bound(
                            l_disc, ccfg.num_classes - 1))
-    elif ccfg.mode != "il":
-        raise NotImplementedError(
-            f"mode {ccfg.mode!r}: the port runs cors and il; fd and fedavg "
-            "come with the next modes of the sequential engine (ROADMAP, "
-            "queue 1)")
+    elif ccfg.mode == "fd":
+        l_fd = losses.fd_loss(logits, teacher["mean_logits"], y,
+                              valid=teacher["valid_g"])
+        total = total + ccfg.lambda_kd * l_fd
+        metrics["fd"] = l_fd
     metrics["total"] = total
     return total, metrics
 
 
 def empty_teacher(ccfg: CollabConfig, device) -> Dict:
-    """A no-op teacher (IL mode), with the keys and shapes of
-    `relay.flat.sample_teacher`'s."""
+    """A no-op teacher (il, cl and fedavg modes), with the keys and shapes
+    of a relay policy's `sample_teacher`."""
     C, d = ccfg.num_classes, ccfg.d_feature
     return {"global_protos": torch.zeros(C, d, device=device),
             "valid_g": torch.zeros(C, dtype=torch.bool, device=device),
@@ -151,6 +159,8 @@ def zero_metrics(ccfg: CollabConfig) -> Dict:
     m = {"ce": 0.0, "total": 0.0, "grad_norm": 0.0}
     if ccfg.mode == "cors":
         m.update(kd=0.0, disc=0.0, mi_bound=0.0)
+    elif ccfg.mode == "fd":
+        m["fd"] = 0.0
     return m
 
 
@@ -158,16 +168,23 @@ def zero_metrics(ccfg: CollabConfig) -> Dict:
 def compute_uploads(spec: ClientSpec, params, data_x, data_y,
                     ccfg: CollabConfig, prio, stacked: bool = False) -> Dict:
     """End-of-round uploads (Algorithm 1): the client's per-class sums (for
-    t-bar) and M_up observations (for the L_disc buffers). prio (m_up, n):
-    the observation draw's priorities (see `prototypes.observations`).
-    stacked: all N clients' uploads at once, each entry with a leading
-    client axis (one proto_accum launch for the fleet)."""
-    feats, _ = _apply(spec, stacked)(params, data_x)
-    state = prototypes.accumulate(
-        prototypes.init_state(ccfg.num_classes, feats.shape[-1],
-                              feats.device,
-                              feats.shape[0] if stacked else None),
-        feats, data_y)
+    t-bar) and M_up observations (for the L_disc buffers), and in fd mode
+    its per-class logit sums (`logit_proto`, for the mean logits). prio
+    (m_up, n): the observation draw's priorities (see
+    `prototypes.observations`). stacked: all N clients' uploads at once,
+    each entry with a leading client axis (one proto_accum launch for the
+    fleet, two in fd mode)."""
+    feats, logits = _apply(spec, stacked)(params, data_x)
+    lead = feats.shape[0] if stacked else None
+
+    def sums(rows):
+        return prototypes.accumulate(
+            prototypes.init_state(ccfg.num_classes, rows.shape[-1],
+                                  rows.device, lead), rows, data_y)
+
     obs, valid = prototypes.observations(prio, feats, data_y,
                                          ccfg.num_classes, ccfg.n_avg)
-    return {"proto": state, "obs": obs, "valid": valid}
+    out = {"proto": sums(feats), "obs": obs, "valid": valid}
+    if ccfg.mode == "fd":
+        out["logit_proto"] = sums(logits)
+    return out

@@ -1,21 +1,26 @@
 """Multi-client simulation trainer, the sequential engine; the port of
 `repro/core/collab.py:CollabTrainer` for synchronous rounds.
 
-This slice runs full participation, the flat relay and modes `cors` and
-`il`. Every round has the reference's three phases:
+It runs CoRS and the paper's Table 1 baselines with one data split,
+optimizer and round accounting: modes `cors`, `fd` (federated
+distillation), `fedavg`, `il` and `cl` (il on one client holding all the
+data), with full participation and any relay policy of `relay/` (`flat`,
+`per_class`, `staleness[:lam]`). Every round has the reference's phases:
   1. downlink: every client samples a teacher from the relay state of the
-     PREVIOUS round (cors);
+     PREVIOUS round (cors, fd);
   2. local updates (Algorithm 2), client by client;
-  3. uplink: uploads in bucket order, then one prototype merge (cors).
+  3. uplink: uploads in bucket order, then one merge (cors, fd); fedavg
+     instead replaces every client's weights by their average.
 Then the ledger is billed and every client is evaluated.
 
 The reference draws its random numbers with `jax.random` from a per-round
 key schedule. The port takes them from a `draws` object instead: Gumbel
-noise and the observation pick for each teacher, priorities for each
-upload's observation draw. `TorchDraws` (the default) makes them from a
-seeded CPU `torch.Generator` per (round, client) and moves them to the
-device, so a CUDA run and a CPU run of one seed draw the same numbers; the
-parity tests pass draws made from the reference's own keys.
+noise of the policy's `noise_shape` and the observation pick for each
+teacher, priorities for each upload's observation draw. `TorchDraws` (the
+default) makes them from a seeded CPU `torch.Generator` per (round, client)
+and moves them to the device, so a CUDA run and a CPU run of one seed draw
+the same numbers; the parity tests pass draws made from the reference's
+own keys.
 """
 from __future__ import annotations
 
@@ -25,10 +30,11 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import client as client_lib, comm
+from repro_torch import relay as relay_lib
+from repro_torch.core import baselines, client as client_lib, comm
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
-from repro_torch.relay import flat
+from repro_torch.relay import base
 from repro_torch.relay.server import RelayServer
 from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
 
@@ -44,10 +50,11 @@ class TorchDraws:
         seq = np.random.SeedSequence([self.seed, r, i, kind])
         return torch.Generator().manual_seed(int(seq.generate_state(1)[0]))
 
-    def teacher(self, r: int, i: int, m_down: int, cap: int):
-        """-> (Gumbel noise (m_down, cap) f32 on the CPU, obs_pick int)."""
+    def teacher(self, r: int, i: int, m_down: int, shape: tuple):
+        """-> (Gumbel noise of `shape` (the policy's `noise_shape`) f32 on
+        the CPU, obs_pick int)."""
         g = self._gen(r, i, 0)
-        noise = flat.gumbel(m_down, cap, g)
+        noise = base.gumbel(shape, g)
         pick = int(torch.randint(0, m_down, (), generator=g))
         return noise, pick
 
@@ -57,7 +64,7 @@ class TorchDraws:
 
 
 _FLEET_SLICES = {
-    "participation": "relay breadth (ROADMAP slice 3)",
+    "participation": "participation schedules (ROADMAP slice 3)",
     "clock": "asynchrony (ROADMAP slice 4)",
     "download_clock": "asynchrony (ROADMAP slice 4)",
     "arrivals": "population scale (ROADMAP slice 5)",
@@ -65,12 +72,16 @@ _FLEET_SLICES = {
 }
 
 
-def _check_fleet(fleet: FleetConfig):
-    if fleet.policy not in (None, "flat"):
-        raise NotImplementedError(
-            f"relay policy {fleet.policy!r}: the port has the flat relay; "
-            "per_class and staleness come with relay breadth (ROADMAP "
-            "slice 3), sharded with population scale (slice 5)")
+RELAY_MODES = ("cors", "fd")     # the modes that go through the relay
+
+
+def check_setup(ccfg: CollabConfig, fleet: FleetConfig) -> relay_lib.RelayPolicy:
+    """Refuses what the port does not run yet, naming the ROADMAP slice that
+    brings it, and an unknown mode; -> the fleet's relay policy."""
+    if ccfg.mode not in client_lib.MODES:
+        raise ValueError(f"unknown mode {ccfg.mode!r} (have "
+                         f"{sorted(client_lib.MODES)})")
+    policy = relay_lib.get_policy(fleet.policy)
     if fleet.participation not in (None, "full"):
         raise NotImplementedError(
             f"participation {fleet.participation!r} comes with "
@@ -80,6 +91,7 @@ def _check_fleet(fleet: FleetConfig):
         if v is not None and v != "none":
             raise NotImplementedError(
                 f"FleetConfig.{f}={v!r} comes with {_FLEET_SLICES[f]}")
+    return policy
 
 
 @dataclass
@@ -98,11 +110,7 @@ class CollabTrainer:
                  test_data: Tuple[Any, Any],
                  ccfg: CollabConfig, tcfg: TrainConfig, seed: int = 0,
                  fleet: FleetConfig = None, draws=None, device=None):
-        if ccfg.mode not in ("cors", "il"):
-            raise NotImplementedError(
-                f"mode {ccfg.mode!r}: the port's sequential engine runs cors "
-                "and il; fd and fedavg are queued in ROADMAP (queue 1)")
-        _check_fleet(fleet if fleet is not None else FleetConfig())
+        policy = check_setup(ccfg, fleet if fleet is not None else FleetConfig())
         if not len(specs) == len(params_list) == len(client_data):
             raise ValueError("one spec, parameter set and data part per client")
         self.device = resolve_device(device)
@@ -117,9 +125,13 @@ class CollabTrainer:
             c.opt_state = adam_init(c.params)
         self.test_x, self.test_y = as_t(test_data[0]), as_t(test_data[1])
         buckets = client_lib.bucketize(specs, params_list)
+        if ccfg.mode == "fedavg" and len(buckets) > 1:
+            raise ValueError("fedavg averages weights: it needs one model "
+                             "for every client")
         self._upload_order = [i for _, ids in buckets for i in ids]
         self.server = RelayServer(ccfg, ccfg.d_feature, seed,
-                                  n_clients=len(specs), device=dev)
+                                  n_clients=len(specs), device=dev,
+                                  policy=policy)
         self.draws = draws if draws is not None else TorchDraws(seed)
         self.ledger = comm.CommLedger()
         self._updaters = [client_lib.make_local_update_fn(c.spec, ccfg, tcfg)
@@ -144,9 +156,10 @@ class CollabTrainer:
         # phase 1: downlink from the previous round's state
         teachers = []
         for i in range(N):
-            if mode == "cors":
-                noise, pick = self.draws.teacher(r, i, m_down,
-                                                 self.server.state.capacity)
+            if mode in RELAY_MODES:
+                noise, pick = self.draws.teacher(
+                    r, i, m_down, self.server.policy.noise_shape(
+                        self.server.state, m_down))
                 teachers.append(self.server.relay(i, m_down, noise, pick))
             else:
                 teachers.append(client_lib.empty_teacher(ccfg, self.device))
@@ -160,7 +173,7 @@ class CollabTrainer:
 
         # phase 3: uplink in bucket order, then one merge (Algorithm 1)
         commits = [(r, i) for i in range(N)]
-        if mode == "cors":
+        if mode in RELAY_MODES:
             self.server.begin_round()
             for i in self._upload_order:
                 c = self.clients[i]
@@ -172,10 +185,18 @@ class CollabTrainer:
                 self.server.upload(i, payload)
             self.server.end_round()
             commits = [(r, i) for i in self._upload_order]
+        elif mode == "fedavg":
+            # every client gets its own copy of the average (Adam's moments
+            # are not averaged)
+            avg = baselines.fedavg_aggregate([c.params for c in self.clients])
+            for c in self.clients:
+                c.params = {k: v.clone() for k, v in avg.items()}
 
         up, down = comm.round_floats(
             mode, n_present=N, n_commit=len(commits), C=ccfg.num_classes,
-            d=ccfg.d_feature, m_up=ccfg.m_up, m_down=ccfg.m_down)
+            d=ccfg.d_feature, m_up=ccfg.m_up, m_down=ccfg.m_down,
+            model_size=(baselines.num_params(self.clients[0].params)
+                        if mode == "fedavg" else 0))
         self.ledger.log_round(up, down)
 
         accs = [self.evaluate(c) for c in self.clients]

@@ -87,3 +87,17 @@ def disc_loss(features, obs, labels, head_w, head_b=None, valid=None,
 def mi_lower_bound(disc, K: int):
     """Theorem 1: I(Phi_s, Phi_t) >= log K - L_disc."""
     return math.log(float(K)) - disc
+
+
+def fd_loss(logits, mean_logits, labels, valid=None):
+    """Federated Distillation baseline (Jeong et al. 18): the mean squared
+    distance between the student's logits and the fleet's per-class mean
+    logits of the label. logits (..., B, C), mean_logits (..., C, C),
+    labels (..., B), valid (..., C) -> (...)."""
+    lab = labels.long()
+    t = torch.take_along_dim(mean_logits, lab[..., None], dim=-2)   # (..., B, C)
+    d2 = ((logits.float() - t) ** 2).mean(-1)
+    if valid is not None:
+        w = torch.take_along_dim(valid.float(), lab, dim=-1)
+        return (d2 * w).sum(-1) / w.sum(-1).clamp(min=1.0)
+    return d2.mean(-1)

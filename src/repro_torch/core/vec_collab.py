@@ -21,10 +21,12 @@ is the counterpart of the reference's single jitted step
 in ROADMAP.
 
 This slice runs the reference's homogeneous fused path with full
-participation, the flat relay and modes `cors` and `il`. Heterogeneous
-buckets, participation schedules and static-k compaction, asynchrony,
-download lag, population arrivals, telemetry, the mesh and modes fd and
-fedavg raise `NotImplementedError` naming the ROADMAP slice that brings
+participation, every mode of the sequential engine (cors, fd, fedavg, il,
+cl) and the relay policies flat, per_class and staleness. fedavg's weight
+average is part of the round step, in float32, as the reference computes
+it. Heterogeneous buckets, participation schedules and static-k
+compaction, asynchrony, download lag, population arrivals, telemetry and
+the mesh raise `NotImplementedError` naming the ROADMAP slice that brings
 them.
 """
 from __future__ import annotations
@@ -34,10 +36,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import client as client_lib, collab, comm, prototypes
+from repro_torch.core import baselines, client as client_lib, collab, comm, \
+    prototypes
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
-from repro_torch.relay import flat
 from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
 
 
@@ -49,15 +51,16 @@ def _stack(trees: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 # Round-phase builders, as in the reference: the fused round step is composed
 # of these.
 # ---------------------------------------------------------------------------
-def make_teacher_phase(ccfg: CollabConfig):
+def make_teacher_phase(policy, ccfg: CollabConfig):
     """Phase 1 (downlink): every client's teacher sampled from the relay in
-    one batched draw (cors), a broadcast no-op teacher otherwise. Returns
-    `teachers(rstate, ids, noise, picks) -> teacher dict (k, ...)`."""
+    one batched draw of the policy (cors, fd), a broadcast no-op teacher
+    otherwise. Returns `teachers(rstate, ids, noise, picks) -> teacher dict
+    (k, ...)`."""
     m_down = max(1, ccfg.m_down)
 
     def teachers(rstate, ids, noise, picks):
-        if ccfg.mode == "cors":
-            return flat.sample_teachers(rstate, ids, m_down, noise, picks)
+        if ccfg.mode in collab.RELAY_MODES:
+            return policy.sample_teachers(rstate, ids, m_down, noise, picks)
         k = ids.shape[0]
         et = client_lib.empty_teacher(ccfg, ids.device)
         et["obs_pick"] = torch.zeros(k, dtype=torch.long, device=ids.device)
@@ -71,14 +74,18 @@ def make_client_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig):
     """Phase 3a, per-client form: the stacked `compute_uploads` with no
     cross-client reduction. Returns `uploads_of(params, data_x, data_y,
     prio, ids) -> dict(obs (k, m, C, d'), valid (k, C), psum (k, C, d'),
-    pcnt (k, C), owner (k,) int32)`."""
+    pcnt (k, C), [lsum (k, C, C), lcnt (k, C) in fd mode], owner (k,)
+    int32)`."""
 
     def uploads_of(p_s, dx, dy, prio, ids_s):
         u = client_lib.compute_uploads(spec, p_s, dx, dy, ccfg, prio,
                                        stacked=True)
-        return {"obs": u["obs"], "valid": u["valid"],
-                "psum": u["proto"].sum, "pcnt": u["proto"].count,
-                "owner": ids_s.to(torch.int32)}
+        out = {"obs": u["obs"], "valid": u["valid"],
+               "psum": u["proto"].sum, "pcnt": u["proto"].count,
+               "owner": ids_s.to(torch.int32)}
+        if "logit_proto" in u:
+            out["lsum"], out["lcnt"] = u["logit_proto"]
+        return out
 
     return uploads_of
 
@@ -86,38 +93,62 @@ def make_client_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig):
 def make_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig):
     """Phase 3a (uplink, compute side): the per-client pieces reduced into
     one relay append. Returns `uploads_of(params, data_x, data_y, prio, ids,
-    mask) -> (proto, obs_rows, valid_rows, owner_rows, row_mask)`: absent
-    clients' prototype sums are zero-weighted and their observation rows
-    masked out (this slice runs full participation: the weights are ones)."""
+    mask) -> dict(proto, logit (fd mode, else None), obs_rows, valid_rows,
+    owner_rows, row_mask)`: absent clients' prototype and logit sums are
+    zero-weighted and their observation rows masked out (this slice runs
+    full participation: the weights are ones)."""
     per_client = make_client_upload_phase(spec, ccfg)
 
     def uploads_of(p_s, dx, dy, prio, ids_s, sub_mask):
         wf = sub_mask.to(torch.float32)
         u = per_client(p_s, dx, dy, prio, ids_s)
-        proto = prototypes.ProtoState((u["psum"] * wf[:, None, None]).sum(0),
-                                      (u["pcnt"] * wf[:, None]).sum(0))
+        reduce = lambda s, c: prototypes.ProtoState(
+            (s * wf[:, None, None]).sum(0), (c * wf[:, None]).sum(0))
         k, m_real = u["obs"].shape[:2]
-        obs_rows = u["obs"].reshape(k * m_real, *u["obs"].shape[2:])
-        valid_rows = u["valid"][:, None].expand(k, m_real, -1).reshape(k * m_real, -1)
-        owner_rows = u["owner"][:, None].expand(k, m_real).reshape(-1)
-        row_mask = sub_mask[:, None].expand(k, m_real).reshape(-1)
-        return proto, obs_rows, valid_rows, owner_rows, row_mask
+        return {"proto": reduce(u["psum"], u["pcnt"]),
+                "logit": (reduce(u["lsum"], u["lcnt"]) if "lsum" in u
+                          else None),
+                "obs_rows": u["obs"].reshape(k * m_real, *u["obs"].shape[2:]),
+                "valid_rows": u["valid"][:, None].expand(k, m_real, -1)
+                .reshape(k * m_real, -1),
+                "owner_rows": u["owner"][:, None].expand(k, m_real).reshape(-1),
+                "row_mask": sub_mask[:, None].expand(k, m_real).reshape(-1)}
 
     return uploads_of
 
 
-def make_relay_commit():
+def make_relay_commit(policy):
     """Phase 3b: the round's single relay write. `commit(rstate, payloads)`
     concatenates the payloads' observation rows (in upload order), appends
-    them in one write and runs ONE prototype merge."""
+    them through the policy in one write and runs ONE merge of the
+    prototype sums (and, in fd mode, the logit sums)."""
 
     def commit(rstate, payloads):
-        cat = lambda i: torch.cat([p[i] for p in payloads])
-        proto = prototypes.merge(*[p[0] for p in payloads])
-        new = flat.buffer_append(rstate, cat(1), cat(2), cat(3), cat(4))
-        return flat.merge_round(new, proto)
+        cat = lambda k: torch.cat([p[k] for p in payloads])
+        proto = prototypes.merge(*[p["proto"] for p in payloads])
+        logit = (prototypes.merge(*[p["logit"] for p in payloads])
+                 if payloads[0]["logit"] is not None else None)
+        new = policy.append(rstate, cat("obs_rows"), cat("valid_rows"),
+                            cat("owner_rows"), cat("row_mask"))
+        return policy.merge_round(new, proto, logit)
 
     return commit
+
+
+def fedavg_average(params, mask):
+    """fedavg's exchange inside the round step: every present client's
+    weights replaced by the float32 average over the present clients,
+    sum(p . w) / n_present, as the reference's vectorized engine computes
+    it; absent clients keep theirs. New tensors, none shared."""
+    wf = mask.to(torch.float32)
+    denom = wf.sum().clamp(min=1.0)
+
+    def avg(p):
+        b = (-1,) + (1,) * (p.dim() - 1)
+        a = ((p.float() * wf.reshape(b)).sum(0) / denom).to(p.dtype)
+        return torch.where(mask.reshape(b), a.expand_as(p), p)
+
+    return {k: avg(v) for k, v in params.items()}
 
 
 def make_eval_hits(spec: client_lib.ClientSpec):
@@ -145,11 +176,8 @@ class VectorizedCollabTrainer:
                  ccfg: CollabConfig, tcfg: TrainConfig, seed: int = 0,
                  fleet: FleetConfig = None, draws=None, device=None,
                  telemetry=None):
-        if ccfg.mode not in ("cors", "il"):
-            raise NotImplementedError(
-                f"mode {ccfg.mode!r}: the port's vectorized engine runs cors "
-                "and il; fd and fedavg are queued in ROADMAP (queue 1)")
-        collab._check_fleet(fleet if fleet is not None else FleetConfig())
+        self.policy = collab.check_setup(
+            ccfg, fleet if fleet is not None else FleetConfig())
         if telemetry:
             raise NotImplementedError(
                 "telemetry comes with observability and I/O (ROADMAP slice 6)")
@@ -167,8 +195,8 @@ class VectorizedCollabTrainer:
         self.n_clients = N = len(params_list)
         self.spec = buckets[0][0]
         self._upload_order = [i for _, ids in buckets for i in ids]
-        self.relay_state = flat.init_relay_state(ccfg, ccfg.d_feature, seed,
-                                                 n_clients=N, device=dev)
+        self.relay_state = self.policy.init_state(ccfg, ccfg.d_feature, seed,
+                                                  n_clients=N, device=dev)
         as_t = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
         self.test_x, self.test_y = as_t(test_data[0]), as_t(test_data[1])
         self.draws = draws if draws is not None else collab.TorchDraws(seed)
@@ -176,6 +204,7 @@ class VectorizedCollabTrainer:
         self.history: List[Dict] = []
         self.data_x, self.data_y, self.batches, self.params, self.opt_state \
             = self._stack_clients(params_list, client_data)
+        self._model_size = baselines.num_params(self.client_params(0))
         self._ids = torch.arange(N, dtype=torch.int32, device=dev)
         self._mask = torch.ones(N, dtype=torch.bool, device=dev)
         self._round_step = self._make_round_step()
@@ -208,9 +237,9 @@ class VectorizedCollabTrainer:
         spec, ccfg = self.spec, self.ccfg
         local_update = client_lib.make_local_update_fn(spec, ccfg, self.tcfg,
                                                        stacked=True)
-        teachers = make_teacher_phase(ccfg)
+        teachers = make_teacher_phase(self.policy, ccfg)
         uploads_of = make_upload_phase(spec, ccfg)
-        commit = make_relay_commit()
+        commit = make_relay_commit(self.policy)
 
         def round_core(params, opt, rstate, batches, data_x, data_y, ids,
                        noise, picks, prio, mask):
@@ -218,23 +247,28 @@ class VectorizedCollabTrainer:
             teacher = teachers(rstate, ids, noise, picks)
             # phase 2: all local updates at once (Algorithm 2 x N)
             params, opt, metrics = local_update(params, opt, batches, teacher)
-            # phase 3: uplink in upload order, one append, one merge
-            if ccfg.mode == "cors":
+            # phase 3: uplink in upload order, one append, one merge; or
+            # fedavg's weight average
+            if ccfg.mode in collab.RELAY_MODES:
                 rstate = commit(rstate, [uploads_of(params, data_x, data_y,
                                                     prio, ids, mask)])
+            elif ccfg.mode == "fedavg":
+                params = fedavg_average(params, mask)
             return params, opt, rstate, metrics
 
         return round_core
 
     def _round_draws(self, r: int):
         """This round's draws for all N clients, stacked and on the device:
-        Gumbel noise (N, m_down, cap), observation picks (N,), priorities
-        (N, m_up, n); None outside cors, which draws nothing."""
+        Gumbel noise (N, *policy.noise_shape), observation picks (N,),
+        priorities (N, m_up, n); None outside cors and fd, which draw
+        nothing."""
         ccfg, N, dev = self.ccfg, self.n_clients, self.device
-        m_down, cap = max(1, ccfg.m_down), self.relay_state.capacity
-        if ccfg.mode != "cors":
+        m_down = max(1, ccfg.m_down)
+        if ccfg.mode not in collab.RELAY_MODES:
             return None, None, None
-        teach = [self.draws.teacher(r, i, m_down, cap) for i in range(N)]
+        shape = self.policy.noise_shape(self.relay_state, m_down)
+        teach = [self.draws.teacher(r, i, m_down, shape) for i in range(N)]
         noise = torch.stack([t[0] for t in teach]).to(dev)
         picks = torch.tensor([int(t[1]) for t in teach]).to(dev)
         prio = torch.stack([self.draws.priorities(r, i, ccfg.m_up,
@@ -251,11 +285,13 @@ class VectorizedCollabTrainer:
             self._round_step(self.params, self.opt_state, self.relay_state,
                              self.batches, self.data_x, self.data_y,
                              self._ids, noise, picks, prio, self._mask)
-        commits = ([(r, i) for i in self._upload_order] if mode == "cors"
+        commits = ([(r, i) for i in self._upload_order]
+                   if mode in collab.RELAY_MODES
                    else [(r, i) for i in range(N)])
         up, down = comm.round_floats(
             mode, n_present=N, n_commit=len(commits), C=ccfg.num_classes,
-            d=ccfg.d_feature, m_up=ccfg.m_up, m_down=ccfg.m_down)
+            d=ccfg.d_feature, m_up=ccfg.m_up, m_down=ccfg.m_down,
+            model_size=self._model_size if mode == "fedavg" else 0)
         self.ledger.log_round(up, down)
 
         keys = list(metrics)

@@ -5,9 +5,11 @@ A single (cap, C, d') observation ring with per-slot validity, owner and
 birth stamp, sampled uniformly over other clients' slots. The state is a
 NamedTuple of tensors on one device; every function returns a new state and
 leaves its input untouched, as the reference's pure functions do.
+`FlatRelay` binds them to the policy contract of `relay/base.py`.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -79,37 +81,27 @@ def buffer_append(state: RelayState, obs_rows, valid_rows, owner_rows,
     consuming a ring slot. stamp_rows (k,) int or None (= born now). At most
     `capacity` rows may be masked in.
 
-    Fixed shapes throughout, so the write never waits on the card: every
-    row is scattered into a copy of the ring with one scratch slot past its
-    end, where the dropped rows land (their index is `capacity`), and the
-    copy without that slot is the new ring."""
+    Fixed shapes throughout, so the write never waits on the card: the
+    dropped rows (index `capacity`) land in a scratch slot past the ring's
+    end (`base.scatter_drop`)."""
     k = obs_rows.shape[0]
     cap = state.capacity
     idx, new_ptr = base.ring_indices(state.ptr, k, cap, row_mask)
     stamps = base.stamps_or_now(state, k, stamp_rows)
-    idx = idx.long()
-
-    def put(buf, rows):
-        out = torch.cat([buf, buf[:1]])
-        out[idx] = rows.to(buf.dtype)
-        return out[:cap]
-
+    idx = (idx.long(),)
+    put = lambda buf, rows: base.scatter_drop(buf, idx, rows)
     return state._replace(obs=put(state.obs, obs_rows.float()),
                           valid=put(state.valid, valid_rows),
                           owner=put(state.owner, owner_rows),
                           stamp=put(state.stamp, stamps), ptr=new_ptr)
 
 
-def merge_round(state: RelayState, proto: prototypes.ProtoState) -> RelayState:
-    """Inter-client aggregation (Alg. 1): recompute t-bar^c from the merged
-    per-class sums and tick the clock."""
-    return base.merge_protos(state, proto)
-
-
-def gumbel(m_down: int, cap: int, generator: Optional[torch.Generator] = None):
-    """Standard Gumbel noise (m_down, cap) f32 on the CPU."""
-    u = torch.rand(m_down, cap, generator=generator)
-    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+def merge_round(state: RelayState, proto: prototypes.ProtoState,
+                logit: Optional[prototypes.ProtoState] = None) -> RelayState:
+    """Inter-client aggregation (Alg. 1): recompute t-bar^c (and, in fd
+    mode, the mean logits) from the merged per-class sums and tick the
+    clock."""
+    return base.merge_protos(state, proto, logit)
 
 
 def sample_teachers(state: RelayState, client_ids, m_down: int, noise,
@@ -150,11 +142,32 @@ def sample_teacher(state: RelayState, client_id: int, m_down: int,
                    noise=None, obs_pick: int = 0) -> Dict:
     """One client's teacher (see `sample_teachers`): noise (m_down, cap), or
     drawn here; `obs_pick` an int."""
-    dev = state.obs.device
     if noise is None:
-        noise = gumbel(m_down, state.capacity)
-    t = sample_teachers(state, torch.full((1,), int(client_id), device=dev),
-                        m_down, noise.to(dev)[None], torch.zeros(1, device=dev))
-    t = {k: v[0] for k, v in t.items()}
-    t["obs_pick"] = int(obs_pick)
-    return t
+        noise = base.gumbel((m_down, state.capacity))
+    return FlatRelay().sample_teacher(state, client_id, m_down, noise,
+                                      obs_pick)
+
+
+@dataclass(frozen=True)
+class FlatRelay(base.RelayPolicy):
+    """The policy over this module's functions."""
+    name: str = "flat"
+
+    def init_state(self, ccfg, d_feature, seed=0, capacity=None,
+                   n_clients=2, device=None):
+        return init_relay_state(ccfg, d_feature, seed, capacity, n_clients,
+                                device)
+
+    def append(self, state, obs_rows, valid_rows, owner_rows, row_mask=None,
+               stamp_rows=None):
+        return buffer_append(state, obs_rows, valid_rows, owner_rows,
+                             row_mask, stamp_rows)
+
+    def noise_shape(self, state, m_down):
+        return (m_down, state.capacity)
+
+    def sample_teachers(self, state, client_ids, m_down, noise, picks):
+        return sample_teachers(state, client_ids, m_down, noise, picks)
+
+    def merge_round(self, state, proto, logit=None):
+        return merge_round(state, proto, logit)

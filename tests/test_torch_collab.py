@@ -43,9 +43,12 @@ class JaxDraws:
             self.rounds.append((relay_ks, upl_ks))
         return self.rounds[r]
 
-    def teacher(self, r, i, m_down, cap):
+    def teacher(self, r, i, m_down, shape):
+        """Gumbel noise of the policy's `noise_shape` from the relay key's
+        sample half, the pick from its other half, as every reference
+        policy splits it."""
         k_sample, k_pick = jax.random.split(self._round(r)[0][i])
-        noise = jax.random.gumbel(k_sample, (m_down, cap))
+        noise = jax.random.gumbel(k_sample, tuple(shape))
         pick = jax.random.randint(k_pick, (), 0, m_down, dtype=jnp.int32)
         return torch.from_numpy(np.array(noise)), int(pick)
 
@@ -115,11 +118,10 @@ def test_port_trainer_rejects_what_it_does_not_run():
                               head=lambda p: (p["head_w"], p["head_b"]))
     p = [tmlp.init_mlp(torch.Generator().manual_seed(0), device="cpu")]
     args = ([spec], p, [(x, y)], (x, y))
-    for mode in ("fd", "fedavg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcollab.CollabTrainer(*args, CollabConfig(mode=mode),
-                                  TrainConfig(), device="cpu")
-    for fleet in (FleetConfig(policy="staleness"),
+    with pytest.raises(ValueError, match="unknown mode"):
+        tcollab.CollabTrainer(*args, CollabConfig(mode="fl"), TrainConfig(),
+                              device="cpu")
+    for fleet in (FleetConfig(policy="sharded:flat,2"),
                   FleetConfig(participation="uniform_k:2"),
                   FleetConfig(clock="lognormal:4"),
                   FleetConfig(download_clock="periodic:3,4"),
