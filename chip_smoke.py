@@ -32,6 +32,20 @@ Phases (each failure raises, so the process exits non-zero):
      and seq's on the card equal to the CPU's, accuracies within 2e-2, fd's
      mean logits finite and within 1e-3 across engines; s/round of every
      path in both engines;
+  5d. participation: 3 cors rounds at N = 5 under each of uniform_k:3,
+     cyclic:2 (both compacted in vec), bernoulli:0.5 and adaptive:0.5 (full
+     width, masked), and a mixed fleet of N = 6 (LeNet on even ids, the MLP
+     on odd ids: two buckets in vec) in cors (full) and fd (uniform_k:3),
+     in both engines on the card and seq on the CPU: launches exact by the
+     formulas at PARTICIPATION_PATHS, every vec step (the round step, or
+     each bucket's step and the shared commit) under sync-debug mode
+     "error", participants, ring integers (and ages) and ledger equal vec =
+     seq on the card = seq on the CPU, accuracies within 2e-2; s/round;
+     then at N = 32 (240 samples a client) cyclic:8 compacted against the
+     same schedule run full width (masked) and against full participation:
+     3 rounds each (launches exact, no host sync, ring and ledger of the two
+     cyclic runs equal), s/round, and one profiled round each (device ops,
+     busy time and share);
   6. profile: one more round of each engine under torch.profiler (device
      busy share, device ops, time by kernel), then 2 rounds of each engine
      at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
@@ -51,11 +65,13 @@ the bf16 check, which must reject each: a bf16 accumulator, the last 16 keys
 dropped, and P rounded to bf16 once before P V.
 Phase 4 also runs every disc_loss and proto_accum shape twice and requires
 equal bits, and runs the kernels with a leading client axis (the vectorized
-engine's shapes), whose results must be bit-equal to one launch a client;
-phase 6 requires one kernel symbol a wrapper call.
+engine's shapes), whose results must be bit-equal to one launch a client,
+also on a (k, ...) block gathered by `index_select` from an N-client stack
+(static-k compaction's shapes: k = 3 of 5, 8 of 32); phase 6 requires one
+kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phase 5c) before the last line,
+phases 5c and 5d) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -91,6 +107,29 @@ PATHS = (("fd", "fd", "flat", CLIENTS,
          ("cors per_class", "cors", "per_class", CLIENTS, CORS_LAUNCHES),
          ("cors staleness:0.5", "cors", "staleness:0.5", CLIENTS,
           CORS_LAUNCHES))
+# Phase 5d's paths: (name, mode, schedule, clients, hetero, the vec engine's
+# compaction width _k_active, its launches). nb batches a client a round
+# (240 samples at N = 5: 7; 200 at N = 6: 6): seq launches disc_loss nb x
+# the round's participants forward and backward and proto_accum once a
+# participant (twice in fd), counted from the records; vec launches once a
+# local step and once a round for the whole stack, compacted or not (a
+# zero-participant round still runs the step), and in a mixed fleet once
+# a bucket.
+MIX_STEPS = 6
+PARTICIPATION_PATHS = (
+    ("cors uniform_k:3", "cors", "uniform_k:3", CLIENTS, False, 3,
+     (STEPS * ROUNDS,) * 2 + (ROUNDS,)),
+    ("cors cyclic:2", "cors", "cyclic:2", CLIENTS, False, 2,
+     (STEPS * ROUNDS,) * 2 + (ROUNDS,)),
+    ("cors bernoulli:0.5", "cors", "bernoulli:0.5", CLIENTS, False, CLIENTS,
+     (STEPS * ROUNDS,) * 2 + (ROUNDS,)),
+    ("cors adaptive:0.5", "cors", "adaptive:0.5", CLIENTS, False, CLIENTS,
+     (STEPS * ROUNDS,) * 2 + (ROUNDS,)),
+    ("cors mixed", "cors", "full", 6, True, None,
+     (2 * MIX_STEPS * ROUNDS,) * 2 + (2 * ROUNDS,)),
+    ("fd mixed uniform_k:3", "fd", "uniform_k:3", 6, True, None,
+     (0, 0, 4 * ROUNDS)))
+COMPACT_K = 8              # cyclic:8 at SCALE_CLIENTS = 32: k/N = 1/4
 RING_INTS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g")
 SCALE_CLIENTS, SCALE_ROUNDS = 32, 2   # class_images(7680): 240 samples a client
 # flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
@@ -373,6 +412,41 @@ def check_proto_batched(N, n, d, C, dtype, dev, gen):
     return r
 
 
+def check_gathered(N, idx, dev, gen, B=32, C=10, M=10, n=240, d=84):
+    """Static-k compaction's calls: disc_loss forward and backward and
+    proto_accum on a (k, ...) block gathered by `index_select` from an
+    N-client stack, each result bit-equal to one launch a client on the
+    stack's own rows."""
+    from repro_torch.kernels import ops
+    s = (torch.randn(N, B, C, generator=gen) * 2).to(dev)
+    q = torch.softmax(torch.randn(N, M, C, generator=gen) * 2, -1).to(dev)
+    y = torch.randint(0, M, (N, B), generator=gen, dtype=torch.int32).to(dev)
+    v = (torch.rand(N, M, generator=gen) > 0.3).to(dev)
+    g = torch.randn(N, B, generator=gen).to(dev)
+    f = torch.randn(N, n, d, generator=gen).to(dev)
+    lab = torch.randint(0, C, (N, n), generator=gen, dtype=torch.int32).to(dev)
+    ix = torch.tensor(idx, device=dev)
+    sk, qk, yk, vk, gk, fk, labk = (t.index_select(0, ix)
+                                    for t in (s, q, y, v, g, f, lab))
+    out = ops.disc_loss_fwd(sk, qk, yk, vk)
+    grads = ops.disc_loss_bwd(gk, sk, qk, yk, vk, *out[1:])
+    sums = ops.proto_accum(fk, labk, C)
+    for j, i in enumerate(idx):
+        one = ops.disc_loss_fwd(s[i], q[i], y[i], v[i])
+        one_g = ops.disc_loss_bwd(g[i], s[i], q[i], y[i], v[i], *one[1:])
+        one_p = ops.proto_accum(f[i], lab[i], C)
+        for what, got, want in (("disc_loss fwd", out, one),
+                                ("disc_loss bwd", grads, one_g),
+                                ("proto_accum", sums, one_p)):
+            if not all(torch.equal(a[j], b) for a, b in zip(got, want)):
+                raise AssertionError(f"{what} on a block gathered from {N} "
+                                     f"clients: client {i} differs from its "
+                                     f"own launch")
+    print(f"[kernels] gathered block {len(idx)} of {N} clients {idx}: disc_loss"
+          f" ({len(idx)}, {B}, {C}, {M}) fwd and bwd and proto_accum "
+          f"({len(idx)}, {n}, {d}, {C}) bit-equal to one launch a client")
+
+
 def flash_excess(got, want):
     """Largest |got - want| over its limit, element by element (> 1 fails):
     one bf16 step for bf16, FLASH_F32_TOL x max(1, max|want|) for float32."""
@@ -522,6 +596,9 @@ def phase_kernels(dev):
             shape = [N, B, C, M, "valid" if with_valid else "all"]
             res["disc_loss_fwd_batched"].append(dict(fwd, shape=shape))
             res["disc_loss_bwd_batched"].append(dict(bwd, shape=shape))
+    # static-k compaction's blocks: uniform_k:3 at N = 5, cyclic:8 at N = 32
+    check_gathered(CLIENTS, [0, 2, 3], dev, gen)
+    check_gathered(SCALE_CLIENTS, list(range(8, 8 + COMPACT_K)), dev, gen)
     for d, dtype in ((84, torch.float32), (84, torch.bfloat16),
                      (10, torch.float32)):          # d 10: fd's logit sums
         r = check_proto_batched(CLIENTS, 240, d, 10, dtype, dev, gen)
@@ -632,7 +709,7 @@ def phase_vec(dev, seq):
     from repro_torch.collab_image_classification import build_trainer
     from repro_torch.kernels import ops
     vec = build_trainer(CLIENTS, "cors", seed=0, device=dev, engine="vec")
-    step = no_sync(vec)
+    restore = no_sync(vec)
     ops.reset_launches()
     secs = []
     for _ in range(ROUNDS):
@@ -642,7 +719,7 @@ def phase_vec(dev, seq):
         secs.append(time.perf_counter() - t0)
         print(f"[vec] round {rec['round']}: acc {rec['acc_mean']:.4f} accs "
               f"{rec['accs']} {secs[-1]:.3f} s")
-    vec._round_step = step
+    restore()
     launches = dict(ops.LAUNCHES)
     print(f"[vec] launches {launches}; seconds per round {secs}; no host sync "
           f"inside the round step")
@@ -674,19 +751,26 @@ def phase_vec(dev, seq):
 
 
 def no_sync(vec):
-    """Wraps the vec trainer's round step so that a host sync inside it
-    raises (CUDA sync-debug mode "error"); -> the unwrapped step."""
-    step = vec._round_step
+    """Wraps every device step of the vec trainer (its round step, or each
+    bucket's step and the shared relay commit of a mixed fleet) so that a
+    host sync inside one raises (CUDA sync-debug mode "error"); -> a
+    function that unwraps them."""
+    owners = ([(b, "step") for b in vec.buckets] + [(vec, "_relay_commit")]
+              if vec.hetero else [(vec, "_round_step")])
+    saved = [(o, a, getattr(o, a)) for o, a in owners]
 
-    def no_sync_step(*args):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return step(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    def wrap(step):
+        def no_sync_step(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return no_sync_step
 
-    vec._round_step = no_sync_step
-    return step
+    for o, a, step in saved:
+        setattr(o, a, wrap(step))
+    return lambda: [setattr(o, a, step) for o, a, step in saved]
 
 
 def timed_rounds(trainer, tag):
@@ -737,9 +821,9 @@ def phase_baselines(dev):
         seq = mk(dev, "seq")
         l_seq, s_seq = timed_rounds(seq, f"{name} seq")
         vec = mk(dev, "vec")
-        step = no_sync(vec)
+        restore = no_sync(vec)
         l_vec, s_vec = timed_rounds(vec, f"{name} vec")
-        vec._round_step = step
+        restore()
         print(f"[baselines] {name}: launches (disc fwd, bwd, proto_accum) "
               f"seq {l_seq} vec {l_vec}; s/round seq {s_seq} vec {s_vec}; no "
               f"host sync inside the vec round step")
@@ -777,11 +861,122 @@ def phase_baselines(dev):
     return out
 
 
+def same_records(a, b, what):
+    """Participants and commits of two trainers' histories equal, round by
+    round."""
+    for ra, rb in zip(a.history, b.history):
+        if (ra["participants"], ra["commits"]) != (rb["participants"],
+                                                   rb["commits"]):
+            raise AssertionError(f"{what}, round {ra['round']}: participants"
+                                 f" {ra['participants']} / "
+                                 f"{rb['participants']}")
+
+
+def phase_participation(dev):
+    """Phase 5d's schedules and mixed fleets (PARTICIPATION_PATHS), each in
+    both engines on the card and in seq on the CPU. -> {path: {"seq":
+    launches, "vec": launches, "seq_s": [...], "vec_s": [...]}}."""
+    from repro_torch.collab_image_classification import build_trainer
+    out = {}
+    for name, mode, sched, n, hetero, k_active, want_vec in PARTICIPATION_PATHS:
+        mk = lambda device, engine: build_trainer(
+            n, mode, seed=0, device=device, engine=engine,
+            participation=sched, hetero=hetero)
+        seq = mk(dev, "seq")
+        l_seq, s_seq = timed_rounds(seq, f"{name} seq")
+        vec = mk(dev, "vec")
+        if vec.hetero != hetero or (not hetero and vec._k_active != k_active):
+            raise AssertionError(f"{name}: hetero {vec.hetero}, k_active "
+                                 f"{getattr(vec, '_k_active', None)}")
+        restore = no_sync(vec)
+        l_vec, s_vec = timed_rounds(vec, f"{name} vec")
+        restore()
+        cpu = mk("cpu", "seq")
+        cpu.run(ROUNDS)
+        steps = MIX_STEPS if hetero else STEPS
+        present = sum(len(h["participants"]) for h in seq.history)
+        want_seq = ((steps * present,) * 2 + (present,) if mode == "cors"
+                    else (0, 0, 2 * present))
+        print(f"[participation] {name}: participants "
+              f"{[h['participants'] for h in seq.history]}; launches (disc "
+              f"fwd, bwd, proto_accum) seq {l_seq} vec {l_vec}; s/round seq "
+              f"{s_seq} vec {s_vec}; no host sync inside any vec step")
+        if l_seq != want_seq or l_vec != want_vec:
+            raise AssertionError(f"{name}: launches seq {l_seq} vec {l_vec} "
+                                 f"!= {want_seq} {want_vec}")
+        same_records(vec, seq, f"{name}: vec and seq")
+        same_records(seq, cpu, f"{name}: card and CPU")
+        sv, ss, sc = vec.relay_state, seq.server.state, cpu.server.state
+        same_ring(sv, ss, f"{name}: vec and seq on the card")
+        same_ring(ss, sc, f"{name}: seq on the card and on the CPU")
+        if not vec.ledger.by_round == seq.ledger.by_round == cpu.ledger.by_round:
+            raise AssertionError(f"{name}: ledgers differ")
+        same_accs(vec.history, seq.history, f"{name}: vec and seq")
+        same_accs(seq.history, cpu.history, f"{name}: card and CPU")
+        print(f"[participation] {name}: participants, ring"
+              f"{' and ages' if hasattr(sv, 'age') else ''} and ledger equal "
+              f"(vec = seq on the card = seq on the CPU); accs vec "
+              f"{vec.history[-1]['accs']} seq {seq.history[-1]['accs']}; comm "
+              f"{seq.ledger.total_bytes / 1e6:.3f} MB")
+        out[name] = {"seq": l_seq, "vec": l_vec, "seq_s": s_seq,
+                     "vec_s": s_vec}
+        del seq, vec, cpu
+    return out
+
+
+def phase_compaction(dev):
+    """N = 32: cyclic:8 compacted (a (8, ...) block) against the same
+    schedule run full width and masked, and against full participation:
+    ROUNDS rounds each with launches exact and no host sync, then one
+    profiled round. -> {run: {"s": [...], "ops": n, "busy_ms": t, "busy":
+    share}}."""
+    from repro_torch.collab_image_classification import build_trainer
+    want = (STEPS * ROUNDS,) * 2 + (ROUNDS,)
+    runs, res = {}, {}
+    for tag, sched, masked in (("cyclic:8 compacted", f"cyclic:{COMPACT_K}",
+                                False),
+                               ("cyclic:8 full width", f"cyclic:{COMPACT_K}",
+                                True),
+                               ("full participation", "full", False)):
+        t = build_trainer(SCALE_CLIENTS, "cors", seed=0, device=dev,
+                          engine="vec", n_train=240 * SCALE_CLIENTS,
+                          participation=sched)
+        if masked:                      # the same schedule, masked, no gather
+            t._k_active = t.n_clients
+            t._round_step = t._make_round_step()
+        restore = no_sync(t)
+        launches, secs = timed_rounds(t, tag)
+        restore()
+        if launches != want:
+            raise AssertionError(f"N={SCALE_CLIENTS} {tag}: launches "
+                                 f"{launches} != {want}")
+        _, n_ops, busy, busy_us = phase_profile(t, f"compaction {tag}", True)
+        res[tag] = {"s": secs, "ops": n_ops, "busy_ms": busy_us / 1e3,
+                    "busy": busy, "k_active": t._k_active}
+        runs[tag] = t
+        print(f"[compaction] N={SCALE_CLIENTS} {tag} (k_active "
+              f"{t._k_active}): s/round {secs}, profiled round {n_ops} device "
+              f"ops, {busy_us / 1e3:.3f} ms busy ({100 * busy:.1f}%)")
+    a, b = runs["cyclic:8 compacted"], runs["cyclic:8 full width"]
+    same_records(a, b, "cyclic:8 compacted and full width")
+    same_ring(a.relay_state, b.relay_state, "cyclic:8 compacted and full width")
+    if a.ledger.by_round != b.ledger.by_round:
+        raise AssertionError("cyclic:8 compacted and full width: ledgers differ")
+    same_accs(a.history, b.history, "cyclic:8 compacted and full width")
+    c, f = res["cyclic:8 compacted"], res["cyclic:8 full width"]
+    steady = lambda x: sum(x[1:]) / len(x[1:])
+    print(f"[compaction] compacted over full width: s/round "
+          f"{steady(c['s']) / steady(f['s']):.3f}, device ops "
+          f"{c['ops'] / f['ops']:.3f}, busy time "
+          f"{c['busy_ms'] / f['busy_ms']:.3f}; ring and ledger equal")
+    return res
+
+
 def phase_profile(engine, tag, batched):
     """One more round under torch.profiler: device busy share, device ops,
     the device time by kernel name, and one kernel symbol a wrapper call for
     the slice's kernels (KERNEL_SYMBOLS). -> (device us a launch by kernel,
-    device ops, busy share)."""
+    device ops, busy share, busy us)."""
     from repro_torch.kernels import ops
     ops.reset_launches()
     wall, ev = profile(engine.run_round)
@@ -796,7 +991,7 @@ def phase_profile(engine, tag, batched):
           f"{total / 1e3:.4f} ms of device time a round")
     sfx = "_batched" if batched else ""
     return ({name + sfx: us / n for name, (n, us) in port.items()},
-            sum(e.count for e in ev), busy / 1e6 / wall)
+            sum(e.count for e in ev), busy / 1e6 / wall, busy)
 
 
 def phase_scale(dev, secs_seq5, secs_vec5):
@@ -970,8 +1165,10 @@ def main():
     gpu, launches, secs_seq = phase_slice(dev)
     vec, launches_vec, secs_vec = phase_vec(dev, gpu)
     paths = phase_baselines(dev)
-    dev_us, ops_seq, busy_seq = phase_profile(gpu, "profile seq", False)
-    dev_us_vec, ops_vec, busy_vec = phase_profile(vec, "profile vec", True)
+    paths.update(phase_participation(dev))
+    compaction = phase_compaction(dev)
+    dev_us, ops_seq, busy_seq, _ = phase_profile(gpu, "profile seq", False)
+    dev_us_vec, ops_vec, busy_vec, _ = phase_profile(vec, "profile vec", True)
     dev_us.update(dev_us_vec)
     print(f"[profile] device ops a round: vec {ops_vec}, seq {ops_seq} "
           f"({ops_vec / ops_seq:.3f} of seq); device busy vec "
@@ -1024,7 +1221,8 @@ def main():
         kernels.append(k)
     print(f"[card] {smi}; vec over seq s/round: N={CLIENTS} "
           f"{scale['n5']:.3f}x, N={SCALE_CLIENTS} {scale['n32']:.3f}x; device "
-          f"ops a round vec {ops_vec} seq {ops_seq}")
+          f"ops a round vec {ops_vec} seq {ops_seq}; N={SCALE_CLIENTS} "
+          f"compaction {json.dumps(compaction)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,21 @@
 It runs CoRS and the paper's Table 1 baselines with one data split,
 optimizer and round accounting: modes `cors`, `fd` (federated
 distillation), `fedavg`, `il` and `cl` (il on one client holding all the
-data), with full participation and any relay policy of `relay/` (`flat`,
-`per_class`, `staleness[:lam]`). Every round has the reference's phases:
-  1. downlink: every client samples a teacher from the relay state of the
-     PREVIOUS round (cors, fd);
-  2. local updates (Algorithm 2), client by client;
-  3. uplink: uploads in bucket order, then one merge (cors, fd); fedavg
-     instead replaces every client's weights by their average.
-Then the ledger is billed and every client is evaluated.
+data), under any relay policy of `relay/` (`flat`, `per_class`,
+`staleness[:lam]`) and any participation schedule of
+`relay/participation.py` (`full`, `uniform_k:K`, `cyclic:K`,
+`bernoulli:P`, `adaptive:P[,BOOST]`). Clients may run different models
+(cors, fd, il): they are grouped into buckets of one model
+(`client.bucketize`), and uploads go in bucket order. Every round has the
+reference's phases:
+  1. downlink: every PRESENT client samples a teacher from the relay state
+     of the PREVIOUS round (cors, fd);
+  2. local updates (Algorithm 2), client by client; absent clients are
+     frozen and report zero metrics;
+  3. uplink: present clients upload in bucket order, then one merge (cors,
+     fd; none when nobody uploaded); fedavg instead replaces every present
+     client's weights by their average.
+Then the ledger bills the present clients and every client is evaluated.
 
 The reference draws its random numbers with `jax.random` from a per-round
 key schedule. The port takes them from a `draws` object instead: Gumbel
@@ -20,7 +27,8 @@ teacher, priorities for each upload's observation draw. `TorchDraws` (the
 default) makes them from a seeded CPU `torch.Generator` per (round, client)
 and moves them to the device, so a CUDA run and a CPU run of one seed draw
 the same numbers; the parity tests pass draws made from the reference's
-own keys.
+own keys. Draws are indexed by client id, so an absent client's draws go
+unused and change no other client's.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ from repro_torch import relay as relay_lib
 from repro_torch.core import baselines, client as client_lib, comm
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
-from repro_torch.relay import base
+from repro_torch.relay import base, participation
 from repro_torch.relay.server import RelayServer
 from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
 
@@ -64,7 +72,6 @@ class TorchDraws:
 
 
 _FLEET_SLICES = {
-    "participation": "participation schedules (ROADMAP slice 3)",
     "clock": "asynchrony (ROADMAP slice 4)",
     "download_clock": "asynchrony (ROADMAP slice 4)",
     "arrivals": "population scale (ROADMAP slice 5)",
@@ -82,16 +89,31 @@ def check_setup(ccfg: CollabConfig, fleet: FleetConfig) -> relay_lib.RelayPolicy
         raise ValueError(f"unknown mode {ccfg.mode!r} (have "
                          f"{sorted(client_lib.MODES)})")
     policy = relay_lib.get_policy(fleet.policy)
-    if fleet.participation not in (None, "full"):
-        raise NotImplementedError(
-            f"participation {fleet.participation!r} comes with "
-            f"{_FLEET_SLICES['participation']}")
     for f in ("clock", "download_clock", "arrivals", "mesh"):
         v = getattr(fleet, f)
         if v is not None and v != "none":
             raise NotImplementedError(
                 f"FleetConfig.{f}={v!r} comes with {_FLEET_SLICES[f]}")
     return policy
+
+
+def log_round(history: List[Dict], present, accs, metrics_all, commits, up,
+              down) -> Dict:
+    """Appends one round's record to `history`, in the schema both engines
+    share with the reference's: the present clients' ids, every client's
+    accuracy and metrics (zeros for an absent client), the commits as
+    [birth round, client id] pairs in commit order and the round's floats
+    on the wire."""
+    rec = {"round": len(history) + 1,
+           "acc_mean": float(np.mean(accs)),
+           "acc_std": float(np.std(accs)),
+           "accs": accs,
+           "metrics": metrics_all,
+           "participants": np.asarray(present).tolist(),
+           "commits": [[b, i] for b, i in commits],
+           "comm_up": up, "comm_down": down}
+    history.append(rec)
+    return rec
 
 
 @dataclass
@@ -110,7 +132,8 @@ class CollabTrainer:
                  test_data: Tuple[Any, Any],
                  ccfg: CollabConfig, tcfg: TrainConfig, seed: int = 0,
                  fleet: FleetConfig = None, draws=None, device=None):
-        policy = check_setup(ccfg, fleet if fleet is not None else FleetConfig())
+        fleet = fleet if fleet is not None else FleetConfig()
+        policy = check_setup(ccfg, fleet)
         if not len(specs) == len(params_list) == len(client_data):
             raise ValueError("one spec, parameter set and data part per client")
         self.device = resolve_device(device)
@@ -132,6 +155,8 @@ class CollabTrainer:
         self.server = RelayServer(ccfg, ccfg.d_feature, seed,
                                   n_clients=len(specs), device=dev,
                                   policy=policy)
+        self.schedule = participation.get_schedule(fleet.participation,
+                                                   seed=seed)
         self.draws = draws if draws is not None else TorchDraws(seed)
         self.ledger = comm.CommLedger()
         self._updaters = [client_lib.make_local_update_fn(c.spec, ccfg, tcfg)
@@ -152,30 +177,36 @@ class CollabTrainer:
         N = len(self.clients)
         r = len(self.history)
         m_down = max(1, ccfg.m_down)
+        mask = np.asarray(self.schedule.mask(r, N), bool)
+        present = np.nonzero(mask)[0]
 
-        # phase 1: downlink from the previous round's state
-        teachers = []
-        for i in range(N):
+        # phase 1: downlink from the previous round's state, present
+        # clients only
+        teachers = {}
+        for i in present:
             if mode in RELAY_MODES:
                 noise, pick = self.draws.teacher(
                     r, i, m_down, self.server.policy.noise_shape(
                         self.server.state, m_down))
-                teachers.append(self.server.relay(i, m_down, noise, pick))
+                teachers[i] = self.server.relay(i, m_down, noise, pick)
             else:
-                teachers.append(client_lib.empty_teacher(ccfg, self.device))
+                teachers[i] = client_lib.empty_teacher(ccfg, self.device)
 
-        # phase 2: local updates (Algorithm 2)
-        metrics_all = []
-        for i, c in enumerate(self.clients):
+        # phase 2: local updates (Algorithm 2); absent clients are frozen
+        metrics_all = [client_lib.zero_metrics(ccfg) for _ in range(N)]
+        for i in present:
+            c = self.clients[i]
             c.params, c.opt_state, m = self._updaters[i](
                 c.params, c.opt_state, self._batches(c), teachers[i])
-            metrics_all.append(m)
+            metrics_all[i] = m
 
-        # phase 3: uplink in bucket order, then one merge (Algorithm 1)
-        commits = [(r, i) for i in range(N)]
+        # phase 3: uplink in bucket order, then one merge (Algorithm 1); a
+        # round with no upload leaves the relay untouched
+        commits = [(r, int(i)) for i in present]
         if mode in RELAY_MODES:
+            commits = [(r, i) for i in self._upload_order if mask[i]]
             self.server.begin_round()
-            for i in self._upload_order:
+            for _, i in commits:
                 c = self.clients[i]
                 prio = self.draws.priorities(r, i, ccfg.m_up,
                                              c.data_x.shape[0])
@@ -183,34 +214,30 @@ class CollabTrainer:
                     c.spec, c.params, c.data_x, c.data_y, ccfg,
                     prio.to(self.device))
                 self.server.upload(i, payload)
-            self.server.end_round()
-            commits = [(r, i) for i in self._upload_order]
-        elif mode == "fedavg":
-            # every client gets its own copy of the average (Adam's moments
-            # are not averaged)
-            avg = baselines.fedavg_aggregate([c.params for c in self.clients])
-            for c in self.clients:
-                c.params = {k: v.clone() for k, v in avg.items()}
+            if commits:
+                self.server.end_round()
+        elif mode == "fedavg" and present.size:
+            # every present client gets its own copy of the average of the
+            # present clients (Adam's moments are not averaged)
+            avg = baselines.fedavg_aggregate(
+                [self.clients[i].params for i in present])
+            for i in present:
+                self.clients[i].params = {k: v.clone()
+                                          for k, v in avg.items()}
 
         up, down = comm.round_floats(
-            mode, n_present=N, n_commit=len(commits), C=ccfg.num_classes,
-            d=ccfg.d_feature, m_up=ccfg.m_up, m_down=ccfg.m_down,
+            mode, n_present=int(present.size), n_commit=len(commits),
+            C=ccfg.num_classes, d=ccfg.d_feature, m_up=ccfg.m_up,
+            m_down=ccfg.m_down,
             model_size=(baselines.num_params(self.clients[0].params)
                         if mode == "fedavg" else 0))
         self.ledger.log_round(up, down)
 
         accs = [self.evaluate(c) for c in self.clients]
-        rec = {"round": r + 1,
-               "acc_mean": float(np.mean(accs)),
-               "acc_std": float(np.std(accs)),
-               "accs": accs,
-               "metrics": [{k: float(v) for k, v in m.items()}
-                           for m in metrics_all],
-               "participants": list(range(N)),
-               "commits": [[b, i] for b, i in commits],
-               "comm_up": up, "comm_down": down}
-        self.history.append(rec)
-        return rec
+        metrics_all = [{k: float(v) for k, v in m.items()}
+                       for m in metrics_all]
+        return log_round(self.history, present, accs, metrics_all, commits,
+                         up, down)
 
     def run(self, rounds: int, log_every: int = 0) -> List[Dict]:
         for k in range(rounds):

@@ -1,7 +1,9 @@
-"""Relay policies (the port of `repro/relay/__init__.py`'s policy half):
-`FlatRelay`, `PerClassRelay` and `StalenessRelay` behind the contract of
-`relay/base.py`, resolved by `get_policy`; `RelayServer` binds one to a live
-state for the sequential engine."""
+"""Relay policies and participation schedules (the port of
+`repro/relay/__init__.py` without the async, history, placement and shard
+parts): `FlatRelay`, `PerClassRelay` and `StalenessRelay` behind the
+contract of `relay/base.py`, resolved by `get_policy`; `RelayServer` binds
+one to a live state for the sequential engine; the schedules of
+`relay/participation.py`, resolved by `get_schedule`."""
 from __future__ import annotations
 
 from typing import Union
@@ -10,6 +12,9 @@ from repro_torch.relay.base import (EMPTY_OWNER, SEED_OWNER,  # noqa: F401
                                     TEACHER_KEYS, RelayPolicy,
                                     default_capacity)
 from repro_torch.relay.flat import FlatRelay, RelayState  # noqa: F401
+from repro_torch.relay.participation import (  # noqa: F401
+    AdaptiveParticipation, BernoulliP, Cyclic, FullParticipation,
+    ParticipationSchedule, UniformK, get_schedule)
 from repro_torch.relay.per_class import (PerClassRelay,  # noqa: F401
                                          PerClassRelayState)
 from repro_torch.relay.staleness import (StalenessRelay,  # noqa: F401

@@ -193,9 +193,11 @@ class CollabConfig:
 @dataclass(frozen=True)
 class FleetConfig:
     """Who the fleet is and how it behaves (relay policy, participation,
-    clocks, mesh, arrivals). The port's sequential trainer runs the flat
-    relay with full, synchronous participation; any other value raises
-    `NotImplementedError` naming the ROADMAP slice that brings it."""
+    clocks, mesh, arrivals). The port's trainers run any relay policy but
+    the sharded one (`relay.get_policy`) and any participation schedule
+    (`relay.get_schedule`), synchronously; a clock, a download clock,
+    arrivals or a mesh raise `NotImplementedError` naming the ROADMAP
+    slice that brings them."""
     policy: Any = None
     participation: Any = None
     clock: Any = None

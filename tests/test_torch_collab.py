@@ -122,7 +122,6 @@ def test_port_trainer_rejects_what_it_does_not_run():
         tcollab.CollabTrainer(*args, CollabConfig(mode="fl"), TrainConfig(),
                               device="cpu")
     for fleet in (FleetConfig(policy="sharded:flat,2"),
-                  FleetConfig(participation="uniform_k:2"),
                   FleetConfig(clock="lognormal:4"),
                   FleetConfig(download_clock="periodic:3,4"),
                   FleetConfig(arrivals="stream:2,1,0.1,100,0"),

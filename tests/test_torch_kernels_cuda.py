@@ -280,6 +280,42 @@ def test_proto_accum_client_axis_equals_one_launch_a_client(cuda, N, n, d, C,
     assert torch.equal(c, rc)
 
 
+# The vectorized engine's static-k compaction: a (k, ...) block gathered by
+# `index_select` from an N-client stack, as its round step gathers the
+# participants; each result bit-equal to one launch a client on the rows of
+# the stack the block was gathered from.
+@pytest.mark.parametrize("idx", [[1, 3], [4, 0, 2, 1, 3]])
+def test_kernels_on_a_gathered_client_block_equal_one_launch_a_client(cuda,
+                                                                      idx):
+    N, B, C, M, n, d = 5, 32, 10, 10, 240, 84
+    g = torch.Generator().manual_seed(len(idx))
+    s = (torch.randn(N, B, C, generator=g) * 2).to(cuda)
+    q = torch.softmax(torch.randn(N, M, C, generator=g) * 2, -1).to(cuda)
+    y = torch.randint(0, M, (N, B), generator=g).to(cuda)
+    v = (torch.rand(N, M, generator=g) > 0.3).to(cuda)
+    w = torch.randn(N, B, generator=g).to(cuda)
+    f = torch.randn(N, n, d, generator=g).to(cuda)
+    lab = torch.randint(0, C, (N, n), generator=g).to(cuda)
+    ix = torch.tensor(idx, device=cuda)
+    sk, qk, yk, vk, wk, fk, labk = (t.index_select(0, ix)
+                                    for t in (s, q, y, v, w, f, lab))
+    before = dict(ops.LAUNCHES)
+    out = ops.disc_loss_fwd(sk, qk, yk, vk)
+    grads = ops.disc_loss_bwd(wk, sk, qk, yk, vk, *out[1:])
+    sums, counts = ops.proto_accum(fk, labk, C)
+    for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
+        assert ops.LAUNCHES[name] == before[name] + 1, name
+    for j, i in enumerate(idx):
+        one = ops.disc_loss_fwd(s[i], q[i], y[i], v[i])
+        for a, b in zip(out, one):
+            assert torch.equal(a[j], b)
+        for a, b in zip(grads, ops.disc_loss_bwd(w[i], s[i], q[i], y[i], v[i],
+                                                 *one[1:])):
+            assert torch.equal(a[j], b)
+        si, ci = ops.proto_accum(f[i], lab[i], C)
+        assert torch.equal(sums[j], si) and torch.equal(counts[j], ci)
+
+
 def _device_kernels(fn, tries=3):
     """[(name, count)] of the device kernels in a profiler session around
     fn(). Each session first launches a fill kernel, so that a session

@@ -290,7 +290,6 @@ def test_vec_engine_rejects_what_it_does_not_run():
         tvec.VectorizedCollabTrainer(*args, CollabConfig(mode="fl"),
                                      TrainConfig(), device="cpu")
     for fleet in (FleetConfig(policy="sharded:flat,2"),
-                  FleetConfig(participation="uniform_k:1"),
                   FleetConfig(clock="lognormal:4"),
                   FleetConfig(download_clock="periodic:3,4"),
                   FleetConfig(arrivals="stream:2,1,0.1,100,0"),
@@ -303,7 +302,7 @@ def test_vec_engine_rejects_what_it_does_not_run():
                                      telemetry=True, device="cpu")
     other = tclient.ClientSpec(apply=tmlp.apply,
                                head=lambda p: (p["head_w"], p["head_b"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
+    with pytest.raises(ValueError, match="fedavg"):
         tvec.VectorizedCollabTrainer([spec, other], p, parts, (x, y),
-                                     CollabConfig(), TrainConfig(),
-                                     device="cpu")
+                                     CollabConfig(mode="fedavg"),
+                                     TrainConfig(), device="cpu")
