@@ -46,6 +46,22 @@ Phases (each failure raises, so the process exits non-zero):
      3 rounds each (launches exact, no host sync, ring and ledger of the two
      cyclic runs equal), s/round, and one profiled round each (device ops,
      busy time and share);
+  5e. asynchrony: 3 rounds at N = 5 (a mixed fleet: 6) of each of
+     ASYNC_PATHS, uploads committed late by an upload clock (cors under
+     flat / lognormal:2, per_class / periodic:2,3, staleness:0.5 /
+     homogeneous:1; fd / lognormal:2 under uniform_k:3, vec full width),
+     stale downloads by a download clock (cors / periodic:2,3 under
+     uniform_k:3, vec compacted), both (staleness:0.5, lognormal:2 twice;
+     the mixed fleet, homogeneous:1 twice), in both engines on the card and
+     seq on the CPU: at least one delayed commit or stale read on each,
+     launches exact, every vec step under sync-debug mode "error",
+     participants, commits, uploads in flight (seq's queue, vec's live
+     pending slots), ring integers (and ages), the history ring at every
+     depth and the ledger equal vec = seq on the card = seq on the CPU,
+     accuracies within 2e-2; s/round; then at N = 32 cors under
+     lognormal:2 against the same fleet synchronous in vec: 9 rounds of
+     each in turns (launches exact, no host sync), s/round and the pairs
+     the asynchronous round lost, one profiled round each;
   6. profile: one more round of each engine under torch.profiler (device
      busy share, device ops, time by kernel), then 2 rounds of each engine
      at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
@@ -71,13 +87,14 @@ also on a (k, ...) block gathered by `index_select` from an N-client stack
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c and 5d) before the last line,
+phases 5c, 5d and 5e) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -130,6 +147,30 @@ PARTICIPATION_PATHS = (
     ("fd mixed uniform_k:3", "fd", "uniform_k:3", 6, True, None,
      (0, 0, 4 * ROUNDS)))
 COMPACT_K = 8              # cyclic:8 at SCALE_CLIENTS = 32: k/N = 1/4
+# Phase 5e's paths: (name, mode, relay policy, schedule, upload clock,
+# download clock, clients, hetero, the vec engine's _k_active, its
+# launches). An asynchronous fleet runs vec full width (its commits are not
+# the participants' uploads); download lag alone keeps compaction. seq
+# launches as in phase 5d, a delayed upload computed in its birth round.
+CORS_VEC = (STEPS * ROUNDS,) * 2 + (ROUNDS,)
+ASYNC_PAIRS = 9            # N = 32: rounds of each fleet, taken in turns
+ASYNC_PATHS = (
+    ("cors flat lognormal:2", "cors", "flat", None, "lognormal:2", None,
+     CLIENTS, False, CLIENTS, CORS_VEC),
+    ("cors per_class periodic:2,3", "cors", "per_class", None,
+     "periodic:2,3", None, CLIENTS, False, CLIENTS, CORS_VEC),
+    ("cors staleness:0.5 homogeneous:1", "cors", "staleness:0.5", None,
+     "homogeneous:1", None, CLIENTS, False, CLIENTS, CORS_VEC),
+    ("fd flat lognormal:2 uniform_k:3", "fd", "flat", "uniform_k:3",
+     "lognormal:2", None, CLIENTS, False, CLIENTS, (0, 0, 2 * ROUNDS)),
+    ("cors flat lag periodic:2,3 uniform_k:3", "cors", "flat",
+     "uniform_k:3", None, "periodic:2,3", CLIENTS, False, 3, CORS_VEC),
+    ("cors staleness:0.5 lognormal:2 lag lognormal:2", "cors",
+     "staleness:0.5", None, "lognormal:2", "lognormal:2", CLIENTS, False,
+     CLIENTS, CORS_VEC),
+    ("cors mixed homogeneous:1 lag homogeneous:1", "cors", "flat", None,
+     "homogeneous:1", "homogeneous:1", 6, True, None,
+     (2 * MIX_STEPS * ROUNDS,) * 2 + (2 * ROUNDS,)))
 RING_INTS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g")
 SCALE_CLIENTS, SCALE_ROUNDS = 32, 2   # class_images(7680): 240 samples a client
 # flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
@@ -752,10 +793,12 @@ def phase_vec(dev, seq):
 
 def no_sync(vec):
     """Wraps every device step of the vec trainer (its round step, or each
-    bucket's step and the shared relay commit of a mixed fleet) so that a
+    bucket's step, the shared relay commit and the history push of a mixed
+    fleet) so that a
     host sync inside one raises (CUDA sync-debug mode "error"); -> a
     function that unwraps them."""
-    owners = ([(b, "step") for b in vec.buckets] + [(vec, "_relay_commit")]
+    owners = ([(b, "step") for b in vec.buckets]
+              + [(vec, "_relay_commit"), (vec, "_hist_push")]
               if vec.hetero else [(vec, "_round_step")])
     saved = [(o, a, getattr(o, a)) for o, a in owners]
 
@@ -773,9 +816,11 @@ def no_sync(vec):
     return lambda: [setattr(o, a, step) for o, a, step in saved]
 
 
-def timed_rounds(trainer, tag):
+def timed_rounds(trainer, tag, after_round=None):
     """ROUNDS rounds with the launch counts set to 0 just before and read
-    just after -> (launches (fwd, bwd, proto), seconds per round)."""
+    just after -> (launches (fwd, bwd, proto), seconds per round);
+    `after_round()`, when given, is called after each round, outside the
+    timing."""
     from repro_torch.kernels import ops
     ops.reset_launches()
     secs = []
@@ -787,6 +832,8 @@ def timed_rounds(trainer, tag):
         for m in rec["metrics"]:
             if not all(math.isfinite(v) for v in m.values()):
                 raise AssertionError(f"{tag}: non-finite metrics {m}")
+        if after_round is not None:
+            after_round()
     n = dict(ops.LAUNCHES)
     if n["flash_attention"]:
         raise AssertionError(f"{tag}: flash_attention launched")
@@ -969,6 +1016,162 @@ def phase_compaction(dev):
           f"{steady(c['s']) / steady(f['s']):.3f}, device ops "
           f"{c['ops'] / f['ops']:.3f}, busy time "
           f"{c['busy_ms'] / f['busy_ms']:.3f}; ring and ledger equal")
+    return res
+
+
+def in_flight(t):
+    """Uploads in flight after a round: the sequential engine's queue, the
+    vectorized engine's live pending slots (0 without a pending buffer)."""
+    if hasattr(t, "_queue"):
+        return len(t._queue)
+    return int(t.pending.live.sum()) if t._async else 0
+
+
+def same_snapshots(a, b, what):
+    """The history rings of two trainers (vec's `hist`, seq's `_snaps`)
+    equal in their ring integers at every depth, the clamp included."""
+    from repro_torch.relay import history
+    for d in range(a._h_max + 1):
+        snaps = [t._snapshot(d) if hasattr(t, "_snaps")
+                 else history.read_at(t.hist, d) for t in (a, b)]
+        same_ring(*snaps, f"{what}, snapshot {d} deep")
+
+
+def phase_async(dev):
+    """Phase 5e: asynchrony (ASYNC_PATHS), each path in both engines on the
+    card and in seq on the CPU: launches exact, at least one delayed
+    commit (upload clock) or stale read (download clock), every vec step
+    under sync-debug mode "error", participants, commits, uploads in flight,
+    ring integers (and ages), the history ring and the ledger equal vec =
+    seq on the card = seq on the CPU, accuracies within 2e-2. -> {path:
+    {"seq": launches, "vec": launches, "seq_s": [...], "vec_s": [...]}}."""
+    from repro_torch.collab_image_classification import build_trainer
+    out = {}
+    for (name, mode, policy, sched, clock, dl, n, hetero, k_active,
+         want_vec) in ASYNC_PATHS:
+        mk = lambda device, engine: build_trainer(
+            n, mode, seed=0, device=device, engine=engine,
+            relay_policy=policy, participation=sched, hetero=hetero,
+            clock=clock, download_clock=dl)
+        flying = {"seq": [], "vec": [], "cpu": []}
+        seq = mk(dev, "seq")
+        l_seq, s_seq = timed_rounds(
+            seq, f"{name} seq", lambda: flying["seq"].append(in_flight(seq)))
+        vec = mk(dev, "vec")
+        if (vec.hetero != hetero or vec._async != (clock is not None)
+                or vec._lagged != (dl is not None)
+                or (not hetero and vec._k_active != k_active)):
+            raise AssertionError(f"{name}: hetero {vec.hetero}, async "
+                                 f"{vec._async}, lagged {vec._lagged}, "
+                                 f"k_active {getattr(vec, '_k_active', None)}")
+        restore = no_sync(vec)
+        l_vec, s_vec = timed_rounds(
+            vec, f"{name} vec", lambda: flying["vec"].append(in_flight(vec)))
+        restore()
+        cpu = mk("cpu", "seq")
+        timed_rounds(cpu, f"{name} cpu",
+                     lambda: flying["cpu"].append(in_flight(cpu)))
+        steps = MIX_STEPS if hetero else STEPS
+        present = sum(len(h["participants"]) for h in seq.history)
+        want_seq = ((steps * present,) * 2 + (present,) if mode == "cors"
+                    else (0, 0, 2 * present))
+        delayed = [c for h in seq.history for c in h["commits"]
+                   if c[0] < h["round"] - 1]
+        stale = ([(r, i) for r, h in enumerate(seq.history)
+                  for i in h["participants"]
+                  if seq.dl_clock.delays(r, n)[i] > 0]
+                 if dl is not None else [])
+        print(f"[async] {name}: commits "
+              f"{[h['commits'] for h in seq.history]}; delayed {delayed}; "
+              f"stale reads (round, client) {stale}; in flight {flying}; "
+              f"launches "
+              f"(disc fwd, bwd, proto_accum) seq {l_seq} vec {l_vec}; "
+              f"s/round seq {s_seq} vec {s_vec}; no host sync inside any "
+              f"vec step")
+        if l_seq != want_seq or l_vec != want_vec:
+            raise AssertionError(f"{name}: launches seq {l_seq} vec {l_vec} "
+                                 f"!= {want_seq} {want_vec}")
+        if clock is not None and not delayed:
+            raise AssertionError(f"{name}: no delayed commit")
+        if dl is not None and not stale:
+            raise AssertionError(f"{name}: no stale read")
+        if not flying["vec"] == flying["seq"] == flying["cpu"]:
+            raise AssertionError(f"{name}: uploads in flight differ")
+        same_records(vec, seq, f"{name}: vec and seq")
+        same_records(seq, cpu, f"{name}: card and CPU")
+        sv, ss, sc = vec.relay_state, seq.server.state, cpu.server.state
+        same_ring(sv, ss, f"{name}: vec and seq on the card")
+        same_ring(ss, sc, f"{name}: seq on the card and on the CPU")
+        if dl is not None:
+            same_snapshots(vec, seq, f"{name}: vec and seq on the card")
+            same_snapshots(seq, cpu, f"{name}: seq on the card and the CPU")
+        if not vec.ledger.by_round == seq.ledger.by_round == cpu.ledger.by_round:
+            raise AssertionError(f"{name}: ledgers differ")
+        same_accs(vec.history, seq.history, f"{name}: vec and seq")
+        same_accs(seq.history, cpu.history, f"{name}: card and CPU")
+        print(f"[async] {name}: participants, commits, uploads in flight, "
+              f"ring{' and ages' if hasattr(sv, 'age') else ''}"
+              f"{', history ring' if dl else ''} and ledger equal (vec = seq "
+              f"on the card = seq on the CPU); accs vec "
+              f"{vec.history[-1]['accs']} seq {seq.history[-1]['accs']}; comm "
+              f"{seq.ledger.total_bytes / 1e6:.3f} MB")
+        out[name] = {"seq": l_seq, "vec": l_vec, "seq_s": s_seq,
+                     "vec_s": s_vec}
+        del seq, vec, cpu
+    return out
+
+
+def phase_async_scale(dev):
+    """N = 32 (240 samples a client), vec: cors with the flat relay under
+    lognormal:2 against the same fleet synchronous, ASYNC_PAIRS rounds of
+    each in turns (the order alternating from round to round, so that host
+    drift falls on both), launches exact, no host sync; then one profiled
+    round each. -> {run: {"s": [...], "ops": n, "busy_ms": t, "busy":
+    share}, "slower_pairs": n}."""
+    from repro_torch.collab_image_classification import build_trainer
+    from repro_torch.kernels import ops
+    runs = {tag: build_trainer(SCALE_CLIENTS, "cors", seed=0, device=dev,
+                               engine="vec", n_train=240 * SCALE_CLIENTS,
+                               clock=clock)
+            for tag, clock in (("lognormal:2", "lognormal:2"),
+                               ("synchronous", None))}
+    secs = {tag: [] for tag in runs}
+    launches = {tag: (0, 0, 0) for tag in runs}
+    for r in range(ASYNC_PAIRS):
+        for tag in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            t = runs[tag]
+            restore = no_sync(t)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            t.run_round()
+            torch.cuda.synchronize()
+            secs[tag].append(time.perf_counter() - t0)
+            restore()
+            n = ops.LAUNCHES
+            launches[tag] = tuple(
+                x + n[k] for x, k in zip(launches[tag], (
+                    "disc_loss_fwd", "disc_loss_bwd", "proto_accum")))
+    want = (STEPS * ASYNC_PAIRS,) * 2 + (ASYNC_PAIRS,)
+    res = {}
+    for tag, t in runs.items():
+        if launches[tag] != want:
+            raise AssertionError(f"N={SCALE_CLIENTS} {tag}: launches "
+                                 f"{launches[tag]} != {want}")
+        _, n_ops, busy, busy_us = phase_profile(t, f"async {tag}", True)
+        res[tag] = {"s": secs[tag], "ops": n_ops, "busy_ms": busy_us / 1e3,
+                    "busy": busy}
+        print(f"[async] N={SCALE_CLIENTS} {tag}: s/round {secs[tag]}, "
+              f"launches {launches[tag]}, profiled round {n_ops} device ops, "
+              f"{busy_us / 1e3:.3f} ms busy ({100 * busy:.1f}%)")
+    a, b = res["lognormal:2"], res["synchronous"]
+    med = lambda x: statistics.median(x[1:])
+    res["slower_pairs"] = sum(x > y for x, y in zip(a["s"][1:], b["s"][1:]))
+    print(f"[async] N={SCALE_CLIENTS} asynchronous over synchronous: median "
+          f"s/round of rounds 2-{ASYNC_PAIRS} {med(a['s']) / med(b['s']):.3f} "
+          f"({med(a['s']):.4f} / {med(b['s']):.4f} s; asynchronous slower in "
+          f"{res['slower_pairs']} of {ASYNC_PAIRS - 1} pairs), device ops "
+          f"{a['ops'] / b['ops']:.3f}, busy time "
+          f"{a['busy_ms'] / b['busy_ms']:.3f}")
     return res
 
 
@@ -1167,6 +1370,8 @@ def main():
     paths = phase_baselines(dev)
     paths.update(phase_participation(dev))
     compaction = phase_compaction(dev)
+    paths.update(phase_async(dev))
+    async_scale = phase_async_scale(dev)
     dev_us, ops_seq, busy_seq, _ = phase_profile(gpu, "profile seq", False)
     dev_us_vec, ops_vec, busy_vec, _ = phase_profile(vec, "profile vec", True)
     dev_us.update(dev_us_vec)
@@ -1222,7 +1427,8 @@ def main():
     print(f"[card] {smi}; vec over seq s/round: N={CLIENTS} "
           f"{scale['n5']:.3f}x, N={SCALE_CLIENTS} {scale['n32']:.3f}x; device "
           f"ops a round vec {ops_vec} seq {ops_seq}; N={SCALE_CLIENTS} "
-          f"compaction {json.dumps(compaction)}")
+          f"compaction {json.dumps(compaction)}; N={SCALE_CLIENTS} async "
+          f"{json.dumps(async_scale)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ per-round accuracy, exact communication accounting and the kernels' launch
 counts. `--engine vec` (the default, as in the reference's example) runs all
 clients in one batched round step (one a bucket with `--hetero`), `seq` the
 sequential engine. `--relay-policy` picks the server's relay (cors and
-fd), `--participation` who takes part in each round, and `--hetero` makes
-the fleet mixed: the MLP on odd client ids, LeNet on even ones. CL, il on
+fd), `--participation` who takes part in each round, `--hetero` makes
+the fleet mixed: the MLP on odd client ids, LeNet on even ones.
+`--clock-model` makes uploads commit late (stragglers, in event order) and
+`--download-clock` makes clients train against stale relay snapshots. CL, il on
 one client holding all the data, is `build_trainer(1, "cl")`, as the
 reference's `benchmarks/common.run_mode("cl", 1)`.
 
@@ -14,7 +16,9 @@ reference's `benchmarks/common.run_mode("cl", 1)`.
       [--rounds R] [--clients N] [--mode cors|il|fd|fedavg] \
       [--relay-policy flat|per_class|staleness[:lam]] \
       [--participation full|uniform_k:K|cyclic:K|bernoulli:P|adaptive:P[,B]] \
-      [--hetero] [--engine vec|seq] [--device cuda|cpu]
+      [--hetero] [--clock-model none|homogeneous:D|lognormal:D[,S]|periodic:D,P] \
+      [--download-clock none|homogeneous:D|lognormal:D[,S]|periodic:D,P] \
+      [--engine vec|seq] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -43,12 +47,13 @@ def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
                   lambda_kd: float = 2.0, lambda_disc: float = 1.0,
                   device=None, engine: str = "vec", n_train: int = 1200,
                   relay_policy=None, participation=None,
-                  hetero: bool = False):
+                  hetero: bool = False, clock=None, download_clock=None):
     """The example's fleet: `class_images(n_train)` split uniformly over the
     clients, 2000 test images, batch 32, LeNet clients (with `hetero`, the
     MLP on odd client ids) with random weights from `seed`, in the `engine`
-    trainer with the `relay_policy` relay and the `participation`
-    schedule."""
+    trainer with the `relay_policy` relay, the `participation` schedule,
+    the upload `clock` and the `download_clock` (`repro_torch.sim` specs;
+    None or "none" is the synchronous fleet)."""
     x, y = synthetic.class_images(n_train, seed=0, noise=0.8)
     tx, ty = synthetic.class_images(2000, seed=99, noise=0.8)
     parts = partition.uniform_split(x, y, clients, seed=1)
@@ -62,7 +67,9 @@ def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
     return ENGINES[engine](specs, params, parts, (tx, ty), ccfg,
                            TrainConfig(batch_size=32), seed=seed,
                            fleet=FleetConfig(policy=relay_policy,
-                                             participation=participation),
+                                             participation=participation,
+                                             clock=clock,
+                                             download_clock=download_clock),
                            device=device)
 
 
@@ -81,6 +88,18 @@ def main(argv=None):
     ap.add_argument("--hetero", action="store_true",
                     help="mixed fleet: odd client ids run the MLP instead "
                          "of LeNet (vec: one batched step a model)")
+    ap.add_argument("--clock-model", default="none",
+                    help="upload clock of the asynchronous relay: none | "
+                         "homogeneous[:delay] | lognormal[:dmax[,sigma]] | "
+                         "periodic[:dmax[,period]]; e.g. lognormal:4 is a "
+                         "straggler fleet whose uploads commit up to 4 "
+                         "rounds late, in event order")
+    ap.add_argument("--download-clock", default="none",
+                    help="download lag, the same specs as --clock-model "
+                         "with their own randomness: clients read teachers "
+                         "and global prototypes from the relay snapshot of "
+                         "d rounds ago; e.g. periodic:3,4 is a duty-cycled "
+                         "fleet syncing every 4 rounds")
     ap.add_argument("--engine", default="vec", choices=sorted(ENGINES))
     ap.add_argument("--lambda-kd", type=float, default=2.0)
     ap.add_argument("--lambda-disc", type=float, default=1.0)
@@ -94,9 +113,11 @@ def main(argv=None):
                             engine=args.engine,
                             relay_policy=args.relay_policy,
                             participation=args.participation,
-                            hetero=args.hetero)
+                            hetero=args.hetero, clock=args.clock_model,
+                            download_clock=args.download_clock)
     print(f"{args.clients} clients sharing 1200 samples, mode={args.mode}, "
           f"relay={args.relay_policy}, participation={args.participation}, "
+          f"clock={args.clock_model}, download clock={args.download_clock}, "
           f"engine={args.engine}, device={trainer.device}"
           + (", hetero LeNet/MLP fleet" if args.hetero else ""))
     ops.reset_launches()
@@ -107,6 +128,7 @@ def main(argv=None):
         print(f"  round {rec['round']:3d} acc {rec['acc_mean']:.4f} "
               f"±{rec['acc_std']:.4f}  comm {trainer.ledger.total_bytes/1e6:.2f}"
               f" MB  {dt:.3f} s  participants {rec['participants']}  "
+              f"commits {rec['commits']}  "
               f"launches {dict(ops.LAUNCHES)}")
     best = max(h["acc_mean"] for h in trainer.history)
     print(f"\nbest mean accuracy: {best:.4f}; "

@@ -1,5 +1,5 @@
 """Multi-client simulation trainer, the sequential engine; the port of
-`repro/core/collab.py:CollabTrainer` for synchronous rounds.
+`repro/core/collab.py:CollabTrainer`.
 
 It runs CoRS and the paper's Table 1 baselines with one data split,
 optimizer and round accounting: modes `cors`, `fd` (federated
@@ -12,13 +12,29 @@ data), under any relay policy of `relay/` (`flat`, `per_class`,
 (`client.bucketize`), and uploads go in bucket order. Every round has the
 reference's phases:
   1. downlink: every PRESENT client samples a teacher from the relay state
-     of the PREVIOUS round (cors, fd);
+     of the PREVIOUS round, or under a download clock from the snapshot
+     d(client, round) rounds staler (cors, fd);
   2. local updates (Algorithm 2), client by client; absent clients are
      frozen and report zero metrics;
-  3. uplink: present clients upload in bucket order, then one merge (cors,
-     fd; none when nobody uploaded); fedavg instead replaces every present
-     client's weights by their average.
-Then the ledger bills the present clients and every client is evaluated.
+  3. uplink: present clients' uploads enter the event queue in bucket
+     order with their commit delay, then the round's due events commit in
+     event order and one merge follows (cors, fd; none when nothing
+     committed); fedavg instead replaces every present client's weights by
+     their average.
+Then the ledger bills uplink at commit and downlink at read, and every
+client is evaluated.
+
+Asynchrony: with `FleetConfig.clock` (a `repro_torch.sim` clock spec, e.g.
+"lognormal:2") an upload born in round r with commit delay d is appended
+in round r + d, stamped with its birth clock, in event order (birth round,
+then upload position; `relay/events.py`). This engine replays that order
+one host-side event at a time, the reference for the vectorized engine's
+pending buffer. Teachers come from committed state only: uploads in
+flight are invisible. With `FleetConfig.download_clock` a round-t client
+reads the post-merge state of round t - d - 1 from `_snaps`, the
+most-recent-first list of the last H_max = d_max + 1 states, the replay of
+the vectorized engine's ring (`relay/history.py`). No clock, or d_max = 0,
+is the synchronous fleet, bit for bit.
 
 The reference draws its random numbers with `jax.random` from a per-round
 key schedule. The port takes them from a `draws` object instead: Gumbel
@@ -38,11 +54,11 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import relay as relay_lib
+from repro_torch import relay as relay_lib, sim
 from repro_torch.core import baselines, client as client_lib, comm
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
-from repro_torch.relay import base, participation
+from repro_torch.relay import base, events, participation
 from repro_torch.relay.server import RelayServer
 from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
 
@@ -72,8 +88,6 @@ class TorchDraws:
 
 
 _FLEET_SLICES = {
-    "clock": "asynchrony (ROADMAP slice 4)",
-    "download_clock": "asynchrony (ROADMAP slice 4)",
     "arrivals": "population scale (ROADMAP slice 5)",
     "mesh": "multi-device (ROADMAP slice 9)",
 }
@@ -89,7 +103,7 @@ def check_setup(ccfg: CollabConfig, fleet: FleetConfig) -> relay_lib.RelayPolicy
         raise ValueError(f"unknown mode {ccfg.mode!r} (have "
                          f"{sorted(client_lib.MODES)})")
     policy = relay_lib.get_policy(fleet.policy)
-    for f in ("clock", "download_clock", "arrivals", "mesh"):
+    for f in ("arrivals", "mesh"):
         v = getattr(fleet, f)
         if v is not None and v != "none":
             raise NotImplementedError(
@@ -155,8 +169,17 @@ class CollabTrainer:
         self.server = RelayServer(ccfg, ccfg.d_feature, seed,
                                   n_clients=len(specs), device=dev,
                                   policy=policy)
+        self.clock = sim.get_clock(fleet.clock, seed=seed)
+        self._queue = events.HostEventQueue()
         self.schedule = participation.get_schedule(fleet.participation,
-                                                   seed=seed)
+                                                   seed=seed, clock=self.clock)
+        # download lag: `_snaps`, the last H_max post-merge relay states,
+        # most recent first; only the relay modes download
+        self.dl_clock = sim.get_download_clock(fleet.download_clock, seed=seed)
+        self._lagged = (self.dl_clock is not None
+                        and ccfg.mode in RELAY_MODES)
+        self._h_max = (self.dl_clock.d_max + 1) if self._lagged else 1
+        self._snaps = [self.server.state] if self._lagged else None
         self.draws = draws if draws is not None else TorchDraws(seed)
         self.ledger = comm.CommLedger()
         self._updaters = [client_lib.make_local_update_fn(c.spec, ccfg, tcfg)
@@ -180,15 +203,21 @@ class CollabTrainer:
         mask = np.asarray(self.schedule.mask(r, N), bool)
         present = np.nonzero(mask)[0]
 
-        # phase 1: downlink from the previous round's state, present
-        # clients only
+        delays = (self.clock.delays(r, N) if self.clock is not None
+                  else np.zeros((N,), np.int64))
+        dl = (self.dl_clock.delays(r, N) if self._lagged
+              else np.zeros((N,), np.int64))
+
+        # phase 1: downlink from the previous round's state, or from the
+        # snapshot dl[i] rounds before it; present clients only
         teachers = {}
         for i in present:
             if mode in RELAY_MODES:
                 noise, pick = self.draws.teacher(
                     r, i, m_down, self.server.policy.noise_shape(
                         self.server.state, m_down))
-                teachers[i] = self.server.relay(i, m_down, noise, pick)
+                teachers[i] = self.server.relay(
+                    i, m_down, noise, pick, state=self._snapshot(int(dl[i])))
             else:
                 teachers[i] = client_lib.empty_teacher(ccfg, self.device)
 
@@ -200,22 +229,33 @@ class CollabTrainer:
                 c.params, c.opt_state, self._batches(c), teachers[i])
             metrics_all[i] = m
 
-        # phase 3: uplink in bucket order, then one merge (Algorithm 1); a
-        # round with no upload leaves the relay untouched
+        # phase 3: present clients' uploads enter the event queue in bucket
+        # order with their commit delay and birth stamp; the round's due
+        # events commit in event order, then one merge (Algorithm 1). A
+        # round with no commit leaves the relay untouched.
         commits = [(r, int(i)) for i in present]
         if mode in RELAY_MODES:
-            commits = [(r, i) for i in self._upload_order if mask[i]]
-            self.server.begin_round()
-            for _, i in commits:
+            stamps = self.server.policy.host_stamps(self.server.state,
+                                                    self._upload_order)
+            for pos, i in enumerate(self._upload_order):
+                if not mask[i]:
+                    continue
                 c = self.clients[i]
                 prio = self.draws.priorities(r, i, ccfg.m_up,
                                              c.data_x.shape[0])
                 payload = client_lib.compute_uploads(
                     c.spec, c.params, c.data_x, c.data_y, ccfg,
                     prio.to(self.device))
-                self.server.upload(i, payload)
-            if commits:
+                self._queue.push(birth=r, pos=pos, client_id=i,
+                                 stamp=int(stamps[pos]), payload=payload,
+                                 delay=int(delays[i]))
+            due = self._queue.pop_due(r)
+            self.server.begin_round()
+            for _, _, i, stamp, payload, _ in due:
+                self.server.upload(i, payload, stamp=stamp)
+            if due:
                 self.server.end_round()
+            commits = [(birth, i) for birth, _, i, *_ in due]
         elif mode == "fedavg" and present.size:
             # every present client gets its own copy of the average of the
             # present clients (Adam's moments are not averaged)
@@ -225,8 +265,15 @@ class CollabTrainer:
                 self.clients[i].params = {k: v.clone()
                                           for k, v in avg.items()}
 
+        # the ring of snapshots advances every round, also when nothing
+        # committed: "d rounds ago" counts rounds, not merges
+        if self._lagged:
+            self._snaps.insert(0, self.server.state)
+            del self._snaps[self._h_max:]
+
         up, down = comm.round_floats(
             mode, n_present=int(present.size), n_commit=len(commits),
+            n_read=int(present.size) if self._lagged else None,
             C=ccfg.num_classes, d=ccfg.d_feature, m_up=ccfg.m_up,
             m_down=ccfg.m_down,
             model_size=(baselines.num_params(self.clients[0].params)
@@ -246,6 +293,15 @@ class CollabTrainer:
                 print(f"  round {rec['round']:3d} acc {rec['acc_mean']:.4f}"
                       f" ±{rec['acc_std']:.4f}")
         return self.history
+
+    def _snapshot(self, d: int):
+        """The relay state as of `d` rounds ago (None, the live state, when
+        no download clock is bound), clamped to the ring's depth; entries
+        past the pushes made so far are the init state, as the vectorized
+        ring's never-written slots are."""
+        if not self._lagged:
+            return None
+        return self._snaps[min(d, self._h_max - 1, len(self._snaps) - 1)]
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -43,11 +43,36 @@ it. It is the counterpart of the reference's single jitted step
 in ROADMAP. The mask and the compaction index are the static input
 buffers such a capture needs.
 
+Asynchrony (`FleetConfig.clock` with D_max > 0, cors and fd): uploads
+commit late through the event log of `relay/events.py`. A round-r upload
+with commit delay d parks in a fixed-shape pending buffer (N, D_max, ...)
+and is appended in round r + d, in event order, stamped with its birth
+clock, by ONE `events.commit_and_park` inside the round step
+(`make_async_round_step`), or inside the shared commit of a mixed fleet
+(`make_async_relay_commit`, which runs every round: parked uploads may be
+due when nobody trains). The commit set is not the participant set, so an
+asynchronous fleet runs full width, never compacted. The round index,
+the delays and the mask are device inputs; the host learns each round's
+commits from a payload-free `events.CommitMirror` and never reads the
+pending buffer. A D_max = 0 clock is the synchronous fleet: no pending
+buffer, and compaction stays.
+
+Download lag (`FleetConfig.download_clock`, cors and fd): every client
+reads its teachers and global prototypes from its own snapshot, d(client,
+round) rounds staler than the round-start state, out of the ring of the
+last H_max = d_max + 1 post-merge states (`relay/history.py`) that the
+step pushes to every round. The per-client snapshots are one gather of
+every ring leaf by a (k,) slot vector, and the policy's sampler runs on
+each client's snapshot under `torch.func.vmap`. Lag composes with
+compaction (only participants read: the step gathers their delays with
+the rest of the block) and with asynchrony. Any download clock, also
+d_max = 0, goes through the ring.
+
 This slice runs every mode of the sequential engine (cors, fd, fedavg, il,
 cl), the relay policies flat, per_class and staleness, every participation
-schedule and heterogeneous buckets. fedavg's weight average is part of the
-round step, in float32, as the reference computes it. Asynchrony, download
-lag, population arrivals, telemetry and the mesh raise
+schedule, heterogeneous buckets, asynchrony and download lag. fedavg's
+weight average is part of the round step, in float32, as the reference
+computes it. Population arrivals, telemetry and the mesh raise
 `NotImplementedError` naming the ROADMAP slice that brings them.
 """
 from __future__ import annotations
@@ -58,11 +83,12 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sim
 from repro_torch.core import baselines, client as client_lib, collab, comm, \
     prototypes
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
-from repro_torch.relay import participation
+from repro_torch.relay import events, history, participation
 from repro_torch.relay.participation import freeze_absent, keep_if, tree_map
 from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
 
@@ -75,12 +101,33 @@ def _stack(trees: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 # Round-phase builders, as in the reference: the fused round step is composed
 # of these.
 # ---------------------------------------------------------------------------
-def make_teacher_phase(policy, ccfg: CollabConfig):
+def make_teacher_phase(policy, ccfg: CollabConfig, lagged: bool = False):
     """Phase 1 (downlink): every client's teacher sampled from the relay in
     one batched draw of the policy (cors, fd), a broadcast no-op teacher
     otherwise. Returns `teachers(rstate, ids, noise, picks) -> teacher dict
-    (k, ...)`."""
+    (k, ...)`.
+
+    `lagged=True`, download lag: `teachers(hist, ids, noise, picks, dl)`
+    samples client i's teacher from its own snapshot `history.read_at(hist,
+    dl[i])`. The snapshots are one gather of every ring leaf by the (k,)
+    slot vector (a state whose leaves lead with k), and the policy's
+    sampler runs on a fleet of one under `torch.func.vmap` over (snapshot,
+    id, noise, pick): the reference's vmap of `sample_teacher . read_at`.
+    `dl` is a device input: no host read."""
     m_down = max(1, ccfg.m_down)
+
+    if lagged:
+        def one(state, i, nz, pk):
+            t = policy.sample_teachers(state, i[None], m_down, nz[None],
+                                       pk[None])
+            return {k: v[0] for k, v in t.items()}
+
+        per_snapshot = torch.func.vmap(one)
+
+        def teachers_lagged(hist, ids, noise, picks, dl):
+            return per_snapshot(history.read_at(hist, dl), ids, noise, picks)
+
+        return teachers_lagged
 
     def teachers(rstate, ids, noise, picks):
         if ccfg.mode in collab.RELAY_MODES:
@@ -140,20 +187,45 @@ def make_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig):
     return uploads_of
 
 
-def make_relay_commit(policy):
+def make_relay_commit(policy, lagged: bool = False):
     """Phase 3b: the round's single relay write. `commit(rstate, payloads)`
     concatenates the payloads' observation rows (in upload order), appends
     them through the policy in one write and runs ONE merge of the
-    prototype sums (and, in fd mode, the logit sums)."""
+    prototype sums (and, in fd mode, the logit sums).
 
-    def commit(rstate, payloads):
+    `lagged=True`: `commit(rstate, payloads, hist)` also pushes the new
+    state to the history ring and returns (rstate, hist)."""
+
+    def commit(rstate, payloads, *hist):
         cat = lambda k: torch.cat([p[k] for p in payloads])
         proto = prototypes.merge(*[p["proto"] for p in payloads])
         logit = (prototypes.merge(*[p["logit"] for p in payloads])
                  if payloads[0]["logit"] is not None else None)
         new = policy.append(rstate, cat("obs_rows"), cat("valid_rows"),
                             cat("owner_rows"), cat("row_mask"))
-        return policy.merge_round(new, proto, logit)
+        new = policy.merge_round(new, proto, logit)
+        return (new, history.push(hist[0], new)) if lagged else new
+
+    return commit
+
+
+def make_async_relay_commit(policy, lagged: bool = False):
+    """Phase 3b of an asynchronous fleet: `commit(rstate, pending,
+    payloads, round_idx, delays, mask) -> (rstate, pending)` concatenates
+    the payloads' PER-CLIENT pieces (`make_client_upload_phase`, one a
+    bucket, in bucket = upload order) and runs ONE
+    `events.commit_and_park`; `delays` and `mask` come in upload order, the
+    pending buffer's. It runs every round, since parked uploads may be due
+    when nobody trains. `lagged=True` takes the history ring last, pushes
+    the new state (unconditionally) and returns it third."""
+
+    def commit(rstate, pending, payloads, round_idx, delays, mask, *hist):
+        fresh = {k: torch.cat([p[k] for p in payloads]) for k in payloads[0]}
+        rstate, pending = events.commit_and_park(
+            policy, rstate, pending, fresh, round_idx, delays, mask)
+        if lagged:
+            return rstate, pending, history.push(hist[0], rstate)
+        return rstate, pending
 
     return commit
 
@@ -175,7 +247,9 @@ def fedavg_average(params, mask):
 
 
 def make_bucket_update_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
-                            tcfg: TrainConfig, policy):
+                            tcfg: TrainConfig, policy,
+                            per_client_payload: bool = False,
+                            lagged: bool = False):
     """Phases 1-3a of one stack of clients of one model, full-width and
     masked, against a FIXED relay state: downlink, local updates (absent
     clients' parameters and Adam state frozen, their metrics zeroed) and the
@@ -183,22 +257,62 @@ def make_bucket_update_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
     of a mixed fleet reads the same round-start state and one shared commit
     follows. Returns `step(params, opt, rstate, batches, data_x, data_y,
     ids, noise, picks, prio, mask) -> (params, opt, metrics, payload)`;
-    `payload` is None outside cors and fd."""
+    `payload` is None outside cors and fd: the masked reduction of
+    `make_upload_phase`, or with `per_client_payload` the per-client pieces
+    of `make_client_upload_phase` that the event log parks and commits.
+
+    `lagged=True`: the `rstate` argument is the history ring, and a
+    trailing `dl` (k,) gives each client's snapshot depth. The ring is read
+    only; the commit pushes to it."""
     local_update = client_lib.make_local_update_fn(spec, ccfg, tcfg,
                                                    stacked=True)
-    teachers = make_teacher_phase(policy, ccfg)
-    uploads_of = make_upload_phase(spec, ccfg)
+    teachers = make_teacher_phase(policy, ccfg, lagged)
+    uploads_of = (make_client_upload_phase(spec, ccfg) if per_client_payload
+                  else make_upload_phase(spec, ccfg))
 
     def step(params, opt, rstate, batches, data_x, data_y, ids, noise,
-             picks, prio, mask):
-        teacher = teachers(rstate, ids, noise, picks)
+             picks, prio, mask, *dl):
+        teacher = teachers(rstate, ids, noise, picks, *dl)
         new_p, new_o, metrics = local_update(params, opt, batches, teacher)
         params = freeze_absent(mask, new_p, params)
         opt = freeze_absent(mask, new_o, opt)
         metrics = {k: torch.where(mask, v, 0.0) for k, v in metrics.items()}
-        payload = (uploads_of(params, data_x, data_y, prio, ids, mask)
-                   if ccfg.mode in collab.RELAY_MODES else None)
+        payload = None
+        if ccfg.mode in collab.RELAY_MODES:
+            payload = (uploads_of(params, data_x, data_y, prio, ids)
+                       if per_client_payload else
+                       uploads_of(params, data_x, data_y, prio, ids, mask))
         return params, opt, metrics, payload
+
+    return step
+
+
+def make_async_round_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
+                          tcfg: TrainConfig, policy, lagged: bool = False):
+    """The homogeneous ASYNCHRONOUS round step (bounded-delay uploads,
+    `relay/events.py`), full width: phases 1-2 as in the synchronous step,
+    then the per-client uploads and ONE `events.commit_and_park`. Returns
+    `step(params, opt, rstate, pending, batches, data_x, data_y, ids, noise,
+    picks, prio, mask, delays, round_idx) -> (params, opt, rstate, pending,
+    metrics)`; `mask`, `delays` (N,) int32 and `round_idx` (0-d int32) are
+    device inputs, so the step reads nothing back to the host.
+
+    `lagged=True` adds download lag: two trailing inputs `(hist, dl)`, each
+    client's teacher from its own snapshot, the new state pushed to the
+    ring, which is returned before the metrics."""
+    bucket_step = make_bucket_update_step(spec, ccfg, tcfg, policy,
+                                          per_client_payload=True,
+                                          lagged=lagged)
+    commit = make_async_relay_commit(policy, lagged)
+
+    def step(params, opt, rstate, pending, batches, data_x, data_y, ids,
+             noise, picks, prio, mask, delays, round_idx, *lag):
+        params, opt, metrics, payload = bucket_step(
+            params, opt, lag[0] if lagged else rstate, batches, data_x,
+            data_y, ids, noise, picks, prio, mask, *lag[1:])
+        out = commit(rstate, pending, [payload], round_idx, delays, mask,
+                     *lag[:1])
+        return (params, opt) + out + (metrics,)
 
     return step
 
@@ -265,8 +379,9 @@ class VectorizedCollabTrainer:
         self.device = dev = resolve_device(device)
         self.ccfg, self.tcfg = ccfg, tcfg
         self.n_clients = N = len(params_list)
+        self.clock = sim.get_clock(fleet.clock, seed=seed)
         self.schedule = participation.get_schedule(fleet.participation,
-                                                   seed=seed)
+                                                   seed=seed, clock=self.clock)
         self._upload_order = [i for _, ids in buckets for i in ids]
         self.relay_state = self.policy.init_state(ccfg, ccfg.d_feature, seed,
                                                   n_clients=N, device=dev)
@@ -275,6 +390,24 @@ class VectorizedCollabTrainer:
         self.draws = draws if draws is not None else collab.TorchDraws(seed)
         self.ledger = comm.CommLedger()
         self.history: List[Dict] = []
+        # asynchrony: a pending buffer indexed by upload position, and the
+        # host's mirror of the commit order; a D_max = 0 clock is the
+        # synchronous fleet. Download lag: the snapshot ring, under any
+        # download clock. Only the relay modes commit and download.
+        relay_mode = ccfg.mode in collab.RELAY_MODES
+        self._async = (self.clock is not None and self.clock.d_max > 0
+                       and relay_mode)
+        self.dl_clock = sim.get_download_clock(fleet.download_clock,
+                                               seed=seed)
+        self._lagged = self.dl_clock is not None and relay_mode
+        if self._async:
+            self.pending = events.init_pending(
+                N, self.clock.d_max, ccfg.m_up, ccfg.num_classes,
+                ccfg.d_feature, fd=ccfg.mode == "fd", device=dev)
+            self._commit_mirror = events.CommitMirror()
+        if self._lagged:
+            self._h_max = self.dl_clock.d_max + 1
+            self.hist = history.init(self.relay_state, self._h_max)
         if self.hetero:
             self._init_bucketed(buckets, params_list, client_data)
             return
@@ -286,10 +419,15 @@ class VectorizedCollabTrainer:
         self._ids = torch.arange(N, dtype=torch.int32, device=dev)
         # static-k compaction: only when the schedule's participant count is
         # fixed and a strict subset (a full-size gather and scatter-back
-        # would tax every full round for nothing)
+        # would tax every full round for nothing), and never under
+        # asynchrony, whose commits are not the participants' uploads
         fixed_k = self.schedule.fixed_k
-        self._k_active = fixed_k if fixed_k is not None else N
-        self._round_step = self._make_round_step()
+        self._k_active = (fixed_k if fixed_k is not None and not self._async
+                          else N)
+        self._round_step = (
+            make_async_round_step(self.spec, ccfg, self.tcfg, self.policy,
+                                  self._lagged)
+            if self._async else self._make_round_step())
         self._eval_hits = make_eval_hits(self.spec)
 
     # ------------------------------------------------------------------
@@ -325,12 +463,17 @@ class VectorizedCollabTrainer:
                 ids_t=torch.tensor(ids, dtype=torch.int32, device=self.device),
                 params=params, opt=opt, batches=batches, data_x=data_x,
                 data_y=data_y,
-                step=make_bucket_update_step(spec, self.ccfg, self.tcfg,
-                                             self.policy),
+                step=make_bucket_update_step(
+                    spec, self.ccfg, self.tcfg, self.policy,
+                    per_client_payload=self._async, lagged=self._lagged),
                 eval_hits=make_eval_hits(spec)))
             for j, i in enumerate(ids):
                 self._client_slot[i] = (b, j)
-        self._relay_commit = make_relay_commit(self.policy)
+        self._relay_commit = (
+            make_async_relay_commit(self.policy, self._lagged) if self._async
+            else make_relay_commit(self.policy, self._lagged))
+        # the ring advances in a synchronous round that commits nothing
+        self._hist_push = history.push
 
     def client_params(self, i: int) -> Dict[str, torch.Tensor]:
         """Client i's parameters, unstacked (views into its stack)."""
@@ -342,24 +485,29 @@ class VectorizedCollabTrainer:
     # ------------------------------------------------------------------
     def _make_round_step(self):
         ccfg, N = self.ccfg, self.n_clients
+        lagged = self._lagged
         bucket_step = make_bucket_update_step(self.spec, ccfg, self.tcfg,
-                                              self.policy)
+                                              self.policy, lagged=lagged)
         commit = make_relay_commit(self.policy)
         compact = self._k_active < N
 
         def round_core(params, opt, rstate, batches, data_x, data_y, ids,
-                       noise, picks, prio, mask, idx):
+                       noise, picks, prio, mask, idx, *lag):
+            # `lag` = (hist, dl) under a download clock: the snapshot ring
+            # and this round's (N,) snapshot depths
             # phase 0: the participants' (k, ...) block, gathered by `idx`
             full = (params, opt, batches, data_x, data_y, ids, noise, picks,
-                    prio, mask)
+                    prio, mask) + lag[1:]
             if compact:
                 full = tree_map(lambda a: a.index_select(0, idx), full)
-            p_s, o_s, b_s, dx, dy, ids_s, noise_s, picks_s, prio_s, sub = full
-            # phases 1-3a: downlink from the round-start state, all local
-            # updates at once (Algorithm 2 x k), absent clients frozen
+            p_s, o_s, b_s, dx, dy, ids_s, noise_s, picks_s, prio_s, sub = \
+                full[:10]
+            # phases 1-3a: downlink from the round-start state (or each
+            # client's snapshot), all local updates at once (Algorithm 2 x
+            # k), absent clients frozen
             p_s, o_s, metrics, payload = bucket_step(
-                p_s, o_s, rstate, b_s, dx, dy, ids_s, noise_s, picks_s,
-                prio_s, sub)
+                p_s, o_s, lag[0] if lagged else rstate, b_s, dx, dy, ids_s,
+                noise_s, picks_s, prio_s, sub, *full[10:])
             # phase 3b: one append, one merge, kept only if someone took
             # part; or fedavg's weight average
             if payload is not None:
@@ -374,6 +522,11 @@ class VectorizedCollabTrainer:
                            for k, v in metrics.items()}
             else:
                 params, opt = p_s, o_s
+            if lagged:
+                # the ring advances every round, also when nothing
+                # committed: "d rounds ago" counts rounds, not merges
+                return (params, opt, rstate, history.push(lag[0], rstate),
+                        metrics)
             return params, opt, rstate, metrics
 
         return round_core
@@ -395,69 +548,110 @@ class VectorizedCollabTrainer:
                             for i in ids]).to(dev)
         return noise, picks, prio
 
-    def _commits(self, r: int, mask_np) -> List[Tuple[int, int]]:
+    def _commits(self, r: int, mask_np, delays_np) -> List[Tuple[int, int]]:
         """The round's commits, [(birth round, client id)], in commit order:
-        the upload order's present clients in cors and fd, the present
-        clients otherwise (the sequential engine's list)."""
-        if self.ccfg.mode in collab.RELAY_MODES:
-            return [(r, i) for i in self._upload_order if mask_np[i]]
-        return [(r, int(i)) for i in np.nonzero(mask_np)[0]]
+        the event order of the commit mirror under asynchrony, the upload
+        order's present clients in cors and fd, the present clients
+        otherwise (the sequential engine's list)."""
+        if self.ccfg.mode not in collab.RELAY_MODES:
+            return [(r, int(i)) for i in np.nonzero(mask_np)[0]]
+        if self._async:
+            return self._commit_mirror.step(r, mask_np, delays_np,
+                                            self._upload_order)
+        return [(r, i) for i in self._upload_order if mask_np[i]]
 
     def run_round(self) -> Dict:
-        ccfg, N = self.ccfg, self.n_clients
+        ccfg, N, dev = self.ccfg, self.n_clients, self.device
         r = len(self.history)
         mask_np = np.asarray(self.schedule.mask(r, N), bool)
         present = np.nonzero(mask_np)[0]
-        commits = self._commits(r, mask_np)
+        delays_np = (self.clock.delays(r, N) if self.clock is not None
+                     else np.zeros((N,), np.int64))
+        dl_np = self.dl_clock.delays(r, N) if self._lagged else None
+        commits = self._commits(r, mask_np, delays_np)
         if self.hetero:
-            metrics_all = self._run_buckets(r, mask_np, present)
+            metrics_all = self._run_buckets(r, mask_np, present, delays_np,
+                                            dl_np)
             model_size = 0
         else:
-            if self._k_active < N:
-                if present.size != self._k_active:
-                    raise ValueError(
-                        f"schedule {self.schedule.name} emitted "
-                        f"{present.size} participants, not its fixed_k "
-                        f"{self._k_active}")
-                idx = torch.as_tensor(present).to(self.device)
-            else:
-                idx = None                       # full width: no gather
             noise, picks, prio = self._round_draws(r, range(N),
                                                    self.data_y.shape[1])
-            self.params, self.opt_state, self.relay_state, metrics = \
-                self._round_step(self.params, self.opt_state,
-                                 self.relay_state, self.batches, self.data_x,
-                                 self.data_y, self._ids, noise, picks, prio,
-                                 torch.as_tensor(mask_np).to(self.device),
-                                 idx)
-            metrics_all = _host_metrics(metrics)
+            mask = torch.as_tensor(mask_np).to(dev)
+            lag = ((self.hist, _i32(dl_np, dev)) if self._lagged else ())
+            if self._async:
+                out = self._round_step(
+                    self.params, self.opt_state, self.relay_state,
+                    self.pending, self.batches, self.data_x, self.data_y,
+                    self._ids, noise, picks, prio, mask,
+                    _i32(delays_np, dev), _i32(r, dev), *lag)
+                self.params, self.opt_state, self.relay_state, self.pending \
+                    = out[:4]
+            else:
+                if self._k_active < N:
+                    if present.size != self._k_active:
+                        raise ValueError(
+                            f"schedule {self.schedule.name} emitted "
+                            f"{present.size} participants, not its fixed_k "
+                            f"{self._k_active}")
+                    idx = torch.as_tensor(present).to(dev)
+                else:
+                    idx = None                   # full width: no gather
+                out = self._round_step(
+                    self.params, self.opt_state, self.relay_state,
+                    self.batches, self.data_x, self.data_y, self._ids, noise,
+                    picks, prio, mask, idx, *lag)
+                self.params, self.opt_state, self.relay_state = out[:3]
+            if self._lagged:
+                self.hist = out[-2]
+            metrics_all = _host_metrics(out[-1])
             model_size = self._model_size if ccfg.mode == "fedavg" else 0
         up, down = comm.round_floats(
             ccfg.mode, n_present=int(present.size), n_commit=len(commits),
+            n_read=int(present.size) if self._lagged else None,
             C=ccfg.num_classes, d=ccfg.d_feature, m_up=ccfg.m_up,
             m_down=ccfg.m_down, model_size=model_size)
         self.ledger.log_round(up, down)
         return collab.log_round(self.history, present, self.evaluate_all(),
                                 metrics_all, commits, up, down)
 
-    def _run_buckets(self, r: int, mask_np, present) -> List[Dict]:
-        """One synchronous round across the buckets: every bucket's step
-        reads the round-start relay state, then one commit writes all
-        uploads in bucket order and merges once (skipped when nobody took
-        part). -> every client's metrics, by client id."""
+    def _run_buckets(self, r: int, mask_np, present, delays_np,
+                     dl_np) -> List[Dict]:
+        """One round across the buckets: every bucket's step reads the
+        round-start relay state (or, under lag, the shared ring), then one
+        commit writes all uploads in bucket order and merges once. A
+        synchronous round with no participant skips the commit on the host
+        (the ring still advances); the asynchronous commit runs every round,
+        with the mask and delays in upload order. -> every client's
+        metrics, by client id."""
+        dev = self.device
         rstate0 = self.relay_state
         payloads, parts = [], []
         for b in self.buckets:
             noise, picks, prio = self._round_draws(r, b.ids,
                                                    b.data_y.shape[1])
             b.params, b.opt, metrics, payload = b.step(
-                b.params, b.opt, rstate0, b.batches, b.data_x, b.data_y,
-                b.ids_t, noise, picks, prio,
-                torch.as_tensor(mask_np[b.ids]).to(self.device))
+                b.params, b.opt, self.hist if self._lagged else rstate0,
+                b.batches, b.data_x, b.data_y, b.ids_t, noise, picks, prio,
+                torch.as_tensor(mask_np[b.ids]).to(dev),
+                *((_i32(dl_np[b.ids], dev),) if self._lagged else ()))
             payloads.append(payload)
             parts.append(metrics)
-        if self.ccfg.mode in collab.RELAY_MODES and present.size:
-            self.relay_state = self._relay_commit(rstate0, payloads)
+        hist = (self.hist,) if self._lagged else ()
+        out = None
+        if self._async:
+            order = self._upload_order
+            out = self._relay_commit(
+                rstate0, self.pending, payloads, _i32(r, dev),
+                _i32(delays_np[order], dev),
+                torch.as_tensor(mask_np[order]).to(dev), *hist)
+            self.relay_state, self.pending = out[:2]
+        elif self.ccfg.mode in collab.RELAY_MODES and present.size:
+            out = self._relay_commit(rstate0, payloads, *hist)
+            self.relay_state = out[0] if self._lagged else out
+        elif self._lagged:
+            self.hist = self._hist_push(self.hist, rstate0)
+        if self._lagged and out is not None:
+            self.hist = out[-1]
         metrics_all: List[Dict] = [None] * self.n_clients
         for b, metrics in zip(self.buckets, parts):
             for j, m in enumerate(_host_metrics(metrics)):
@@ -492,6 +686,12 @@ class VectorizedCollabTrainer:
         for b in self.buckets:
             accs[b.ids] = stack_hits(b.eval_hits, b.params)
         return accs.tolist()
+
+
+def _i32(a, dev) -> torch.Tensor:
+    """A host int or int array as an int32 tensor on `dev`, made before a
+    step so that the step reads nothing back to the host."""
+    return torch.as_tensor(np.asarray(a), dtype=torch.int32).to(dev)
 
 
 def _host_metrics(metrics: Dict[str, torch.Tensor]) -> List[Dict]:

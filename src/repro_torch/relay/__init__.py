@@ -1,13 +1,17 @@
-"""Relay policies and participation schedules (the port of
-`repro/relay/__init__.py` without the async, history, placement and shard
-parts): `FlatRelay`, `PerClassRelay` and `StalenessRelay` behind the
-contract of `relay/base.py`, resolved by `get_policy`; `RelayServer` binds
-one to a live state for the sequential engine; the schedules of
-`relay/participation.py`, resolved by `get_schedule`."""
+"""Relay policies, participation schedules and the asynchronous relay (the
+port of `repro/relay/__init__.py` without the placement and shard parts):
+`FlatRelay`, `PerClassRelay` and `StalenessRelay` behind the contract of
+`relay/base.py`, resolved by `get_policy`; `RelayServer` binds one to a
+live state for the sequential engine; the schedules of
+`relay/participation.py`, resolved by `get_schedule`; `relay.events`, the
+event-ordered commit log of bounded-delay uploads, and `relay.history`, the
+snapshot ring of stale downloads, both driven by `repro_torch.sim`
+clocks."""
 from __future__ import annotations
 
 from typing import Union
 
+from repro_torch.relay import events, history  # noqa: F401
 from repro_torch.relay.base import (EMPTY_OWNER, SEED_OWNER,  # noqa: F401
                                     TEACHER_KEYS, RelayPolicy,
                                     default_capacity)

@@ -28,6 +28,10 @@ behind these functions; the engines do the rest.
       The end-of-round merge of the clients' per-class sums (and, in fd
       mode, per-class logit sums), the clock tick, and any per-slot
       bookkeeping (the ages of per_class and staleness).
+  stamp_now(state, owners) -> (E,) int32 / host_stamps(state, owners)
+      Birth stamps of uploads born at the current clock, on the device
+      and as numpy ints; the asynchronous event log (`relay/events.py`)
+      parks them with the upload so a late commit arrives pre-aged.
 
 Every state is a NamedTuple of tensors on one device and carries the shared
 prototype fields (`global_protos`, `valid_g`, `mean_logits`), a logical
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import prototypes
@@ -136,6 +141,16 @@ class RelayPolicy:
 
     def merge_round(self, state, proto, logit=None):
         raise NotImplementedError
+
+    def stamp_now(self, state, owners):
+        """Birth stamps for uploads born at the current clock: the scalar
+        clock broadcast to `owners.shape`, int32, on the device."""
+        return state.clock.to(torch.int32).expand(owners.shape).clone()
+
+    def host_stamps(self, state, owners) -> np.ndarray:
+        """Host mirror of `stamp_now` for the sequential engine: numpy int
+        stamps for uploads born now by `owners` (host ints)."""
+        return np.full((len(owners),), int(state.clock), dtype=np.int64)
 
     def sample_teacher(self, state, client_id: int, m_down: int, noise,
                        obs_pick: int = 0) -> Dict:

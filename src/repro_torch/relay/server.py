@@ -33,9 +33,12 @@ class RelayServer:
         self.round_states = []
         self.round_logit_states = []
 
-    def upload(self, client_id: int, payload: Dict):
-        """Append one client's upload, born at the current clock; its
-        per-class logit sums (fd mode) are kept for the merge."""
+    def upload(self, client_id: int, payload: Dict, stamp=None):
+        """Append one client's upload; its per-class logit sums (fd mode)
+        are kept for the merge. `stamp` (int or None) is the upload's birth
+        clock, the server clock when it was produced: None is born now (the
+        synchronous case); the asynchronous event log passes the true birth
+        clock, so a delayed commit arrives pre-aged."""
         self.round_states.append(payload["proto"])
         if "logit_proto" in payload:
             self.round_logit_states.append(payload["logit_proto"])
@@ -44,7 +47,9 @@ class RelayServer:
         dev = obs.device
         self.state = self.policy.append(
             self.state, obs, payload["valid"].expand(m, -1),
-            torch.full((m,), int(client_id), dtype=torch.int32, device=dev))
+            torch.full((m,), int(client_id), dtype=torch.int32, device=dev),
+            stamp_rows=(None if stamp is None else torch.full(
+                (m,), int(stamp), dtype=torch.int32, device=dev)))
 
     def end_round(self):
         if not self.round_states:
@@ -56,11 +61,14 @@ class RelayServer:
 
     # -- downlink ----------------------------------------------------------
     def relay(self, client_id: int, m_down: int, noise,
-              obs_pick: int = 0) -> Dict:
-        """Sample a teacher for `client_id` from the live state; noise of
-        the policy's `noise_shape(state, m_down)`."""
-        return self.policy.sample_teacher(self.state, client_id, m_down,
-                                          noise, obs_pick)
+              obs_pick: int = 0, state=None) -> Dict:
+        """Sample a teacher for `client_id` from the live state, or from
+        `state`, a snapshot of it (the download-lag replay of
+        `core/collab.py`); noise of the policy's `noise_shape(state,
+        m_down)`, which a snapshot shares with the live state."""
+        return self.policy.sample_teacher(
+            self.state if state is None else state, client_id, m_down,
+            noise, obs_pick)
 
     # -- introspection -----------------------------------------------------
     @property

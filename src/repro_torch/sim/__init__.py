@@ -1,8 +1,9 @@
 """Deterministic fleet simulation: virtual-time client clocks (an own copy
-of the reference's `repro/sim/clocks.py`). In this slice a clock only feeds
-`relay.participation.AdaptiveParticipation.bind_clock`; the trainers refuse
-`FleetConfig.clock` and `download_clock` until asynchrony (ROADMAP slice
-4)."""
+of the reference's `repro/sim/clocks.py`). An upload clock
+(`FleetConfig.clock`) delays commits through the relay's event log, a
+download clock (`FleetConfig.download_clock`) makes clients read stale
+snapshots from the history ring, and `AdaptiveParticipation` boosts the
+upload clock's stragglers."""
 from repro_torch.sim.clocks import (ClockModel, HomogeneousClock,  # noqa: F401
                                     LognormalClock, PeriodicClock,
                                     PeriodicSyncClock, get_clock,

@@ -194,10 +194,10 @@ class CollabConfig:
 class FleetConfig:
     """Who the fleet is and how it behaves (relay policy, participation,
     clocks, mesh, arrivals). The port's trainers run any relay policy but
-    the sharded one (`relay.get_policy`) and any participation schedule
-    (`relay.get_schedule`), synchronously; a clock, a download clock,
-    arrivals or a mesh raise `NotImplementedError` naming the ROADMAP
-    slice that brings them."""
+    the sharded one (`relay.get_policy`), any participation schedule
+    (`relay.get_schedule`), and any upload and download clock
+    (`sim.get_clock`, `sim.get_download_clock`); arrivals or a mesh raise
+    `NotImplementedError` naming the ROADMAP slice that brings them."""
     policy: Any = None
     participation: Any = None
     clock: Any = None

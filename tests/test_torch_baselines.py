@@ -150,3 +150,19 @@ def test_twin_builds_cl_on_one_client():
     rec = t.run_round()
     assert len(rec["accs"]) == 1 and t.ledger.total_bytes == 0.0
     assert 0.0 <= rec["acc_mean"] <= 1.0
+
+
+@pytest.mark.parametrize("engine", ["seq", "vec"])
+def test_twin_runs_late_uploads_and_stale_downloads(engine, capsys):
+    """--clock-model parks every upload a round (round 1 commits nothing,
+    round 2 commits round 1's births) and --download-clock binds a ring."""
+    from repro_torch import collab_image_classification as twin
+    twin.main(["--rounds", "2", "--clients", "2", "--device", "cpu",
+               "--engine", engine, "--clock-model", "homogeneous:1",
+               "--download-clock", "homogeneous:1"])
+    out = capsys.readouterr().out
+    assert "clock=homogeneous:1, download clock=homogeneous:1" in out
+    assert "commits []" in out and "commits [[0, 0], [0, 1]]" in out
+    t = twin.build_trainer(2, "cors", device="cpu", engine=engine,
+                           clock="lognormal:2", download_clock="periodic:2,3")
+    assert t.clock.d_max == 2 and t._lagged and t.dl_clock.d_max == 2
