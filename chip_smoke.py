@@ -62,6 +62,26 @@ Phases (each failure raises, so the process exits non-zero):
      lognormal:2 against the same fleet synchronous in vec: 9 rounds of
      each in turns (launches exact, no host sync), s/round and the pairs
      the asynchronous round lost, one profiled round each;
+  5f. population scale: each of SHARD_PATHS (cors on sharded:flat,1,
+     sharded:flat,4, sharded:per_class,4 and sharded:staleness,4 under
+     uniform_k:3 (vec compacted); fd on sharded:flat,2; sharded:flat,4
+     under an upload clock lognormal:2 and under a download clock
+     periodic:2,3; a streaming fleet of 5 seats on sharded:flat,2, 8
+     rounds) in both engines on the card and seq on the CPU: launches
+     exact, every vec step and eviction under sync-debug mode "error",
+     participants, commits, uploads in flight, cohort views, ring integers
+     with per-shard clocks and ages, merges, the history ring and the
+     ledger equal vec = seq on the card = seq on the CPU, accuracies
+     within 2e-2, a delayed commit, a stale read, evictions and dropped
+     arrivals where asked; sharded:flat,1 against flat in vec, every ring
+     leaf and weight bit-equal; sharded:flat,4 against flat in vec, 9
+     rounds each in turns and one profiled round each (s/round, device
+     ops, busy time); then 32 seats of stream:8,8.0,0.3,1000000,0
+     on sharded:flat,4, 12 rounds in vec and seq on the card: evictions,
+     records, ring and ledger equal, the resident bytes (relay state and
+     cohort table) equal to the figure from shards, capacity and seats,
+     one profiled round against phase 5e's synchronous N = 32 fleet, the
+     median s/round;
   6. profile: one more round of each engine under torch.profiler (device
      busy share, device ops, time by kernel), then 2 rounds of each engine
      at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
@@ -87,7 +107,7 @@ also on a (k, ...) block gathered by `index_select` from an N-client stack
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c, 5d and 5e) before the last line,
+phases 5c, 5d, 5e and 5f) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -99,6 +119,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -147,30 +168,73 @@ PARTICIPATION_PATHS = (
     ("fd mixed uniform_k:3", "fd", "uniform_k:3", 6, True, None,
      (0, 0, 4 * ROUNDS)))
 COMPACT_K = 8              # cyclic:8 at SCALE_CLIENTS = 32: k/N = 1/4
-# Phase 5e's paths: (name, mode, relay policy, schedule, upload clock,
-# download clock, clients, hetero, the vec engine's _k_active, its
-# launches). An asynchronous fleet runs vec full width (its commits are not
-# the participants' uploads); download lag alone keeps compaction. seq
-# launches as in phase 5d, a delayed upload computed in its birth round.
 CORS_VEC = (STEPS * ROUNDS,) * 2 + (ROUNDS,)
+
+
+class FleetPath(NamedTuple):
+    """A path of phases 5e and 5f: name, mode, relay policy; schedule,
+    upload clock, download clock and arrival spec (None: none); clients, a
+    mixed fleet, rounds; the vec engine's _k_active (None: bucketed) and
+    its launches (disc_loss fwd, bwd, proto_accum) over the rounds. seq
+    launches 7 a present client a round each way and one proto_accum a
+    present client (two in fd), a delayed upload's in its birth round."""
+    name: str
+    mode: str
+    policy: str
+    sched: Optional[str] = None
+    clock: Optional[str] = None
+    dl: Optional[str] = None
+    arrivals: Optional[str] = None
+    n: int = CLIENTS
+    hetero: bool = False
+    rounds: int = ROUNDS
+    k_active: Optional[int] = CLIENTS
+    want_vec: Tuple[int, int, int] = CORS_VEC
+
+
+# Phase 5e: an asynchronous fleet runs vec full width (its commits are not
+# the participants' uploads); download lag alone keeps compaction.
 ASYNC_PAIRS = 9            # N = 32: rounds of each fleet, taken in turns
 ASYNC_PATHS = (
-    ("cors flat lognormal:2", "cors", "flat", None, "lognormal:2", None,
-     CLIENTS, False, CLIENTS, CORS_VEC),
-    ("cors per_class periodic:2,3", "cors", "per_class", None,
-     "periodic:2,3", None, CLIENTS, False, CLIENTS, CORS_VEC),
-    ("cors staleness:0.5 homogeneous:1", "cors", "staleness:0.5", None,
-     "homogeneous:1", None, CLIENTS, False, CLIENTS, CORS_VEC),
-    ("fd flat lognormal:2 uniform_k:3", "fd", "flat", "uniform_k:3",
-     "lognormal:2", None, CLIENTS, False, CLIENTS, (0, 0, 2 * ROUNDS)),
-    ("cors flat lag periodic:2,3 uniform_k:3", "cors", "flat",
-     "uniform_k:3", None, "periodic:2,3", CLIENTS, False, 3, CORS_VEC),
-    ("cors staleness:0.5 lognormal:2 lag lognormal:2", "cors",
-     "staleness:0.5", None, "lognormal:2", "lognormal:2", CLIENTS, False,
-     CLIENTS, CORS_VEC),
-    ("cors mixed homogeneous:1 lag homogeneous:1", "cors", "flat", None,
-     "homogeneous:1", "homogeneous:1", 6, True, None,
-     (2 * MIX_STEPS * ROUNDS,) * 2 + (2 * ROUNDS,)))
+    FleetPath("cors flat lognormal:2", "cors", "flat", clock="lognormal:2"),
+    FleetPath("cors per_class periodic:2,3", "cors", "per_class",
+              clock="periodic:2,3"),
+    FleetPath("cors staleness:0.5 homogeneous:1", "cors", "staleness:0.5",
+              clock="homogeneous:1"),
+    FleetPath("fd flat lognormal:2 uniform_k:3", "fd", "flat", "uniform_k:3",
+              "lognormal:2", want_vec=(0, 0, 2 * ROUNDS)),
+    FleetPath("cors flat lag periodic:2,3 uniform_k:3", "cors", "flat",
+              "uniform_k:3", dl="periodic:2,3", k_active=3),
+    FleetPath("cors staleness:0.5 lognormal:2 lag lognormal:2", "cors",
+              "staleness:0.5", clock="lognormal:2", dl="lognormal:2"),
+    FleetPath("cors mixed homogeneous:1 lag homogeneous:1", "cors", "flat",
+              clock="homogeneous:1", dl="homogeneous:1", n=6, hetero=True,
+              k_active=None,
+              want_vec=(2 * MIX_STEPS * ROUNDS,) * 2 + (2 * ROUNDS,)))
+# Phase 5f: cohort shards and streaming arrivals. vec runs the step in
+# every round, also one with no participant (streaming runs full width).
+STREAM_SMALL = "stream:2,1.5,0.3,7,0"     # 5 seats: 3 evictions, 2 drops
+STREAM_ROUNDS = 8
+SHARD_PATHS = (
+    FleetPath("cors sharded:flat,1", "cors", "sharded:flat,1"),
+    FleetPath("cors sharded:flat,4", "cors", "sharded:flat,4"),
+    FleetPath("cors sharded:per_class,4", "cors", "sharded:per_class,4"),
+    FleetPath("cors sharded:staleness,4 uniform_k:3", "cors",
+              "sharded:staleness,4", "uniform_k:3", k_active=3),
+    FleetPath("fd sharded:flat,2", "fd", "sharded:flat,2",
+              want_vec=(0, 0, 2 * ROUNDS)),
+    FleetPath("cors sharded:flat,4 lognormal:2", "cors", "sharded:flat,4",
+              clock="lognormal:2"),
+    FleetPath("cors sharded:flat,4 lag periodic:2,3", "cors",
+              "sharded:flat,4", dl="periodic:2,3"),
+    FleetPath(f"cors sharded:flat,2 {STREAM_SMALL}", "cors",
+              "sharded:flat,2", arrivals=STREAM_SMALL, rounds=STREAM_ROUNDS,
+              want_vec=(STEPS * STREAM_ROUNDS,) * 2 + (STREAM_ROUNDS,)))
+SHARD_PAIRS = 9            # N = 5: rounds of sharded:flat,4 and flat, in turns
+# population scale: 32 seats, 8 participants a round from round 2 on,
+# arrivals drawn from a million ids (62 evictions from round 5, 10 drops)
+STREAM_SCALE, STREAM_SCALE_ROUNDS, SCALE_SHARDS = (
+    "stream:8,8.0,0.3,1000000,0", 12, 4)
 RING_INTS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g")
 SCALE_CLIENTS, SCALE_ROUNDS = 32, 2   # class_images(7680): 240 samples a client
 # flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
@@ -800,6 +864,8 @@ def no_sync(vec):
     owners = ([(b, "step") for b in vec.buckets]
               + [(vec, "_relay_commit"), (vec, "_hist_push")]
               if vec.hetero else [(vec, "_round_step")])
+    if vec._cohort is not None:             # a streaming fleet's evictions
+        owners.append((vec, "_evict"))
     saved = [(o, a, getattr(o, a)) for o, a in owners]
 
     def wrap(step):
@@ -816,15 +882,15 @@ def no_sync(vec):
     return lambda: [setattr(o, a, step) for o, a, step in saved]
 
 
-def timed_rounds(trainer, tag, after_round=None):
-    """ROUNDS rounds with the launch counts set to 0 just before and read
+def timed_rounds(trainer, tag, after_round=None, rounds=ROUNDS):
+    """`rounds` rounds with the launch counts set to 0 just before and read
     just after -> (launches (fwd, bwd, proto), seconds per round);
     `after_round()`, when given, is called after each round, outside the
     timing."""
     from repro_torch.kernels import ops
     ops.reset_launches()
     secs = []
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         t0 = time.perf_counter()
         rec = trainer.run_round()
         torch.cuda.synchronize()
@@ -841,8 +907,10 @@ def timed_rounds(trainer, tag, after_round=None):
 
 
 def same_ring(a, b, what):
-    """Ring integers (and ages) of two trainers' relay states equal."""
-    for f in RING_INTS + (("age",) if hasattr(a, "age") else ()):
+    """Ring integers (and ages; a sharded state's per-shard ones and its
+    merge count) of two relay states equal."""
+    for f in (RING_INTS + (("age",) if hasattr(a, "age") else ())
+              + (("merges",) if hasattr(a, "merges") else ())):
         if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()):
             raise AssertionError(f"{what}: ring field {f} differs")
 
@@ -1037,86 +1105,104 @@ def same_snapshots(a, b, what):
         same_ring(*snaps, f"{what}, snapshot {d} deep")
 
 
-def phase_async(dev):
-    """Phase 5e: asynchrony (ASYNC_PATHS), each path in both engines on the
-    card and in seq on the CPU: launches exact, at least one delayed
-    commit (upload clock) or stale read (download clock), every vec step
-    under sync-debug mode "error", participants, commits, uploads in flight,
-    ring integers (and ages), the history ring and the ledger equal vec =
-    seq on the card = seq on the CPU, accuracies within 2e-2. -> {path:
-    {"seq": launches, "vec": launches, "seq_s": [...], "vec_s": [...]}}."""
+def phase_fleet_paths(dev, tag, paths):
+    """Each of `paths` (FleetPath) in both engines on the card and in seq on
+    the CPU: launches exact, at least one delayed commit (upload clock),
+    stale read (download clock), eviction and dropped arrival (arrivals),
+    every vec step (and a streaming fleet's evictions) under sync-debug
+    mode "error", participants, commits, uploads in flight, cohort views,
+    ring integers (ages; per-shard clocks and merges), the history ring and
+    the ledger equal vec = seq on the card = seq on the CPU, accuracies
+    within 2e-2, fd's mean logits finite. -> {path: {"seq": launches,
+    "vec": launches, "seq_s": [...], "vec_s": [...]}}."""
     from repro_torch.collab_image_classification import build_trainer
     out = {}
-    for (name, mode, policy, sched, clock, dl, n, hetero, k_active,
-         want_vec) in ASYNC_PATHS:
+    for p in paths:
         mk = lambda device, engine: build_trainer(
-            n, mode, seed=0, device=device, engine=engine,
-            relay_policy=policy, participation=sched, hetero=hetero,
-            clock=clock, download_clock=dl)
+            p.n, p.mode, seed=0, device=device, engine=engine,
+            relay_policy=p.policy, participation=p.sched, hetero=p.hetero,
+            clock=p.clock, download_clock=p.dl, arrivals=p.arrivals)
         flying = {"seq": [], "vec": [], "cpu": []}
         seq = mk(dev, "seq")
         l_seq, s_seq = timed_rounds(
-            seq, f"{name} seq", lambda: flying["seq"].append(in_flight(seq)))
+            seq, f"{p.name} seq",
+            lambda: flying["seq"].append(in_flight(seq)), p.rounds)
         vec = mk(dev, "vec")
-        if (vec.hetero != hetero or vec._async != (clock is not None)
-                or vec._lagged != (dl is not None)
-                or (not hetero and vec._k_active != k_active)):
-            raise AssertionError(f"{name}: hetero {vec.hetero}, async "
+        if (vec.hetero != p.hetero or vec._async != (p.clock is not None)
+                or vec._lagged != (p.dl is not None)
+                or (not p.hetero and vec._k_active != p.k_active)):
+            raise AssertionError(f"{p.name}: hetero {vec.hetero}, async "
                                  f"{vec._async}, lagged {vec._lagged}, "
                                  f"k_active {getattr(vec, '_k_active', None)}")
         restore = no_sync(vec)
         l_vec, s_vec = timed_rounds(
-            vec, f"{name} vec", lambda: flying["vec"].append(in_flight(vec)))
+            vec, f"{p.name} vec",
+            lambda: flying["vec"].append(in_flight(vec)), p.rounds)
         restore()
         cpu = mk("cpu", "seq")
-        timed_rounds(cpu, f"{name} cpu",
-                     lambda: flying["cpu"].append(in_flight(cpu)))
-        steps = MIX_STEPS if hetero else STEPS
+        timed_rounds(cpu, f"{p.name} cpu",
+                     lambda: flying["cpu"].append(in_flight(cpu)), p.rounds)
+        steps = MIX_STEPS if p.hetero else STEPS
         present = sum(len(h["participants"]) for h in seq.history)
-        want_seq = ((steps * present,) * 2 + (present,) if mode == "cors"
+        want_seq = ((steps * present,) * 2 + (present,) if p.mode == "cors"
                     else (0, 0, 2 * present))
         delayed = [c for h in seq.history for c in h["commits"]
                    if c[0] < h["round"] - 1]
         stale = ([(r, i) for r, h in enumerate(seq.history)
                   for i in h["participants"]
-                  if seq.dl_clock.delays(r, n)[i] > 0]
-                 if dl is not None else [])
-        print(f"[async] {name}: commits "
+                  if seq.dl_clock.delays(r, p.n)[i] > 0]
+                 if p.dl is not None else [])
+        cohort = seq._cohort
+        evicted = ([(r, cohort.round(r).evicted.tolist())
+                    for r in range(p.rounds) if cohort.round(r).evicted.size]
+                   if cohort is not None else [])
+        sv, ss, sc = vec.relay_state, seq.server.state, cpu.server.state
+        print(f"[{tag}] {p.name}: participants "
+              f"{[h['participants'] for h in seq.history]}; commits "
               f"{[h['commits'] for h in seq.history]}; delayed {delayed}; "
               f"stale reads (round, client) {stale}; in flight {flying}; "
-              f"launches "
-              f"(disc fwd, bwd, proto_accum) seq {l_seq} vec {l_vec}; "
-              f"s/round seq {s_seq} vec {s_vec}; no host sync inside any "
-              f"vec step")
-        if l_seq != want_seq or l_vec != want_vec:
-            raise AssertionError(f"{name}: launches seq {l_seq} vec {l_vec} "
-                                 f"!= {want_seq} {want_vec}")
-        if clock is not None and not delayed:
-            raise AssertionError(f"{name}: no delayed commit")
-        if dl is not None and not stale:
-            raise AssertionError(f"{name}: no stale read")
+              f"evictions (round, ids) {evicted}; dropped arrivals "
+              f"{cohort.dropped if cohort is not None else 0}; clock "
+              f"{sv.clock.tolist()}; launches (disc fwd, bwd, proto_accum) "
+              f"seq {l_seq} vec {l_vec}; s/round seq {s_seq} vec {s_vec}; no "
+              f"host sync inside any vec step")
+        if l_seq != want_seq or l_vec != p.want_vec:
+            raise AssertionError(f"{p.name}: launches seq {l_seq} vec "
+                                 f"{l_vec} != {want_seq} {p.want_vec}")
+        if p.clock is not None and not delayed:
+            raise AssertionError(f"{p.name}: no delayed commit")
+        if p.dl is not None and not stale:
+            raise AssertionError(f"{p.name}: no stale read")
+        if cohort is not None:
+            if not (evicted and cohort.dropped):
+                raise AssertionError(f"{p.name}: no eviction or no dropped "
+                                     f"arrival")
+            same_cohorts([seq, vec, cpu], p.rounds, p.name)
         if not flying["vec"] == flying["seq"] == flying["cpu"]:
-            raise AssertionError(f"{name}: uploads in flight differ")
-        same_records(vec, seq, f"{name}: vec and seq")
-        same_records(seq, cpu, f"{name}: card and CPU")
-        sv, ss, sc = vec.relay_state, seq.server.state, cpu.server.state
-        same_ring(sv, ss, f"{name}: vec and seq on the card")
-        same_ring(ss, sc, f"{name}: seq on the card and on the CPU")
-        if dl is not None:
-            same_snapshots(vec, seq, f"{name}: vec and seq on the card")
-            same_snapshots(seq, cpu, f"{name}: seq on the card and the CPU")
+            raise AssertionError(f"{p.name}: uploads in flight differ")
+        same_records(vec, seq, f"{p.name}: vec and seq")
+        same_records(seq, cpu, f"{p.name}: card and CPU")
+        same_ring(sv, ss, f"{p.name}: vec and seq on the card")
+        same_ring(ss, sc, f"{p.name}: seq on the card and on the CPU")
+        if p.dl is not None:
+            same_snapshots(vec, seq, f"{p.name}: vec and seq on the card")
+            same_snapshots(seq, cpu, f"{p.name}: seq on the card and the CPU")
         if not vec.ledger.by_round == seq.ledger.by_round == cpu.ledger.by_round:
-            raise AssertionError(f"{name}: ledgers differ")
-        same_accs(vec.history, seq.history, f"{name}: vec and seq")
-        same_accs(seq.history, cpu.history, f"{name}: card and CPU")
-        print(f"[async] {name}: participants, commits, uploads in flight, "
-              f"ring{' and ages' if hasattr(sv, 'age') else ''}"
-              f"{', history ring' if dl else ''} and ledger equal (vec = seq "
-              f"on the card = seq on the CPU); accs vec "
+            raise AssertionError(f"{p.name}: ledgers differ")
+        same_accs(vec.history, seq.history, f"{p.name}: vec and seq")
+        same_accs(seq.history, cpu.history, f"{p.name}: card and CPU")
+        if p.mode == "fd" and not bool(torch.isfinite(sv.mean_logits).all()):
+            raise AssertionError(f"{p.name}: mean logits not finite")
+        print(f"[{tag}] {p.name}: participants, commits, uploads in flight, "
+              f"{'cohort views, ' if cohort is not None else ''}ring"
+              f"{' and ages' if hasattr(sv, 'age') else ''}"
+              f"{', merges' if hasattr(sv, 'merges') else ''}"
+              f"{', history ring' if p.dl else ''} and ledger equal (vec = "
+              f"seq on the card = seq on the CPU); accs vec "
               f"{vec.history[-1]['accs']} seq {seq.history[-1]['accs']}; comm "
               f"{seq.ledger.total_bytes / 1e6:.3f} MB")
-        out[name] = {"seq": l_seq, "vec": l_vec, "seq_s": s_seq,
-                     "vec_s": s_vec}
+        out[p.name] = {"seq": l_seq, "vec": l_vec, "seq_s": s_seq,
+                       "vec_s": s_vec}
         del seq, vec, cpu
     return out
 
@@ -1172,6 +1258,170 @@ def phase_async_scale(dev):
           f"{res['slower_pairs']} of {ASYNC_PAIRS - 1} pairs), device ops "
           f"{a['ops'] / b['ops']:.3f}, busy time "
           f"{a['busy_ms'] / b['busy_ms']:.3f}")
+    return res
+
+
+def same_cohorts(trainers, rounds, what):
+    """The cohort tables of streaming trainers equal, view by view, with
+    their dropped arrivals."""
+    a = trainers[0]._cohort
+    for t in trainers[1:]:
+        for r in range(rounds):
+            for x, y in zip(a.round(r), t._cohort.round(r)):
+                if not (x.shape == y.shape and (x == y).all()):
+                    raise AssertionError(f"{what}: cohort views differ in "
+                                         f"round {r + 1}")
+        if t._cohort.dropped != a.dropped:
+            raise AssertionError(f"{what}: dropped arrivals differ")
+
+
+def phase_shard_anchor(dev):
+    """The compatibility anchor: sharded:flat,1 against flat in vec on the
+    card, round by round in turns with cuDNN deterministic, every leaf of
+    the ring and every weight bit-equal after ROUNDS rounds."""
+    from repro_torch.collab_image_classification import build_trainer
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [build_trainer(CLIENTS, "cors", seed=0, device=dev,
+                              engine="vec", relay_policy=p)
+                for p in ("flat", "sharded:flat,1")]
+        for _ in range(ROUNDS):
+            for t in runs:
+                t.run_round()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    a, b = (t.relay_state for t in runs)
+    for f in a._fields:
+        if not torch.equal(getattr(a, f), getattr(b, f)[0]):
+            raise AssertionError(f"sharded:flat,1 against flat: {f} differs")
+    for k, v in runs[0].params.items():
+        if not torch.equal(v, runs[1].params[k]):
+            raise AssertionError(f"sharded:flat,1 against flat: weight {k} "
+                                 f"differs")
+    print(f"[population] anchor: sharded:flat,1 and flat in vec, {ROUNDS} "
+          f"rounds: every ring leaf ({len(a._fields)}) and every weight "
+          f"bit-equal; merges {int(b.merges)}")
+
+
+def phase_shard_cost(dev):
+    """N = 5, vec, cors: sharded:flat,4 against flat, SHARD_PAIRS rounds of
+    each in turns (the order alternating from round to round), then one
+    profiled round each. -> {policy: {"s": [...], "median": s, "ops": n,
+    "busy_ms": t}}."""
+    from repro_torch.collab_image_classification import build_trainer
+    runs = {p: build_trainer(CLIENTS, "cors", seed=0, device=dev,
+                             engine="vec", relay_policy=p)
+            for p in ("sharded:flat,4", "flat")}
+    secs = {p: [] for p in runs}
+    for r in range(SHARD_PAIRS):
+        for p in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            t0 = time.perf_counter()
+            runs[p].run_round()
+            torch.cuda.synchronize()
+            secs[p].append(time.perf_counter() - t0)
+    res = {}
+    for p, t in runs.items():
+        _, n_ops, busy, busy_us = phase_profile(t, f"shard cost {p}", True)
+        res[p] = {"s": secs[p], "median": statistics.median(secs[p][1:]),
+                  "ops": n_ops, "busy_ms": busy_us / 1e3, "busy": busy}
+    a, b = res["sharded:flat,4"], res["flat"]
+    print(f"[population] N={CLIENTS} vec, sharded:flat,4 over flat: median "
+          f"s/round of rounds 2-{SHARD_PAIRS} {a['median'] / b['median']:.3f}"
+          f" ({a['median']:.4f} / {b['median']:.4f} s; sharded slower in "
+          f"{sum(x > y for x, y in zip(a['s'][1:], b['s'][1:]))} of "
+          f"{SHARD_PAIRS - 1} pairs), device ops {a['ops']} / {b['ops']} = "
+          f"{a['ops'] / b['ops']:.3f}, busy time {a['busy_ms']:.3f} / "
+          f"{b['busy_ms']:.3f} ms = {a['busy_ms'] / b['busy_ms']:.3f}")
+    return res
+
+
+def resident_bytes_formula(S, cap, seats, C, d):
+    """The bytes a flat-inner sharded relay and a cohort table hold: per
+    shard obs (cap, C, d) f32, valid (cap, C) bool, owner and stamp (cap,)
+    int32, ptr and clock int32, global_protos (C, d) f32, valid_g (C,)
+    bool, mean_logits (C, C) f32; the merge counter; per seat an int32 id,
+    a bool and an int64 last-active round."""
+    shard = cap * C * d * 4 + cap * C + 2 * cap * 4 + 2 * 4 + C * d * 4 \
+        + C + C * C * 4
+    return S * shard + 4 + seats * (4 + 1 + 8)
+
+
+def phase_population_scale(dev, sync32):
+    """Population scale: 32 seats (240 samples a seat) of STREAM_SCALE on
+    sharded:flat,4, STREAM_SCALE_ROUNDS rounds in vec (steps and evictions
+    under sync-debug mode "error") and in seq on the card: launches exact,
+    evictions happen, participants, commits, cohort views, ring, merges and
+    ledger equal; the resident bytes (relay state and cohort table) equal
+    to the figure from shards, per-shard capacity and seats; one profiled
+    vec round against phase 5e's synchronous N = 32 flat fleet (`sync32`);
+    the median s/round of rounds 2 on. -> the numbers."""
+    from repro_torch.collab_image_classification import build_trainer
+    from repro_torch.relay import default_capacity
+    R = STREAM_SCALE_ROUNDS
+    mk = lambda engine: build_trainer(
+        SCALE_CLIENTS, "cors", seed=0, device=dev, engine=engine,
+        n_train=240 * SCALE_CLIENTS,
+        relay_policy=f"sharded:flat,{SCALE_SHARDS}", arrivals=STREAM_SCALE)
+    vec = mk("vec")
+    restore = no_sync(vec)
+    l_vec, s_vec = timed_rounds(vec, "population scale vec", rounds=R)
+    restore()
+    seq = mk("seq")
+    l_seq, s_seq = timed_rounds(seq, "population scale seq", rounds=R)
+    present = sum(len(h["participants"]) for h in seq.history)
+    want_vec, want_seq = ((STEPS * R,) * 2 + (R,),
+                          (STEPS * present,) * 2 + (present,))
+    if l_vec != want_vec or l_seq != want_seq:
+        raise AssertionError(f"population scale: launches vec {l_vec} seq "
+                             f"{l_seq} != {want_vec} {want_seq}")
+    evictions = sum(vec._cohort.round(r).evicted.size for r in range(R))
+    if not evictions:
+        raise AssertionError("population scale: no eviction")
+    same_cohorts([seq, vec], R, "population scale")
+    same_records(vec, seq, "population scale: vec and seq")
+    same_ring(vec.relay_state, seq.server.state,
+              "population scale: vec and seq on the card")
+    if vec.ledger.by_round != seq.ledger.by_round:
+        raise AssertionError("population scale: ledgers differ")
+    same_accs(vec.history, seq.history, "population scale: vec and seq")
+    ccfg = vec.ccfg
+    cap = default_capacity(ccfg, SCALE_CLIENTS)
+    relay_b = sum(t.numel() * t.element_size()
+                  for t in _leaves(list(vec.relay_state)))
+    table_b = vec._cohort.nbytes()
+    want_b = resident_bytes_formula(SCALE_SHARDS, cap, SCALE_CLIENTS,
+                                    ccfg.num_classes, ccfg.d_feature)
+    if relay_b + table_b != want_b or vec.relay_state.obs.shape[1] != cap:
+        raise AssertionError(f"population scale: resident bytes {relay_b} + "
+                             f"{table_b} != {want_b}")
+    med = lambda x: statistics.median(x[1:])
+    res = {"s_vec": s_vec, "s_seq": s_seq, "median_vec": med(s_vec),
+           "median_seq": med(s_seq), "relay_bytes": relay_b,
+           "table_bytes": table_b, "evictions": int(evictions),
+           "dropped": vec._cohort.dropped,
+           "participants": [len(h["participants"]) for h in vec.history],
+           "max_id": int(max(vec._cohort.round(r).seat_ids.max()
+                             for r in range(R)))}
+    _, n_ops, busy, busy_us = phase_profile(vec, "population scale profile",
+                                            True)
+    res.update(ops=n_ops, busy_ms=busy_us / 1e3, busy=busy)
+    print(f"[population] N={SCALE_CLIENTS} seats, {STREAM_SCALE}, "
+          f"sharded:flat,{SCALE_SHARDS}, {R} rounds: participants "
+          f"{res['participants']}, {evictions} evictions, "
+          f"{res['dropped']} dropped arrivals, ids up to {res['max_id']}; "
+          f"launches vec {l_vec} seq {l_seq}; cohort views, participants, "
+          f"commits, ring, merges and ledger equal vec = seq on the card; "
+          f"resident bytes {relay_b} (relay: {SCALE_SHARDS} shards x {cap} "
+          f"slots) + {table_b} (cohort table: {SCALE_CLIENTS} seats) = "
+          f"{want_b}, none sized by the population of 10^6")
+    print(f"[population] N={SCALE_CLIENTS} median s/round of rounds 2-{R}: "
+          f"vec {res['median_vec']:.4f} s, seq {res['median_seq']:.4f} s; "
+          f"profiled vec round {n_ops} device ops, {busy_us / 1e3:.3f} ms "
+          f"busy ({100 * busy:.1f}%) against the synchronous flat fleet's "
+          f"{sync32['ops']} ops, {sync32['busy_ms']:.3f} ms (phase 5e): "
+          f"{n_ops / sync32['ops']:.3f}x the ops, "
+          f"{busy_us / 1e3 / sync32['busy_ms']:.3f}x the busy time")
     return res
 
 
@@ -1370,8 +1620,12 @@ def main():
     paths = phase_baselines(dev)
     paths.update(phase_participation(dev))
     compaction = phase_compaction(dev)
-    paths.update(phase_async(dev))
+    paths.update(phase_fleet_paths(dev, "async", ASYNC_PATHS))
     async_scale = phase_async_scale(dev)
+    paths.update(phase_fleet_paths(dev, "population", SHARD_PATHS))
+    phase_shard_anchor(dev)
+    shard_cost = phase_shard_cost(dev)
+    population = phase_population_scale(dev, async_scale["synchronous"])
     dev_us, ops_seq, busy_seq, _ = phase_profile(gpu, "profile seq", False)
     dev_us_vec, ops_vec, busy_vec, _ = phase_profile(vec, "profile vec", True)
     dev_us.update(dev_us_vec)
@@ -1428,7 +1682,9 @@ def main():
           f"{scale['n5']:.3f}x, N={SCALE_CLIENTS} {scale['n32']:.3f}x; device "
           f"ops a round vec {ops_vec} seq {ops_seq}; N={SCALE_CLIENTS} "
           f"compaction {json.dumps(compaction)}; N={SCALE_CLIENTS} async "
-          f"{json.dumps(async_scale)}")
+          f"{json.dumps(async_scale)}; N={CLIENTS} shards "
+          f"{json.dumps(shard_cost)}; N={SCALE_CLIENTS} population "
+          f"{json.dumps(population)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

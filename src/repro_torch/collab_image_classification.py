@@ -10,11 +10,14 @@ the fleet mixed: the MLP on odd client ids, LeNet on even ones.
 `--clock-model` makes uploads commit late (stragglers, in event order) and
 `--download-clock` makes clients train against stale relay snapshots. CL, il on
 one client holding all the data, is `build_trainer(1, "cl")`, as the
-reference's `benchmarks/common.run_mode("cl", 1)`.
+reference's `benchmarks/common.run_mode("cl", 1)`; a streaming fleet (the
+clients are seats of a cohort table, `sim/population.py`) is
+`build_trainer(..., arrivals="stream:k,rate,p_leave,population,seed")`, as
+the reference's `benchmarks/common.make_trainer(..., arrivals=...)`.
 
   PYTHONPATH=src python -m repro_torch.collab_image_classification \
       [--rounds R] [--clients N] [--mode cors|il|fd|fedavg] \
-      [--relay-policy flat|per_class|staleness[:lam]] \
+      [--relay-policy flat|per_class|staleness[:lam]|sharded:<inner>,<S>[,<g>]] \
       [--participation full|uniform_k:K|cyclic:K|bernoulli:P|adaptive:P[,B]] \
       [--hetero] [--clock-model none|homogeneous:D|lognormal:D[,S]|periodic:D,P] \
       [--download-clock none|homogeneous:D|lognormal:D[,S]|periodic:D,P] \
@@ -47,13 +50,15 @@ def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
                   lambda_kd: float = 2.0, lambda_disc: float = 1.0,
                   device=None, engine: str = "vec", n_train: int = 1200,
                   relay_policy=None, participation=None,
-                  hetero: bool = False, clock=None, download_clock=None):
+                  hetero: bool = False, clock=None, download_clock=None,
+                  arrivals=None):
     """The example's fleet: `class_images(n_train)` split uniformly over the
     clients, 2000 test images, batch 32, LeNet clients (with `hetero`, the
     MLP on odd client ids) with random weights from `seed`, in the `engine`
     trainer with the `relay_policy` relay, the `participation` schedule,
     the upload `clock` and the `download_clock` (`repro_torch.sim` specs;
-    None or "none" is the synchronous fleet)."""
+    None or "none" is the synchronous fleet), and the `arrivals` schedule
+    (None, or "stream:...": the clients are seats of a cohort table)."""
     x, y = synthetic.class_images(n_train, seed=0, noise=0.8)
     tx, ty = synthetic.class_images(2000, seed=99, noise=0.8)
     parts = partition.uniform_split(x, y, clients, seed=1)
@@ -69,7 +74,8 @@ def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
                            fleet=FleetConfig(policy=relay_policy,
                                              participation=participation,
                                              clock=clock,
-                                             download_clock=download_clock),
+                                             download_clock=download_clock,
+                                             arrivals=arrivals),
                            device=device)
 
 
@@ -81,7 +87,9 @@ def main(argv=None):
                     choices=["cors", "il", "fd", "fedavg"])
     ap.add_argument("--relay-policy", default="flat",
                     help="the server's relay: flat | per_class | "
-                         "staleness[:lam]")
+                         "staleness[:lam] | sharded:<inner>,<S>[,<g>] (S "
+                         "cohort shards of the inner relay, prototypes "
+                         "gossiped every g merges)")
     ap.add_argument("--participation", default="full",
                     help="who takes part in each round: full | uniform_k:K "
                          "| cyclic:K | bernoulli:P | adaptive:P[,BOOST]")

@@ -112,5 +112,13 @@ def lm_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
 
 def relay_state_to_numpy(state) -> Dict[str, np.ndarray]:
     """Any relay policy's state (a NamedTuple of tensors) -> {field: numpy
-    array}, field by field, as the reference's state holds them."""
-    return {f: getattr(state, f).detach().cpu().numpy() for f in state._fields}
+    array}, field by field, as the reference's state holds them. A sharded
+    state's inner fields come out flat, each (S, ...), beside `merges`."""
+    out = {}
+    for f in state._fields:
+        v = getattr(state, f)
+        if isinstance(v, tuple):
+            out.update(relay_state_to_numpy(v))
+        else:
+            out[f] = v.detach().cpu().numpy()
+    return out

@@ -5,12 +5,12 @@ It runs CoRS and the paper's Table 1 baselines with one data split,
 optimizer and round accounting: modes `cors`, `fd` (federated
 distillation), `fedavg`, `il` and `cl` (il on one client holding all the
 data), under any relay policy of `relay/` (`flat`, `per_class`,
-`staleness[:lam]`) and any participation schedule of
-`relay/participation.py` (`full`, `uniform_k:K`, `cyclic:K`,
-`bernoulli:P`, `adaptive:P[,BOOST]`). Clients may run different models
-(cors, fd, il): they are grouped into buckets of one model
-(`client.bucketize`), and uploads go in bucket order. Every round has the
-reference's phases:
+`staleness[:lam]`, `sharded:<inner>,<S>[,<gossip_every>]`) and any
+participation schedule of `relay/participation.py` (`full`,
+`uniform_k:K`, `cyclic:K`, `bernoulli:P`, `adaptive:P[,BOOST]`). Clients
+may run different models (cors, fd, il): they are grouped into buckets of
+one model (`client.bucketize`), and uploads go in bucket order. Every
+round has the reference's phases:
   1. downlink: every PRESENT client samples a teacher from the relay state
      of the PREVIOUS round, or under a download clock from the snapshot
      d(client, round) rounds staler (cors, fd);
@@ -35,6 +35,19 @@ reads the post-merge state of round t - d - 1 from `_snaps`, the
 most-recent-first list of the last H_max = d_max + 1 states, the replay of
 the vectorized engine's ring (`relay/history.py`). No clock, or d_max = 0,
 is the synchronous fleet, bit for bit.
+
+Population scale: with `FleetConfig.arrivals` ("stream:k,rate,p_leave,
+population,seed", `sim/population.py`) the clients are SEATS of a bounded
+cohort table: its round view says who takes part (k active seats), which
+external id each seat holds and which owners it LRU-evicted to admit
+newcomers. The evicted owners' ring slots are invalidated at round start,
+before any read; ring rows carry the external id, draws stay keyed by
+seat, and a reclaimed seat keeps its predecessor's weights and Adam state,
+as in the reference. Arrivals refuse a participation schedule, an upload
+clock with D_max > 0, a download clock, a mode without a relay and a
+mixed fleet (`check_arrivals`). The sharded relay (`relay/shards.py`)
+needs nothing of the engine but the owners of a round's uploads, which
+`RelayServer` records for its per-shard reduction.
 
 The reference draws its random numbers with `jax.random` from a per-round
 key schedule. The port takes them from a `draws` object instead: Gumbel
@@ -87,28 +100,56 @@ class TorchDraws:
         return torch.rand(m_up, n, generator=self._gen(r, i, 1))
 
 
-_FLEET_SLICES = {
-    "arrivals": "population scale (ROADMAP slice 5)",
-    "mesh": "multi-device (ROADMAP slice 9)",
-}
-
-
 RELAY_MODES = ("cors", "fd")     # the modes that go through the relay
 
 
 def check_setup(ccfg: CollabConfig, fleet: FleetConfig) -> relay_lib.RelayPolicy:
-    """Refuses what the port does not run yet, naming the ROADMAP slice that
-    brings it, and an unknown mode; -> the fleet's relay policy."""
+    """Refuses an unknown mode, and a mesh, which the port does not run yet
+    (ROADMAP slice 9); -> the fleet's relay policy."""
     if ccfg.mode not in client_lib.MODES:
         raise ValueError(f"unknown mode {ccfg.mode!r} (have "
                          f"{sorted(client_lib.MODES)})")
     policy = relay_lib.get_policy(fleet.policy)
-    for f in ("arrivals", "mesh"):
-        v = getattr(fleet, f)
-        if v is not None and v != "none":
-            raise NotImplementedError(
-                f"FleetConfig.{f}={v!r} comes with {_FLEET_SLICES[f]}")
+    if fleet.mesh is not None and fleet.mesh != "none":
+        raise NotImplementedError(f"FleetConfig.mesh={fleet.mesh!r} comes "
+                                  "with multi-device (ROADMAP slice 9)")
     return policy
+
+
+def check_arrivals(ccfg: CollabConfig, fleet: FleetConfig, clock,
+                   n_buckets: int):
+    """The fleet's arrival schedule (`sim.get_arrivals`), or None. A
+    streaming fleet's cohort table owns participation, tags ring rows with
+    external ids and evicts owners; the reference refuses five compositions
+    with it, and so does the port, in its words: the pending buffer and the
+    history ring key state by a static id space that seat turnover
+    invalidates."""
+    arrivals = sim.get_arrivals(fleet.arrivals)
+    if arrivals is None:
+        return None
+    if fleet.participation is not None:
+        raise ValueError(
+            "streaming arrivals own participation (the cohort table picks "
+            "k active seats per round); leave FleetConfig.participation "
+            "unset")
+    if clock is not None and clock.d_max > 0:
+        raise ValueError(
+            "streaming arrivals do not compose with an async upload clock "
+            "yet: the pending buffer is indexed by upload position, which "
+            "seat turnover reuses")
+    if fleet.download_clock is not None:
+        raise ValueError(
+            "streaming arrivals do not compose with download lag yet: "
+            "history snapshots hold evicted owners' rows")
+    if ccfg.mode not in RELAY_MODES:
+        raise ValueError(
+            "streaming arrivals need a relay mode (cors | fd); "
+            f"mode={ccfg.mode!r} has no server to stream through")
+    if n_buckets > 1:
+        raise ValueError(
+            "streaming arrivals currently require a homogeneous fleet "
+            f"(seats are interchangeable); got {n_buckets} client buckets")
+    return arrivals
 
 
 def log_round(history: List[Dict], present, accs, metrics_all, commits, up,
@@ -171,8 +212,15 @@ class CollabTrainer:
                                   policy=policy)
         self.clock = sim.get_clock(fleet.clock, seed=seed)
         self._queue = events.HostEventQueue()
-        self.schedule = participation.get_schedule(fleet.participation,
-                                                   seed=seed, clock=self.clock)
+        # a streaming fleet: the cohort table of len(specs) seats owns
+        # participation, and its LRU evictions hit the relay at round start
+        self.arrivals = check_arrivals(ccfg, fleet, self.clock, len(buckets))
+        self._cohort = (self.arrivals.table(len(specs))
+                        if self.arrivals is not None else None)
+        self.schedule = (None if self._cohort is not None else
+                         participation.get_schedule(fleet.participation,
+                                                    seed=seed,
+                                                    clock=self.clock))
         # download lag: `_snaps`, the last H_max post-merge relay states,
         # most recent first; only the relay modes download
         self.dl_clock = sim.get_download_clock(fleet.download_clock, seed=seed)
@@ -200,8 +248,25 @@ class CollabTrainer:
         N = len(self.clients)
         r = len(self.history)
         m_down = max(1, ccfg.m_down)
-        mask = np.asarray(self.schedule.mask(r, N), bool)
+        if self._cohort is not None:
+            # the cohort's view: a mask over SEATS, the external id of each
+            # seat, and the owners LRU-evicted at admission, whose ring slots
+            # go before any read this round
+            view = self._cohort.round(r)
+            mask = view.mask.copy()
+            ext_ids = view.seat_ids
+            if view.evicted.size:
+                self.server.state = self.server.policy.evict_owners(
+                    self.server.state, torch.as_tensor(
+                        view.evicted, dtype=torch.int32).to(self.device))
+        else:
+            mask = np.asarray(self.schedule.mask(r, N), bool)
+            ext_ids = None
         present = np.nonzero(mask)[0]
+        # ring rows carry the EXTERNAL id of a streaming seat; a static
+        # fleet's seat index is its id. Draws stay keyed by seat.
+        owner_of = ((lambda i: int(ext_ids[i])) if ext_ids is not None
+                    else int)
 
         delays = (self.clock.delays(r, N) if self.clock is not None
                   else np.zeros((N,), np.int64))
@@ -217,7 +282,8 @@ class CollabTrainer:
                     r, i, m_down, self.server.policy.noise_shape(
                         self.server.state, m_down))
                 teachers[i] = self.server.relay(
-                    i, m_down, noise, pick, state=self._snapshot(int(dl[i])))
+                    owner_of(i), m_down, noise, pick,
+                    state=self._snapshot(int(dl[i])))
             else:
                 teachers[i] = client_lib.empty_teacher(ccfg, self.device)
 
@@ -235,8 +301,8 @@ class CollabTrainer:
         # round with no commit leaves the relay untouched.
         commits = [(r, int(i)) for i in present]
         if mode in RELAY_MODES:
-            stamps = self.server.policy.host_stamps(self.server.state,
-                                                    self._upload_order)
+            stamps = self.server.policy.host_stamps(
+                self.server.state, [owner_of(i) for i in self._upload_order])
             for pos, i in enumerate(self._upload_order):
                 if not mask[i]:
                     continue
@@ -252,7 +318,9 @@ class CollabTrainer:
             due = self._queue.pop_due(r)
             self.server.begin_round()
             for _, _, i, stamp, payload, _ in due:
-                self.server.upload(i, payload, stamp=stamp)
+                # a streaming fleet is synchronous: every due event was
+                # pushed this round, under this round's seat ids
+                self.server.upload(owner_of(i), payload, stamp=stamp)
             if due:
                 self.server.end_round()
             commits = [(birth, i) for birth, _, i, *_ in due]

@@ -68,11 +68,23 @@ compaction (only participants read: the step gathers their delays with
 the rest of the block) and with asynchrony. Any download clock, also
 d_max = 0, goes through the ring.
 
+Population scale (`FleetConfig.arrivals`, `sim/population.py`): the N
+clients are the seats of a cohort table. Each round its view gives the
+mask over seats, the external id of each seat, which becomes the step's
+`ids` device input (ring owner tags and shard routing; seat churn changes
+no shape), and the owners it LRU-evicted, whose ring slots one
+`policy.evict_owners` call on the device invalidates before the step. A
+streaming fleet runs full width. The sharded relay (`relay/shards.py`)
+enters the step only through `policy.reduce_uploads`, which the upload
+phase, the shared bucket commit and the asynchronous commit take in place
+of their own weighted sum, and through states whose leaves lead with the
+shard axis (also in the history ring).
+
 This slice runs every mode of the sequential engine (cors, fd, fedavg, il,
-cl), the relay policies flat, per_class and staleness, every participation
-schedule, heterogeneous buckets, asynchrony and download lag. fedavg's
-weight average is part of the round step, in float32, as the reference
-computes it. Population arrivals, telemetry and the mesh raise
+cl), the relay policies flat, per_class, staleness and sharded, every
+participation schedule, heterogeneous buckets, asynchrony, download lag
+and streaming arrivals. fedavg's weight average is part of the round step,
+in float32, as the reference computes it. Telemetry and the mesh raise
 `NotImplementedError` naming the ROADMAP slice that brings them.
 """
 from __future__ import annotations
@@ -161,19 +173,25 @@ def make_client_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig):
     return uploads_of
 
 
-def make_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig):
+def make_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig,
+                      policy=None):
     """Phase 3a (uplink, compute side): the per-client pieces reduced into
     one relay append. Returns `uploads_of(params, data_x, data_y, prio, ids,
     mask) -> dict(proto, logit (fd mode, else None), obs_rows, valid_rows,
     owner_rows, row_mask)`: absent clients' prototype and logit sums are
-    zero-weighted and their observation rows masked out."""
+    zero-weighted and their observation rows masked out. A `policy` with
+    `reduce_uploads` (cohort shards) takes the same weights and per-client
+    sums and segments them by owner instead of summing them."""
     per_client = make_client_upload_phase(spec, ccfg)
+    own = policy.reduce_uploads if policy is not None else None
 
     def uploads_of(p_s, dx, dy, prio, ids_s, sub_mask):
         wf = sub_mask.to(torch.float32)
         u = per_client(p_s, dx, dy, prio, ids_s)
-        reduce = lambda s, c: prototypes.ProtoState(
-            (s * wf[:, None, None]).sum(0), (c * wf[:, None]).sum(0))
+        reduce = (
+            (lambda s, c: own(s, c, wf, u["owner"])) if own is not None else
+            (lambda s, c: prototypes.ProtoState(
+                (s * wf[:, None, None]).sum(0), (c * wf[:, None]).sum(0))))
         k, m_real = u["obs"].shape[:2]
         return {"proto": reduce(u["psum"], u["pcnt"]),
                 "logit": (reduce(u["lsum"], u["lcnt"]) if "lsum" in u
@@ -268,7 +286,7 @@ def make_bucket_update_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
                                                    stacked=True)
     teachers = make_teacher_phase(policy, ccfg, lagged)
     uploads_of = (make_client_upload_phase(spec, ccfg) if per_client_payload
-                  else make_upload_phase(spec, ccfg))
+                  else make_upload_phase(spec, ccfg, policy))
 
     def step(params, opt, rstate, batches, data_x, data_y, ids, noise,
              picks, prio, mask, *dl):
@@ -380,8 +398,18 @@ class VectorizedCollabTrainer:
         self.ccfg, self.tcfg = ccfg, tcfg
         self.n_clients = N = len(params_list)
         self.clock = sim.get_clock(fleet.clock, seed=seed)
-        self.schedule = participation.get_schedule(fleet.participation,
-                                                   seed=seed, clock=self.clock)
+        # a streaming fleet: N seats of a cohort table, which owns
+        # participation; its evictions hit the relay before each round step
+        self.arrivals = collab.check_arrivals(ccfg, fleet, self.clock,
+                                              len(buckets))
+        self._cohort = (self.arrivals.table(N) if self.arrivals is not None
+                        else None)
+        self.schedule = (None if self._cohort is not None else
+                         participation.get_schedule(fleet.participation,
+                                                    seed=seed,
+                                                    clock=self.clock))
+        if self._cohort is not None:
+            self._evict = self.policy.evict_owners
         self._upload_order = [i for _, ids in buckets for i in ids]
         self.relay_state = self.policy.init_state(ccfg, ccfg.d_feature, seed,
                                                   n_clients=N, device=dev)
@@ -420,8 +448,9 @@ class VectorizedCollabTrainer:
         # static-k compaction: only when the schedule's participant count is
         # fixed and a strict subset (a full-size gather and scatter-back
         # would tax every full round for nothing), and never under
-        # asynchrony, whose commits are not the participants' uploads
-        fixed_k = self.schedule.fixed_k
+        # asynchrony, whose commits are not the participants' uploads; a
+        # streaming fleet runs full width (its seat ids are a device input)
+        fixed_k = self.schedule.fixed_k if self.schedule is not None else None
         self._k_active = (fixed_k if fixed_k is not None and not self._async
                           else N)
         self._round_step = (
@@ -563,7 +592,19 @@ class VectorizedCollabTrainer:
     def run_round(self) -> Dict:
         ccfg, N, dev = self.ccfg, self.n_clients, self.device
         r = len(self.history)
-        mask_np = np.asarray(self.schedule.mask(r, N), bool)
+        ids = self._ids if not self.hetero else None
+        if self._cohort is not None:
+            # the cohort's view: the mask over seats, each seat's external
+            # id (the step's `ids` input: seat churn changes no shape) and
+            # the owners evicted at admission, gone before any read
+            view = self._cohort.round(r)
+            mask_np = view.mask.copy()
+            ids = _i32(view.seat_ids, dev)
+            if view.evicted.size:
+                self.relay_state = self._evict(self.relay_state,
+                                               _i32(view.evicted, dev))
+        else:
+            mask_np = np.asarray(self.schedule.mask(r, N), bool)
         present = np.nonzero(mask_np)[0]
         delays_np = (self.clock.delays(r, N) if self.clock is not None
                      else np.zeros((N,), np.int64))
@@ -582,7 +623,7 @@ class VectorizedCollabTrainer:
                 out = self._round_step(
                     self.params, self.opt_state, self.relay_state,
                     self.pending, self.batches, self.data_x, self.data_y,
-                    self._ids, noise, picks, prio, mask,
+                    ids, noise, picks, prio, mask,
                     _i32(delays_np, dev), _i32(r, dev), *lag)
                 self.params, self.opt_state, self.relay_state, self.pending \
                     = out[:4]
@@ -598,7 +639,7 @@ class VectorizedCollabTrainer:
                     idx = None                   # full width: no gather
                 out = self._round_step(
                     self.params, self.opt_state, self.relay_state,
-                    self.batches, self.data_x, self.data_y, self._ids, noise,
+                    self.batches, self.data_x, self.data_y, ids, noise,
                     picks, prio, mask, idx, *lag)
                 self.params, self.opt_state, self.relay_state = out[:3]
             if self._lagged:

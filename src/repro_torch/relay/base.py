@@ -28,10 +28,26 @@ behind these functions; the engines do the rest.
       The end-of-round merge of the clients' per-class sums (and, in fd
       mode, per-class logit sums), the clock tick, and any per-slot
       bookkeeping (the ages of per_class and staleness).
+  evict_owners(state, owners) -> state
+      Population bookkeeping: every live slot whose owner is in `owners`
+      ((E,) int32 on the state's device; EMPTY_OWNER padding matches only
+      already-empty slots, so a padded vector is idempotent) becomes EMPTY
+      (owner EMPTY_OWNER, valid False, stamp and age 0). The write pointer
+      and the clock are untouched: eviction frees retention space without
+      rewinding history or billing. Both engines call it at round START
+      for the clients the cohort table (`sim/population.py`) LRU-evicted.
   stamp_now(state, owners) -> (E,) int32 / host_stamps(state, owners)
       Birth stamps of uploads born at the current clock, on the device
       and as numpy ints; the asynchronous event log (`relay/events.py`)
-      parks them with the upload so a late commit arrives pre-aged.
+      parks them with the upload so a late commit arrives pre-aged. The
+      sharded relay stamps each owner with its own shard's clock.
+  reduce_uploads(psum, pcnt, w, owners) -> proto        [default: None]
+      When set, the engines hand the per-upload prototype (and fd logit)
+      sums, leading axis the uploads, with their commit weights `w` (k,)
+      f32 and `owners` (k,) int32, to the policy instead of their own
+      mask-weighted sum, and pass its result to `merge_round`. The sharded
+      relay keeps per-shard sums this way; None keeps every other policy's
+      reduction, byte for byte.
 
 Every state is a NamedTuple of tensors on one device and carries the shared
 prototype fields (`global_protos`, `valid_g`, `mean_logits`), a logical
@@ -99,6 +115,13 @@ def ring_indices(ptr, k: int, cap: int, row_mask=None):
     return idx, ((ptr + w.sum()) % cap).to(torch.int32)
 
 
+def owner_hits(owner, owners):
+    """Slots whose owner is in `owners` ((E,) int32), for an owner array of
+    any shape. EMPTY_OWNER padding in `owners` matches only slots that are
+    already empty, so eviction with a padded vector is idempotent."""
+    return (owner[..., None] == owners.to(owner.dtype)).any(-1)
+
+
 def scatter_drop(buf, index, rows, dim: int = 0):
     """`buf` with `rows` written at `index` along `dim`, where index ==
     buf.shape[dim] drops the row: the reference's `.at[].set(mode="drop")`
@@ -141,6 +164,12 @@ class RelayPolicy:
 
     def merge_round(self, state, proto, logit=None):
         raise NotImplementedError
+
+    def evict_owners(self, state, owners):
+        raise NotImplementedError
+
+    # when None the engines keep their own mask-weighted prototype sum
+    reduce_uploads = None
 
     def stamp_now(self, state, owners):
         """Birth stamps for uploads born at the current clock: the scalar

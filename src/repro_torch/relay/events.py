@@ -28,8 +28,7 @@ of its commit round, so round t's global prototypes average exactly the
 contributions that committed in round t.
 
 Not ported here: the reference's placement (`out_spec`, the `mesh`
-exchange of `commit_and_park`: multi-device, ROADMAP slice 9) and its
-`policy.reduce_uploads` branch (cohort shards: population scale, slice 5).
+exchange of `commit_and_park`: multi-device, ROADMAP slice 9).
 """
 from __future__ import annotations
 
@@ -162,13 +161,24 @@ def commit_and_park(policy, rstate, pending: PendingState, fresh: Dict,
     def reduce(fsum, fcnt, parked_sum, parked_cnt):
         """The committing uploads' prototype sums: the mask-weighted sum
         over upload positions, as the synchronous step reduces them, plus
-        the due parked sums."""
-        s = (fsum * wf[:, None, None]).sum(0)
-        c = (fcnt * wf[:, None]).sum(0)
+        the due parked sums. A policy with `reduce_uploads` (cohort shards)
+        takes each position's fresh contribution plus its due parked ones
+        instead, and segments them by the position's owner: a position's
+        owner is fixed (arrivals do not run with an upload clock), so its
+        parked sums are its own."""
+        if policy.reduce_uploads is None:
+            s = (fsum * wf[:, None, None]).sum(0)
+            c = (fcnt * wf[:, None]).sum(0)
+            if D > 0:
+                s = s + (parked_sum * wdue[:, :, None, None]).sum((0, 1))
+                c = c + (parked_cnt * wdue[:, :, None]).sum((0, 1))
+            return prototypes.ProtoState(s, c)
+        s = fsum * wf[:, None, None]
+        c = fcnt * wf[:, None]
         if D > 0:
-            s = s + (parked_sum * wdue[:, :, None, None]).sum((0, 1))
-            c = c + (parked_cnt * wdue[:, :, None]).sum((0, 1))
-        return prototypes.ProtoState(s, c)
+            s = s + (parked_sum * wdue[:, :, None, None]).sum(0)
+            c = c + (parked_cnt * wdue[:, :, None]).sum(0)
+        return policy.reduce_uploads(s, c, torch.ones_like(wf), owner)
 
     proto = reduce(fresh["psum"], fresh["pcnt"], po.psum if D else None,
                    po.pcnt if D else None)

@@ -104,6 +104,21 @@ def merge_round(state: RelayState, proto: prototypes.ProtoState,
     return base.merge_protos(state, proto, logit)
 
 
+def evict_slots(state, owners):
+    """Invalidates the live slots of the evicted `owners` in a flat-ring
+    state (flat and staleness): owner EMPTY_OWNER, valid False, stamp 0,
+    and age 0 where the state has one. ptr and clock are untouched."""
+    hit = base.owner_hits(state.owner, owners)                    # (cap,)
+    zero = torch.zeros_like(state.stamp)
+    state = state._replace(
+        owner=torch.where(hit, EMPTY_OWNER, state.owner),
+        valid=state.valid & ~hit[:, None],
+        stamp=torch.where(hit, zero, state.stamp))
+    if hasattr(state, "age"):
+        state = state._replace(age=torch.where(hit, zero, state.age))
+    return state
+
+
 def sample_teachers(state: RelayState, client_ids, m_down: int, noise,
                     obs_picks) -> Dict:
     """Observations of OTHER users, chosen at random (paper section 4), for
@@ -171,3 +186,6 @@ class FlatRelay(base.RelayPolicy):
 
     def merge_round(self, state, proto, logit=None):
         return merge_round(state, proto, logit)
+
+    def evict_owners(self, state, owners):
+        return evict_slots(state, owners)

@@ -12,7 +12,8 @@ post-merge state of round t - d - 1 (d = 0 is the round-start state).
 A `History` holds the snapshots stacked, every leaf of the policy's state
 with a leading (H_max,) axis, and `head`, a 0-d int32 tensor on the device
 naming the slot of the most recent snapshot. Stacking is policy-agnostic
-(every policy state is a NamedTuple of fixed-shape tensors), and `read_at`
+(every policy state is a NamedTuple of fixed-shape tensors, nested for the
+sharded relay, whose leaves then lead with (H_max, S)), and `read_at`
 returns a state of the policy's own type.
 
   - `push` evicts the oldest snapshot once the ring is full;
@@ -45,7 +46,15 @@ class History(NamedTuple):
 
     @property
     def h_max(self) -> int:
-        return self.snaps[0].shape[0]
+        return _first_leaf(self.snaps).shape[0]
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    """The first tensor of a (nested) NamedTuple state: a sharded relay's
+    state nests the inner policy's."""
+    while isinstance(tree, tuple):
+        tree = tree[0]
+    return tree
 
 
 def init(snapshot, h_max: int) -> History:
@@ -55,7 +64,7 @@ def init(snapshot, h_max: int) -> History:
     snaps = tree_map(lambda a: a.unsqueeze(0).repeat(h_max, *[1] * a.dim()),
                      snapshot)
     return History(snaps=snaps, head=torch.zeros(
-        (), dtype=torch.int32, device=snapshot[0].device))
+        (), dtype=torch.int32, device=_first_leaf(snapshot).device))
 
 
 def push(hist: History, snapshot) -> History:

@@ -154,3 +154,14 @@ class PerClassRelay(base.RelayPolicy):
         return state._replace(age=torch.where(
             state.valid, (state.clock - state.stamp).to(torch.int32),
             state.age))
+
+    def evict_owners(self, state, owners):
+        """The evicted owners' slots in every class ring become empty; the
+        per-class pointers and the clock are untouched."""
+        hit = base.owner_hits(state.owner, owners)              # (C, cap_c)
+        zero = torch.zeros_like(state.age)
+        return state._replace(
+            owner=torch.where(hit, EMPTY_OWNER, state.owner),
+            valid=state.valid & ~hit,
+            age=torch.where(hit, zero, state.age),
+            stamp=torch.where(hit, zero, state.stamp))

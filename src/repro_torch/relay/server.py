@@ -2,10 +2,12 @@
 `repro/relay/server.py`.
 
 `RelayServer` binds a relay policy (`relay/base.py`) to a live state and
-exposes the upload / relay / merge cadence of paper Algorithm 1. The
-vectorized engine calls the policy's functions directly; both evolve the
-same state because the call order (appends in upload order, then one merge)
-is the same.
+exposes the upload / relay / merge cadence of paper Algorithm 1. It records
+each round's upload owners, so that a policy with its own reduction
+(`reduce_uploads`: the sharded relay's per-shard sums) can segment the
+round's prototype and logit sums by owner. The vectorized engine calls the
+policy's functions directly; both evolve the same state because the call
+order (appends in upload order, then one merge) is the same.
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ class RelayServer:
                                             n_clients, device=device)
         self.round_states: List[prototypes.ProtoState] = []
         self.round_logit_states: List[prototypes.ProtoState] = []
+        self.round_owners: List[int] = []
 
     # -- uplink ------------------------------------------------------------
     def begin_round(self):
         self.round_states = []
         self.round_logit_states = []
+        self.round_owners = []
 
     def upload(self, client_id: int, payload: Dict, stamp=None):
         """Append one client's upload; its per-class logit sums (fd mode)
@@ -40,6 +44,7 @@ class RelayServer:
         synchronous case); the asynchronous event log passes the true birth
         clock, so a delayed commit arrives pre-aged."""
         self.round_states.append(payload["proto"])
+        self.round_owners.append(int(client_id))
         if "logit_proto" in payload:
             self.round_logit_states.append(payload["logit_proto"])
         obs = payload["obs"]                                  # (M_up, C, d')
@@ -54,10 +59,25 @@ class RelayServer:
     def end_round(self):
         if not self.round_states:
             return
-        logit = (prototypes.merge(*self.round_logit_states)
-                 if self.round_logit_states else None)
-        self.state = self.policy.merge_round(
-            self.state, prototypes.merge(*self.round_states), logit)
+        if self.policy.reduce_uploads is None:
+            merged = prototypes.merge(*self.round_states)
+            logit = (prototypes.merge(*self.round_logit_states)
+                     if self.round_logit_states else None)
+        else:
+            # the policy's own reduction (per-shard sums): the uploads'
+            # contributions stacked, segmented by owner; every staged upload
+            # commits, so the weights are 1
+            dev = self.round_states[0].sum.device
+            owners = torch.tensor(self.round_owners, dtype=torch.int32,
+                                  device=dev)
+            w = torch.ones(len(self.round_owners), device=dev)
+            reduce = lambda states: self.policy.reduce_uploads(
+                torch.stack([p.sum for p in states]),
+                torch.stack([p.count for p in states]), w, owners)
+            merged = reduce(self.round_states)
+            logit = (reduce(self.round_logit_states)
+                     if self.round_logit_states else None)
+        self.state = self.policy.merge_round(self.state, merged, logit)
 
     # -- downlink ----------------------------------------------------------
     def relay(self, client_id: int, m_down: int, noise,

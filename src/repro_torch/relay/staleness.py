@@ -123,3 +123,6 @@ class StalenessRelay(base.RelayPolicy):
         live = state.owner != EMPTY_OWNER
         return state._replace(age=torch.where(
             live, (state.clock - state.stamp).to(torch.int32), state.age))
+
+    def evict_owners(self, state, owners):
+        return flat.evict_slots(state, owners)      # resets age too

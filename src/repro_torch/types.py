@@ -193,11 +193,14 @@ class CollabConfig:
 @dataclass(frozen=True)
 class FleetConfig:
     """Who the fleet is and how it behaves (relay policy, participation,
-    clocks, mesh, arrivals). The port's trainers run any relay policy but
-    the sharded one (`relay.get_policy`), any participation schedule
-    (`relay.get_schedule`), and any upload and download clock
-    (`sim.get_clock`, `sim.get_download_clock`); arrivals or a mesh raise
-    `NotImplementedError` naming the ROADMAP slice that brings them."""
+    clocks, mesh, arrivals). The port's trainers run any relay policy,
+    the sharded one included (`relay.get_policy`), any participation
+    schedule (`relay.get_schedule`), any upload and download clock
+    (`sim.get_clock`, `sim.get_download_clock`) and streaming arrivals
+    (`sim.get_arrivals`; not with a schedule, an upload clock with
+    D_max > 0, a download clock, a mode without a relay or a mixed fleet,
+    as in the reference); a mesh raises `NotImplementedError` naming the
+    ROADMAP slice that brings it."""
     policy: Any = None
     participation: Any = None
     clock: Any = None

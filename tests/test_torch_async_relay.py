@@ -92,7 +92,7 @@ def _kw(mode):
 
 def build_three(policy, clock=None, download_clock=None, schedule=None,
                 mode="cors", hetero=False, n_clients=N_CLIENTS, seed=0,
-                reference=True):
+                reference=True, arrivals=None):
     """(reference seq, port seq, port vec) on one MLP fleet, the port
     drawing from the reference's keys; without `reference`, the port's two
     engines only, with their own draws."""
@@ -105,7 +105,7 @@ def build_three(policy, clock=None, download_clock=None, schedule=None,
         {k: np.asarray(v) for k, v in p.items()}, "mlp", device="cpu")
         for p in jparams]
     fleet = dict(policy=policy, participation=schedule, clock=clock,
-                 download_clock=download_clock)
+                 download_clock=download_clock, arrivals=arrivals)
     ports = [cls([T_SPECS[k] for k in kinds], tparams, parts, test,
                  CollabConfig(**_kw(mode)), TrainConfig(batch_size=16),
                  seed=seed, fleet=FleetConfig(**fleet), device="cpu",

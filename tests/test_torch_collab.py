@@ -121,13 +121,13 @@ def test_port_trainer_rejects_what_it_does_not_run():
     with pytest.raises(ValueError, match="unknown mode"):
         tcollab.CollabTrainer(*args, CollabConfig(mode="fl"), TrainConfig(),
                               device="cpu")
-    for fleet, slice_ in ((FleetConfig(policy="sharded:flat,2"), 5),
-                          (FleetConfig(arrivals="stream:2,1,0.1,100,0"), 5),
-                          (FleetConfig(mesh=object()), 9)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP slice {slice_}"):
-            tcollab.CollabTrainer(*args, CollabConfig(), TrainConfig(),
-                                  fleet=fleet, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 9"):
+        tcollab.CollabTrainer(*args, CollabConfig(), TrainConfig(),
+                              fleet=FleetConfig(mesh=object()), device="cpu")
+    for fleet in (FleetConfig(policy="sharded:flat,2"),
+                  FleetConfig(arrivals="stream:2,1,0.1,100,0")):
+        tcollab.CollabTrainer(*args, CollabConfig(), TrainConfig(),
+                              fleet=fleet, device="cpu")
 
 
 def test_port_trainer_default_draws_are_deterministic():

@@ -30,7 +30,7 @@ from test_torch_async_relay import (N_CLIENTS, NoShow, POLICIES,  # noqa: F401
                                     _same_runs, build_three, live_pending,
                                     one_torch_thread, run_three,
                                     shared_reference_jits)
-from test_torch_relay_policies import relay_state, same_relay
+from test_torch_relay_policies import relay_state, same_relay, state_fields
 
 DL_CLOCKS = ["homogeneous:1", "lognormal:2", "periodic:2,3"]
 
@@ -46,9 +46,7 @@ def same_ring(ref, seq, vec):
         same_relay(to_np(seq._snapshot(d)), snap)
         if ref is not None:
             assert ref._h_max == h
-            ref_snap = ref._snapshot(d)
-            same_relay({f: np.asarray(getattr(ref_snap, f))
-                        for f in ref_snap._fields}, snap)
+            same_relay(state_fields(ref._snapshot(d)), snap)
 
 
 def run_lagged(trainers, rounds=3):

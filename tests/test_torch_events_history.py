@@ -5,8 +5,10 @@ same seeded inputs.
 - `event_slot_order`: equal for every round index and depth.
 - `commit_and_park`, round after round for 2 . D_max + 2 rounds (the
   pending slots wrap), for each policy (flat, per_class, staleness; flat
-  also in fd, with the logit sums), D_max in {0, 1, 3}: the relay state's
-  integer leaves (ptr, owner, valid, stamp, clock, valid_g, age) and the
+  also in fd, with the logit sums; cohort shards, whose per-position
+  contributions go through `reduce_uploads`), D_max in {0, 1, 3}: the
+  relay state's integer leaves (ptr, owner, valid, stamp, clock, valid_g,
+  age, merges) and the
   pending buffer's live / birth / stamp / commit / valid exactly; their
   floats within 1e-6 (the reference sums the due parked prototypes with
   an einsum, the port with a weighted sum: another order of addition).
@@ -35,8 +37,10 @@ from repro_torch.core import prototypes as tp
 from repro_torch.relay import events as tevents, history as thistory
 from repro_torch.types import CollabConfig
 from test_torch_async_relay import one_torch_thread  # noqa: F401
+from test_torch_relay_policies import state_fields
 
-INT_FIELDS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g", "age")
+INT_FIELDS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g", "age",
+              "merges")
 PENDING_EXACT = ("live", "birth", "stamp", "commit", "valid")
 C, D_FEAT, M_UP, N = 4, 6, 2, 3
 UPLOAD_ORDER = np.array([2, 0, 1], np.int32)      # a mixed fleet's order
@@ -62,9 +66,10 @@ def _states(name, capacity=10):
 
 
 def same_state(js, ts, tol=TOL):
-    assert js._fields == ts._fields
-    for f in js._fields:
-        a, b = np.asarray(getattr(js, f)), getattr(ts, f).numpy()
+    sa, sb = state_fields(js), state_fields(ts)
+    assert list(sa) == list(sb)
+    for f in sa:
+        a, b = sa[f], sb[f]
         if f in INT_FIELDS:
             np.testing.assert_array_equal(b, a, err_msg=f)
         else:
@@ -108,7 +113,10 @@ def test_event_slot_order_equals_reference(d_max):
 
 @pytest.mark.parametrize("policy,fd", [("flat", False), ("flat", True),
                                        ("per_class", False),
-                                       ("staleness", False)])
+                                       ("staleness", False),
+                                       ("sharded:flat,2", False),
+                                       ("sharded:flat,2", True),
+                                       ("sharded:staleness,3", False)])
 @pytest.mark.parametrize("d_max", [0, 1, 3])
 def test_commit_and_park_equals_reference(policy, fd, d_max):
     """2 . D_max + 2 rounds of random uploads, delays and masks through both
@@ -132,7 +140,7 @@ def test_commit_and_park_equals_reference(policy, fd, d_max):
             torch.tensor(r, dtype=torch.int32), _t(delays), _t(mask))
         same_state(js, ts)
         same_pending(jpend, tpend)
-        committed = int(ts.clock)
+        committed = int(ts.clock.max())
     assert committed > 0
     if fd:
         assert float(ts.mean_logits.abs().max()) > 0

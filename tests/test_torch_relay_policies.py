@@ -49,7 +49,8 @@ from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
 from test_torch_collab import JaxDraws
 
 N_CLIENTS = 3
-INT_FIELDS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g", "age")
+INT_FIELDS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g", "age",
+              "merges")
 FLOAT_FIELDS = ("obs", "global_protos", "mean_logits")
 TOL = 1e-4
 
@@ -89,9 +90,21 @@ def build_four(policy, mode, kind="mlp", n_clients=N_CLIENTS, n=192,
 def relay_state(trainer):
     st = (trainer.server.state if hasattr(trainer, "server")
           else trainer.relay_state)
-    if isinstance(st, tuple) and isinstance(st[0], torch.Tensor):
-        return convert.relay_state_to_numpy(st)
-    return {f: np.asarray(getattr(st, f)) for f in st._fields}
+    return state_fields(st)
+
+
+def state_fields(st):
+    """A relay state of either package -> {field: numpy array}; a sharded
+    state's inner fields come out flat, each (S, ...), beside `merges`."""
+    out = {}
+    for f in st._fields:
+        v = getattr(st, f)
+        if isinstance(v, tuple):
+            out.update(state_fields(v))
+        else:
+            out[f] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                      else np.asarray(v))
+    return out
 
 
 def client_weights(trainer, i, kind="mlp"):
@@ -413,5 +426,6 @@ def test_get_policy_specs():
     assert trelay.get_policy(p) is p
     with pytest.raises(ValueError, match="unknown relay policy"):
         trelay.get_policy("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
-        trelay.get_policy("sharded:flat,2")
+    p = trelay.get_policy("sharded:flat,2")
+    assert isinstance(p, trelay.ShardedRelay) and p.shards == 2
+    assert isinstance(p.inner, trelay.FlatRelay)
