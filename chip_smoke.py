@@ -82,6 +82,24 @@ Phases (each failure raises, so the process exits non-zero):
      cohort table) equal to the figure from shards, capacity and seats,
      one profiled round against phase 5e's synchronous N = 32 fleet, the
      median s/round;
+  5g. telemetry and I/O: each of TELEMETRY_PATHS (cors at N = 5 on flat
+     synchronous, under an upload clock lognormal:2, a download clock
+     periodic:2,3, uniform_k:3 compacted, on sharded:flat,4; the mixed
+     LeNet/MLP fleet of 6 under lognormal:2; 5 seats of
+     stream:2,1.5,0.3,7,0 on sharded:flat,2 for 8 rounds) with telemetry, a
+     JSONL sink and a trace, in both engines on the card and seq on the
+     CPU, with the 5e/5f checks plus: the telemetry's integer leaves equal
+     vec = seq on the card = seq on the CPU and its float leaves within
+     2e-2, its late commits and stale reads those of the records, each
+     JSONL equal to its trainer's history and rendered by obs.report, each
+     trace holding its engine's spans, every client of the vec trainer
+     checkpointed and loaded back bit-equal on the card, and (first path)
+     a round of each engine under torch.profiler holding the spans as
+     record_function ranges; then vec with telemetry on against off at
+     N = 5 and N = 32, TELEMETRY_PAIRS rounds each in turns (launches
+     exact, no host sync): median s/round, and one profiled round each
+     (device ops, busy time), the N = 5 telemetry-off ops equal to phase
+     6's vec count;
   6. profile: one more round of each engine under torch.profiler (device
      busy share, device ops, time by kernel), then 2 rounds of each engine
      at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
@@ -107,16 +125,18 @@ also on a (k, ...) block gathered by `index_select` from an N-client stack
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c, 5d, 5e and 5f) before the last line,
+phases 5c, 5d, 5e, 5f and 5g) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
@@ -230,6 +250,29 @@ SHARD_PATHS = (
     FleetPath(f"cors sharded:flat,2 {STREAM_SMALL}", "cors",
               "sharded:flat,2", arrivals=STREAM_SMALL, rounds=STREAM_ROUNDS,
               want_vec=(STEPS * STREAM_ROUNDS,) * 2 + (STREAM_ROUNDS,)))
+# Phase 5g: telemetry (TelemetryConfig with a JSONL sink and a trace) on
+# paths of phases 5, 5d, 5e and 5f, their launches unchanged by it.
+TELEMETRY_PATHS = (
+    FleetPath("telemetry: cors flat", "cors", "flat"),
+    FleetPath("telemetry: cors flat lognormal:2", "cors", "flat",
+              clock="lognormal:2"),
+    FleetPath("telemetry: cors flat lag periodic:2,3", "cors", "flat",
+              dl="periodic:2,3"),
+    FleetPath("telemetry: cors flat uniform_k:3", "cors", "flat",
+              "uniform_k:3", k_active=3),
+    FleetPath("telemetry: cors sharded:flat,4", "cors", "sharded:flat,4"),
+    FleetPath("telemetry: cors mixed lognormal:2", "cors", "flat",
+              clock="lognormal:2", n=6, hetero=True, k_active=None,
+              want_vec=(2 * MIX_STEPS * ROUNDS,) * 2 + (2 * ROUNDS,)),
+    FleetPath(f"telemetry: cors sharded:flat,2 {STREAM_SMALL}", "cors",
+              "sharded:flat,2", arrivals=STREAM_SMALL, rounds=STREAM_ROUNDS,
+              want_vec=(STEPS * STREAM_ROUNDS,) * 2 + (STREAM_ROUNDS,)))
+TELEMETRY_PAIRS = 9        # rounds of telemetry on and off, in turns
+# the spans each engine's trace must hold (a mixed fleet's vec: its bucket
+# steps and shared commit in place of the round step)
+SEQ_SPANS = {"teacher_read", "update", "upload", "commit", "eval"}
+VEC_SPANS = {"round_step", "eval"}
+BUCKET_SPANS = {"bucket_steps", "commit", "eval"}
 SHARD_PAIRS = 9            # N = 5: rounds of sharded:flat,4 and flat, in turns
 # population scale: 32 seats, 8 participants a round from round 2 on,
 # arrivals drawn from a million ids (62 evictions from round 5, 10 drops)
@@ -768,18 +811,25 @@ def phase_slice(dev):
 
 def profile(fn):
     """fn() under torch.profiler -> (host wall s, the device events of
-    key_averages())."""
+    key_averages()). The window opens with a marker kernel
+    (`torch.cuda._sleep`'s spin kernel, left out of the events): the
+    profiler can miss a window's first device events, and windows of one
+    vec round read one of the round's first kernels short now and then
+    (PR 20)."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ev = [e for e in prof.key_averages()
           if getattr(e, "device_type", None) is not None
-          and str(e.device_type).endswith("CUDA")]
+          and str(e.device_type).endswith("CUDA")
+          and "spin_kernel" not in e.key]
     return wall, ev
 
 
@@ -866,6 +916,8 @@ def no_sync(vec):
               if vec.hetero else [(vec, "_round_step")])
     if vec._cohort is not None:             # a streaming fleet's evictions
         owners.append((vec, "_evict"))
+    if vec.hetero and vec._telem:           # a mixed fleet's telemetry call
+        owners.append((vec, "_telem_fn"))
     saved = [(o, a, getattr(o, a)) for o, a in owners]
 
     def wrap(step):
@@ -1105,7 +1157,7 @@ def same_snapshots(a, b, what):
         same_ring(*snaps, f"{what}, snapshot {d} deep")
 
 
-def phase_fleet_paths(dev, tag, paths):
+def phase_fleet_paths(dev, tag, paths, telemetry_dir=None):
     """Each of `paths` (FleetPath) in both engines on the card and in seq on
     the CPU: launches exact, at least one delayed commit (upload clock),
     stale read (download clock), eviction and dropped arrival (arrivals),
@@ -1113,15 +1165,25 @@ def phase_fleet_paths(dev, tag, paths):
     mode "error", participants, commits, uploads in flight, cohort views,
     ring integers (ages; per-shard clocks and merges), the history ring and
     the ledger equal vec = seq on the card = seq on the CPU, accuracies
-    within 2e-2, fd's mean logits finite. -> {path: {"seq": launches,
-    "vec": launches, "seq_s": [...], "vec_s": [...]}}."""
+    within 2e-2, fd's mean logits finite. With `telemetry_dir` every trainer
+    runs with telemetry, a JSONL sink and a trace there, and
+    `check_telemetry` holds them (the first path's also under
+    torch.profiler). -> {path: {"seq": launches, "vec": launches, "seq_s":
+    [...], "vec_s": [...]}}."""
+    from repro_torch import obs
     from repro_torch.collab_image_classification import build_trainer
     out = {}
-    for p in paths:
+    for j, p in enumerate(paths):
+        files = lambda device, engine: {
+            k: os.path.join(telemetry_dir, f"{j}-{engine}-{device}.{k}")
+            for k in ("jsonl", "json")}
         mk = lambda device, engine: build_trainer(
             p.n, p.mode, seed=0, device=device, engine=engine,
             relay_policy=p.policy, participation=p.sched, hetero=p.hetero,
-            clock=p.clock, download_clock=p.dl, arrivals=p.arrivals)
+            clock=p.clock, download_clock=p.dl, arrivals=p.arrivals,
+            telemetry=None if telemetry_dir is None else obs.TelemetryConfig(
+                jsonl=files(device, engine)["jsonl"],
+                trace=files(device, engine)["json"]))
         flying = {"seq": [], "vec": [], "cpu": []}
         seq = mk(dev, "seq")
         l_seq, s_seq = timed_rounds(
@@ -1193,6 +1255,13 @@ def phase_fleet_paths(dev, tag, paths):
         same_accs(seq.history, cpu.history, f"{p.name}: card and CPU")
         if p.mode == "fd" and not bool(torch.isfinite(sv.mean_logits).all()):
             raise AssertionError(f"{p.name}: mean logits not finite")
+        if telemetry_dir is not None:
+            check_telemetry(
+                p, {"vec": vec, "seq": seq, "cpu": cpu},
+                {"vec": files(dev, "vec"), "seq": files(dev, "seq"),
+                 "cpu": files("cpu", "seq")},
+                len(delayed), len(stale), evicted,
+                os.path.join(telemetry_dir, f"{j}-ckpt"), j == 0)
         print(f"[{tag}] {p.name}: participants, commits, uploads in flight, "
               f"{'cohort views, ' if cohort is not None else ''}ring"
               f"{' and ages' if hasattr(sv, 'age') else ''}"
@@ -1205,6 +1274,160 @@ def phase_fleet_paths(dev, tag, paths):
                        "vec_s": s_vec}
         del seq, vec, cpu
     return out
+
+
+def _as_list(v):
+    return v if isinstance(v, list) else [v]
+
+
+def check_telemetry(p, trainers, files, late, stale, evicted, ckpt_dir,
+                    profiled):
+    """Phase 5g's checks of one path's trainers ({"vec", "seq", "cpu"}):
+    the telemetry's integer leaves equal vec = seq on the card = seq on the
+    CPU every round and its float leaves within 2e-2 (atol and rtol, the
+    reference's assert_telemetry_match); its late commits and stale reads
+    those the records show; each JSONL equal to its trainer's history and
+    rendered by obs.report; each trace holding its engine's spans (evict
+    where the cohort evicted); every client of the vec trainer saved and
+    loaded back bit-equal on the card; with `profiled`, one more round of
+    each engine on the card under torch.profiler, whose events must hold
+    the spans (record_function ranges)."""
+    from repro_torch import obs
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.obs import report
+    worst = 0.0
+    for e, f in (("vec", "seq"), ("seq", "cpu")):
+        for ra, rb in zip(trainers[e].history, trainers[f].history):
+            ta, tb = ra["telemetry"], rb["telemetry"]
+            for k in obs.metrics.EXACT_LEAVES:
+                if ta[k] != tb[k]:
+                    raise AssertionError(
+                        f"{p.name}, round {ra['round']}: telemetry {k} {e} "
+                        f"{ta[k]} != {f} {tb[k]}")
+            for k in obs.metrics.FLOAT_LEAVES:
+                for x, y in zip(_as_list(ta[k]), _as_list(tb[k])):
+                    if not abs(x - y) <= 2e-2 * (1 + abs(y)):
+                        raise AssertionError(
+                            f"{p.name}, round {ra['round']}: telemetry {k} "
+                            f"{e} {x} against {f} {y}")
+                    worst = max(worst, abs(x - y))
+    tel = [r["telemetry"] for r in trainers["seq"].history]
+    got = (sum(sum(t["commit_hist"][1:]) for t in tel),
+           sum(t["stale_reads"] for t in tel))
+    if got != (late, stale):
+        raise AssertionError(f"{p.name}: telemetry's late commits and stale "
+                             f"reads {got} != the records' {(late, stale)}")
+    for e, t in trainers.items():
+        records = obs.read_jsonl(files[e]["jsonl"])
+        if records != json.loads(json.dumps(t.history)):
+            raise AssertionError(f"{p.name}: {e}'s JSONL differs from its "
+                                 f"history")
+        if "run report" not in report.render(records):
+            raise AssertionError(f"{p.name}: {e}'s report is empty")
+        with open(files[e]["json"]) as fh:
+            names = {ev["name"] for ev in json.load(fh)["traceEvents"]}
+        want = (SEQ_SPANS if e != "vec" else BUCKET_SPANS if t.hetero
+                else VEC_SPANS) | ({"evict"} if evicted else set())
+        if not want <= names:
+            raise AssertionError(f"{p.name}: {e}'s trace lacks spans "
+                                 f"{want - names}")
+    vec = trainers["vec"]
+    n_leaves = 0
+    for i in range(vec.n_clients):
+        params = vec.client_params(i)
+        path = os.path.join(ckpt_dir, f"client{i}.npz")
+        save_pytree(path, params, step=len(vec.history))
+        back = load_pytree(path, params)
+        for k, v in params.items():
+            if not (back[k].device == v.device and back[k].dtype == v.dtype
+                    and torch.equal(back[k], v)):
+                raise AssertionError(f"{p.name}: client {i}'s checkpoint "
+                                     f"leaf {k} differs")
+            n_leaves += 1
+    msg = ""
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        for e, want in (("vec", VEC_SPANS), ("seq", SEQ_SPANS)):
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                trainers[e].run_round()
+                torch.cuda.synchronize()
+            keys = {ev.key for ev in prof.key_averages()}
+            if not want <= keys:
+                raise AssertionError(f"{p.name}: the profile of a {e} round "
+                                     f"lacks the spans {want - keys}")
+        msg = "; a profiled round of each engine holds its spans"
+    print(f"[telemetry] {p.name}: telemetry equal vec = seq on the card = seq "
+          f"on the CPU (integer leaves exactly, float leaves within "
+          f"{worst:.3e}); {got[0]} late commits, {got[1]} stale reads; last "
+          f"round vec {tel[-1]}; JSONL = history, report rendered, trace "
+          f"spans present; {vec.n_clients} client checkpoints ({n_leaves} "
+          f"leaves) bit-equal on the card{msg}")
+
+
+def phase_telemetry_cost(dev, n, off=None, off_counts=None):
+    """vec, cors / flat at N = n (240 samples a client): telemetry on
+    (metrics only) against off, TELEMETRY_PAIRS timed rounds of each in
+    turns (the order alternating, launches exact, no host sync) and the
+    median s/round of rounds 2 on; the 4th round of each runs under
+    torch.profiler instead (device ops, busy time; the off run's device
+    events counted by name into `off_counts`). `off`, when given, is the
+    telemetry-off trainer (phase 5b's, which phase 6 profiles too: the
+    device op count of a round depends a little on the process's history
+    of allocations, so the equality is asked of one trainer); the on
+    trainer first catches up with its rounds, untimed. -> {"on": {...},
+    "off": {...}}."""
+    from repro_torch.collab_image_classification import build_trainer
+    from repro_torch.kernels import ops
+    mk = lambda tel: build_trainer(n, "cors", seed=0, device=dev,
+                                   engine="vec", n_train=240 * n,
+                                   telemetry=tel)
+    runs = {"on": mk(True), "off": off if off is not None else mk(None)}
+    for _ in runs["off"].history:
+        runs["on"].run_round()
+    secs = {tag: [] for tag in runs}
+    launches = {tag: (0, 0, 0) for tag in runs}
+    profiled = {}
+    for r in range(TELEMETRY_PAIRS + 1):
+        for tag in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            t = runs[tag]
+            if r == ROUNDS:
+                _, n_ops, busy, busy_us = phase_profile(
+                    t, f"telemetry {tag} N={n}", True,
+                    off_counts if tag == "off" else None)
+                profiled[tag] = {"ops": n_ops, "busy_ms": busy_us / 1e3,
+                                 "busy": busy}
+                continue
+            restore = no_sync(t)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rec = t.run_round()
+            torch.cuda.synchronize()
+            secs[tag].append(time.perf_counter() - t0)
+            restore()
+            if ("telemetry" in rec) != (tag == "on"):
+                raise AssertionError(f"telemetry {tag}: record {sorted(rec)}")
+            launches[tag] = tuple(
+                x + ops.LAUNCHES[k] for x, k in zip(launches[tag], (
+                    "disc_loss_fwd", "disc_loss_bwd", "proto_accum")))
+    want = (STEPS * TELEMETRY_PAIRS,) * 2 + (TELEMETRY_PAIRS,)
+    res = {}
+    for tag, t in runs.items():
+        if launches[tag] != want:
+            raise AssertionError(f"N={n} telemetry {tag}: launches "
+                                 f"{launches[tag]} != {want}")
+        res[tag] = {"s": secs[tag], "median": statistics.median(secs[tag][1:]),
+                    **profiled[tag]}
+    a, b = res["on"], res["off"]
+    print(f"[telemetry] N={n} vec, telemetry on over off: median s/round of "
+          f"rounds 2-{TELEMETRY_PAIRS} {a['median'] / b['median']:.3f} "
+          f"({a['median']:.4f} / {b['median']:.4f} s; on slower in "
+          f"{sum(x > y for x, y in zip(a['s'][1:], b['s'][1:]))} of "
+          f"{TELEMETRY_PAIRS - 1} pairs), device ops {a['ops']} / {b['ops']} "
+          f"(+{a['ops'] - b['ops']}, {a['ops'] / b['ops']:.4f}), busy time "
+          f"{a['busy_ms']:.3f} / {b['busy_ms']:.3f} ms = "
+          f"{a['busy_ms'] / b['busy_ms']:.4f}")
+    return res
 
 
 def phase_async_scale(dev):
@@ -1425,14 +1648,17 @@ def phase_population_scale(dev, sync32):
     return res
 
 
-def phase_profile(engine, tag, batched):
+def phase_profile(engine, tag, batched, counts=None):
     """One more round under torch.profiler: device busy share, device ops,
     the device time by kernel name, and one kernel symbol a wrapper call for
-    the slice's kernels (KERNEL_SYMBOLS). -> (device us a launch by kernel,
-    device ops, busy share, busy us)."""
+    the slice's kernels (KERNEL_SYMBOLS); `counts`, when given, receives the
+    device events' counts by name. -> (device us a launch by kernel, device
+    ops, busy share, busy us)."""
     from repro_torch.kernels import ops
     ops.reset_launches()
     wall, ev = profile(engine.run_round)
+    if counts is not None:
+        counts.update({e.key: e.count for e in ev})
     calls = dict(ops.LAUNCHES)
     busy, port = report_profile(tag, wall, ev)
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
@@ -1626,12 +1852,39 @@ def main():
     phase_shard_anchor(dev)
     shard_cost = phase_shard_cost(dev)
     population = phase_population_scale(dev, async_scale["synchronous"])
+    with tempfile.TemporaryDirectory() as tdir:
+        paths.update(phase_fleet_paths(dev, "telemetry", TELEMETRY_PATHS,
+                                       tdir))
+    off_counts, counts6 = {}, {}
+    telemetry = {CLIENTS: phase_telemetry_cost(dev, CLIENTS, vec, off_counts),
+                 SCALE_CLIENTS: phase_telemetry_cost(dev, SCALE_CLIENTS)}
+    off_ops = telemetry[CLIENTS]["off"]["ops"]
+    for window in range(3):
+        # phase 5b's trainer, 5g's telemetry-off arm: its device ops must
+        # equal 5g's count. A profiler window can lose device events: taken
+        # after seq's window of 11,000 events, this one read one event
+        # fewer in three PR 20 runs (in one, 71 fewer, every kernel's count
+        # short). So vec goes first, and a window that disagrees is taken
+        # again, at most twice; the numbers reported are the last window's
+        counts6.clear()
+        dev_us_vec, ops_vec, busy_vec, _ = phase_profile(
+            vec, "profile vec" + " again" * window, True, counts6)
+        if ops_vec == off_ops:
+            break
+        diff = {k: (off_counts.get(k, 0), counts6.get(k, 0))
+                for k in set(off_counts) | set(counts6)
+                if off_counts.get(k, 0) != counts6.get(k, 0)}
+        print(f"[profile] vec: {ops_vec} device ops against 5g's telemetry-"
+              f"off {off_ops}; by name (5g, this window): {diff}")
+    else:
+        raise AssertionError(f"telemetry off at N={CLIENTS}: {off_ops} device "
+                             f"ops, not phase 6's {ops_vec} in 3 windows")
     dev_us, ops_seq, busy_seq, _ = phase_profile(gpu, "profile seq", False)
-    dev_us_vec, ops_vec, busy_vec, _ = phase_profile(vec, "profile vec", True)
     dev_us.update(dev_us_vec)
-    print(f"[profile] device ops a round: vec {ops_vec}, seq {ops_seq} "
-          f"({ops_vec / ops_seq:.3f} of seq); device busy vec "
-          f"{100 * busy_vec:.1f}%, seq {100 * busy_seq:.1f}%")
+    print(f"[profile] device ops a round: vec {ops_vec} (= 5g's telemetry-off "
+          f"count, window {window + 1}), seq {ops_seq} ({ops_vec / ops_seq:.3f}"
+          f" of seq); device busy vec {100 * busy_vec:.1f}%, seq "
+          f"{100 * busy_seq:.1f}%")
     del gpu, vec
     scale = phase_scale(dev, secs_seq, secs_vec)
     torch.cuda.empty_cache()
@@ -1684,7 +1937,8 @@ def main():
           f"compaction {json.dumps(compaction)}; N={SCALE_CLIENTS} async "
           f"{json.dumps(async_scale)}; N={CLIENTS} shards "
           f"{json.dumps(shard_cost)}; N={SCALE_CLIENTS} population "
-          f"{json.dumps(population)}")
+          f"{json.dumps(population)}; telemetry on / off "
+          f"{json.dumps(telemetry)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

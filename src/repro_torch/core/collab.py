@@ -49,6 +49,14 @@ mixed fleet (`check_arrivals`). The sharded relay (`relay/shards.py`)
 needs nothing of the engine but the owners of a round's uploads, which
 `RelayServer` records for its per-shard reduction.
 
+Telemetry (`telemetry=`, `repro_torch.obs`): each round record gains the
+round's `RoundTelemetry`, the same function the vectorized engine computes
+in its step, over this engine's ring, with the lags of the round's commits,
+the queue depth and the download delays counted on the host; the phases
+run in trace spans (evict, teacher_read, update, upload, commit, eval), the
+record goes to the JSONL sink and the trace is rewritten after every round
+(`RunObserver`).
+
 The reference draws its random numbers with `jax.random` from a per-round
 key schedule. The port takes them from a `draws` object instead: Gumbel
 noise of the policy's `noise_shape` and the observation pick for each
@@ -67,7 +75,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import relay as relay_lib, sim
+from repro_torch import obs, relay as relay_lib, sim
 from repro_torch.core import baselines, client as client_lib, comm
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
@@ -152,13 +160,35 @@ def check_arrivals(ccfg: CollabConfig, fleet: FleetConfig, clock,
     return arrivals
 
 
+class RunObserver:
+    """The engines' telemetry plumbing (`repro_torch.obs`), from their
+    `telemetry=` argument: `config` (None when off), `metrics` (compute the
+    RoundTelemetry), `span` (a trace span factory, a no-op without a
+    recorder) and `emit(rec)`, which streams a round record to the JSONL
+    sink and rewrites the trace after every round."""
+
+    def __init__(self, telemetry):
+        cfg = self.config = obs.resolve(telemetry)
+        self.metrics = cfg is not None and cfg.metrics
+        self.sink = obs.JsonlWriter(cfg.jsonl) if cfg and cfg.jsonl else None
+        self.tracer = (obs.TraceRecorder(path=cfg.trace, profile=cfg.profile)
+                       if cfg and (cfg.trace or cfg.profile) else None)
+        self.span = self.tracer.span if self.tracer else obs.null_span
+
+    def emit(self, rec: Dict):
+        if self.sink is not None:
+            self.sink.write(rec)
+        if self.tracer is not None and self.config.trace:
+            self.tracer.write()
+
+
 def log_round(history: List[Dict], present, accs, metrics_all, commits, up,
-              down) -> Dict:
+              down, telemetry=None) -> Dict:
     """Appends one round's record to `history`, in the schema both engines
     share with the reference's: the present clients' ids, every client's
     accuracy and metrics (zeros for an absent client), the commits as
-    [birth round, client id] pairs in commit order and the round's floats
-    on the wire."""
+    [birth round, client id] pairs in commit order, the round's floats on
+    the wire and, given a RoundTelemetry, its host form."""
     rec = {"round": len(history) + 1,
            "acc_mean": float(np.mean(accs)),
            "acc_std": float(np.std(accs)),
@@ -167,6 +197,8 @@ def log_round(history: List[Dict], present, accs, metrics_all, commits, up,
            "participants": np.asarray(present).tolist(),
            "commits": [[b, i] for b, i in commits],
            "comm_up": up, "comm_down": down}
+    if telemetry is not None:
+        rec["telemetry"] = obs.to_record(telemetry)
     history.append(rec)
     return rec
 
@@ -186,9 +218,15 @@ class CollabTrainer:
                  client_data: Sequence[Tuple[Any, Any]],
                  test_data: Tuple[Any, Any],
                  ccfg: CollabConfig, tcfg: TrainConfig, seed: int = 0,
-                 fleet: FleetConfig = None, draws=None, device=None):
+                 fleet: FleetConfig = None, draws=None, device=None,
+                 telemetry=None):
         fleet = fleet if fleet is not None else FleetConfig()
         policy = check_setup(ccfg, fleet)
+        # telemetry: the same RoundTelemetry function as the vectorized
+        # engine's, over this engine's equal ring, with the event-log
+        # quantities counted here on the host
+        self._obs = RunObserver(telemetry)
+        self.telemetry, self._span = self._obs.config, self._obs.span
         if not len(specs) == len(params_list) == len(client_data):
             raise ValueError("one spec, parameter set and data part per client")
         self.device = resolve_device(device)
@@ -207,6 +245,9 @@ class CollabTrainer:
             raise ValueError("fedavg averages weights: it needs one model "
                              "for every client")
         self._upload_order = [i for _, ids in buckets for i in ids]
+        self._bucket_ids = [np.asarray(ids, np.int64) for _, ids in buckets]
+        self._telem_fn = (obs.metrics.make_host_telemetry_fn(len(specs))
+                          if self._obs.metrics else None)
         self.server = RelayServer(ccfg, ccfg.d_feature, seed,
                                   n_clients=len(specs), device=dev,
                                   policy=policy)
@@ -256,9 +297,11 @@ class CollabTrainer:
             mask = view.mask.copy()
             ext_ids = view.seat_ids
             if view.evicted.size:
-                self.server.state = self.server.policy.evict_owners(
-                    self.server.state, torch.as_tensor(
-                        view.evicted, dtype=torch.int32).to(self.device))
+                with self._span("evict", round=r) as sp:
+                    self.server.state = self.server.policy.evict_owners(
+                        self.server.state, torch.as_tensor(
+                            view.evicted, dtype=torch.int32).to(self.device))
+                    sp.block(self.server.state)
         else:
             mask = np.asarray(self.schedule.mask(r, N), bool)
             ext_ids = None
@@ -275,25 +318,30 @@ class CollabTrainer:
 
         # phase 1: downlink from the previous round's state, or from the
         # snapshot dl[i] rounds before it; present clients only
+        prev_state = self.server.state
         teachers = {}
-        for i in present:
-            if mode in RELAY_MODES:
-                noise, pick = self.draws.teacher(
-                    r, i, m_down, self.server.policy.noise_shape(
-                        self.server.state, m_down))
-                teachers[i] = self.server.relay(
-                    owner_of(i), m_down, noise, pick,
-                    state=self._snapshot(int(dl[i])))
-            else:
-                teachers[i] = client_lib.empty_teacher(ccfg, self.device)
+        with self._span("teacher_read", round=r) as sp:
+            for i in present:
+                if mode in RELAY_MODES:
+                    noise, pick = self.draws.teacher(
+                        r, i, m_down, self.server.policy.noise_shape(
+                            self.server.state, m_down))
+                    teachers[i] = self.server.relay(
+                        owner_of(i), m_down, noise, pick,
+                        state=self._snapshot(int(dl[i])))
+                else:
+                    teachers[i] = client_lib.empty_teacher(ccfg, self.device)
+            sp.block(teachers)
 
         # phase 2: local updates (Algorithm 2); absent clients are frozen
         metrics_all = [client_lib.zero_metrics(ccfg) for _ in range(N)]
-        for i in present:
-            c = self.clients[i]
-            c.params, c.opt_state, m = self._updaters[i](
-                c.params, c.opt_state, self._batches(c), teachers[i])
-            metrics_all[i] = m
+        with self._span("update", round=r) as sp:
+            for i in present:
+                c = self.clients[i]
+                c.params, c.opt_state, m = self._updaters[i](
+                    c.params, c.opt_state, self._batches(c), teachers[i])
+                metrics_all[i] = m
+            sp.block([c.params for c in self.clients])
 
         # phase 3: present clients' uploads enter the event queue in bucket
         # order with their commit delay and birth stamp; the round's due
@@ -303,26 +351,29 @@ class CollabTrainer:
         if mode in RELAY_MODES:
             stamps = self.server.policy.host_stamps(
                 self.server.state, [owner_of(i) for i in self._upload_order])
-            for pos, i in enumerate(self._upload_order):
-                if not mask[i]:
-                    continue
-                c = self.clients[i]
-                prio = self.draws.priorities(r, i, ccfg.m_up,
-                                             c.data_x.shape[0])
-                payload = client_lib.compute_uploads(
-                    c.spec, c.params, c.data_x, c.data_y, ccfg,
-                    prio.to(self.device))
-                self._queue.push(birth=r, pos=pos, client_id=i,
-                                 stamp=int(stamps[pos]), payload=payload,
-                                 delay=int(delays[i]))
-            due = self._queue.pop_due(r)
-            self.server.begin_round()
-            for _, _, i, stamp, payload, _ in due:
-                # a streaming fleet is synchronous: every due event was
-                # pushed this round, under this round's seat ids
-                self.server.upload(owner_of(i), payload, stamp=stamp)
-            if due:
-                self.server.end_round()
+            with self._span("upload", round=r):
+                for pos, i in enumerate(self._upload_order):
+                    if not mask[i]:
+                        continue
+                    c = self.clients[i]
+                    prio = self.draws.priorities(r, i, ccfg.m_up,
+                                                 c.data_x.shape[0])
+                    payload = client_lib.compute_uploads(
+                        c.spec, c.params, c.data_x, c.data_y, ccfg,
+                        prio.to(self.device))
+                    self._queue.push(birth=r, pos=pos, client_id=i,
+                                     stamp=int(stamps[pos]), payload=payload,
+                                     delay=int(delays[i]))
+            with self._span("commit", round=r) as sp:
+                due = self._queue.pop_due(r)
+                self.server.begin_round()
+                for _, _, i, stamp, payload, _ in due:
+                    # a streaming fleet is synchronous: every due event was
+                    # pushed this round, under this round's seat ids
+                    self.server.upload(owner_of(i), payload, stamp=stamp)
+                if due:
+                    self.server.end_round()
+                sp.block(self.server.state)
             commits = [(birth, i) for birth, _, i, *_ in due]
         elif mode == "fedavg" and present.size:
             # every present client gets its own copy of the average of the
@@ -348,11 +399,35 @@ class CollabTrainer:
                         if mode == "fedavg" else 0))
         self.ledger.log_round(up, down)
 
-        accs = [self.evaluate(c) for c in self.clients]
+        with self._span("eval", round=r):
+            accs = [self.evaluate(c) for c in self.clients]
         metrics_all = [{k: float(v) for k, v in m.items()}
                        for m in metrics_all]
-        return log_round(self.history, present, accs, metrics_all, commits,
-                         up, down)
+        telem = (self._telemetry(r, prev_state, mask, metrics_all, commits,
+                                 dl) if self._telem_fn is not None else None)
+        rec = log_round(self.history, present, accs, metrics_all, commits,
+                        up, down, telem)
+        self._obs.emit(rec)
+        return rec
+
+    def _telemetry(self, r: int, prev_state, mask, metrics_all, commits, dl):
+        """This round's RoundTelemetry: the relay reductions over the ring,
+        with the lags of this round's commits (commit round - birth round,
+        clipped into the last bin), the uploads still queued and the
+        download delays, counted here on the host."""
+        chist = np.zeros((obs.STALE_BINS,), np.int32)
+        for birth, _ in commits:
+            chist[min(r - birth, obs.STALE_BINS - 1)] += 1
+        dev = self.device
+        t = lambda a, dtype: torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+        parts = lambda key: tuple(
+            t([metrics_all[i][key] for i in ids], torch.float32)
+            for ids in self._bucket_ids)
+        return self._telem_fn(
+            prev_state, self.server.state, t(mask, torch.bool),
+            tuple(t(mask[ids], torch.bool) for ids in self._bucket_ids),
+            parts("total"), parts("grad_norm"), t(chist, torch.int32),
+            t(len(self._queue), torch.int32), t(dl, torch.int32))
 
     def run(self, rounds: int, log_every: int = 0) -> List[Dict]:
         for k in range(rounds):

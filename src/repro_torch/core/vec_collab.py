@@ -84,8 +84,17 @@ This slice runs every mode of the sequential engine (cors, fd, fedavg, il,
 cl), the relay policies flat, per_class, staleness and sharded, every
 participation schedule, heterogeneous buckets, asynchrony, download lag
 and streaming arrivals. fedavg's weight average is part of the round step,
-in float32, as the reference computes it. Telemetry and the mesh raise
-`NotImplementedError` naming the ROADMAP slice that brings them.
+in float32, as the reference computes it. The mesh raises
+`NotImplementedError` naming the ROADMAP slice that brings it.
+
+Telemetry (`telemetry=`, `repro_torch.obs`): a build flag of the
+synchronous, compacted, asynchronous and lagged round steps, which then
+return the round's `obs.RoundTelemetry` after the metrics, computed on the
+device from the state the step holds (with it off the step is exactly the
+one built without it); a mixed fleet computes it in one call after its
+shared commit. The host reads it once a round, in one copy
+(`obs.to_record`). Trace spans: evict, round_step (or bucket_steps and
+commit), eval.
 """
 from __future__ import annotations
 
@@ -95,7 +104,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import sim
+from repro_torch import obs, sim
 from repro_torch.core import baselines, client as client_lib, collab, comm, \
     prototypes
 from repro_torch.device import resolve_device
@@ -306,7 +315,8 @@ def make_bucket_update_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
 
 
 def make_async_round_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
-                          tcfg: TrainConfig, policy, lagged: bool = False):
+                          tcfg: TrainConfig, policy, lagged: bool = False,
+                          telemetry: bool = False):
     """The homogeneous ASYNCHRONOUS round step (bounded-delay uploads,
     `relay/events.py`), full width: phases 1-2 as in the synchronous step,
     then the per-client uploads and ONE `events.commit_and_park`. Returns
@@ -317,7 +327,12 @@ def make_async_round_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
 
     `lagged=True` adds download lag: two trailing inputs `(hist, dl)`, each
     client's teacher from its own snapshot, the new state pushed to the
-    ring, which is returned before the metrics."""
+    ring, which is returned before the metrics.
+
+    `telemetry=True` (a build flag: off, the step is exactly the one built
+    without it) appends the round's `obs.RoundTelemetry` as the last
+    output, from the round-start and committed relay states, the pre-commit
+    pending buffer's due events and this round's mask and delays."""
     bucket_step = make_bucket_update_step(spec, ccfg, tcfg, policy,
                                           per_client_payload=True,
                                           lagged=lagged)
@@ -330,7 +345,15 @@ def make_async_round_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
             data_y, ids, noise, picks, prio, mask, *lag[1:])
         out = commit(rstate, pending, [payload], round_idx, delays, mask,
                      *lag[:1])
-        return (params, opt) + out + (metrics,)
+        tail = ()
+        if telemetry:
+            tail = (obs.round_telemetry(
+                rstate, out[0], mask.shape[0], mask=mask,
+                loss_parts=(metrics["total"],),
+                gnorm_parts=(metrics["grad_norm"],), mask_parts=(mask,),
+                pending=out[1], pending_pre=pending, round_idx=round_idx,
+                delays=delays, dl=lag[1] if lagged else None),)
+        return (params, opt) + out + (metrics,) + tail
 
     return step
 
@@ -381,9 +404,9 @@ class VectorizedCollabTrainer:
                  telemetry=None):
         fleet = fleet if fleet is not None else FleetConfig()
         self.policy = collab.check_setup(ccfg, fleet)
-        if telemetry:
-            raise NotImplementedError(
-                "telemetry comes with observability and I/O (ROADMAP slice 6)")
+        self._obs = collab.RunObserver(telemetry)
+        self.telemetry, self._span = self._obs.config, self._obs.span
+        self._telem = self._obs.metrics
         if isinstance(specs, client_lib.ClientSpec):
             specs = [specs] * len(params_list)
         if not len(specs) == len(params_list) == len(client_data):
@@ -455,7 +478,7 @@ class VectorizedCollabTrainer:
                           else N)
         self._round_step = (
             make_async_round_step(self.spec, ccfg, self.tcfg, self.policy,
-                                  self._lagged)
+                                  self._lagged, self._telem)
             if self._async else self._make_round_step())
         self._eval_hits = make_eval_hits(self.spec)
 
@@ -503,6 +526,10 @@ class VectorizedCollabTrainer:
             else make_relay_commit(self.policy, self._lagged))
         # the ring advances in a synchronous round that commits nothing
         self._hist_push = history.push
+        # no single step to put telemetry in: one call after the commit
+        if self._telem:
+            self._telem_fn = obs.metrics.make_telemetry_fn(
+                self.n_clients, asynchronous=self._async, lagged=self._lagged)
 
     def client_params(self, i: int) -> Dict[str, torch.Tensor]:
         """Client i's parameters, unstacked (views into its stack)."""
@@ -514,7 +541,7 @@ class VectorizedCollabTrainer:
     # ------------------------------------------------------------------
     def _make_round_step(self):
         ccfg, N = self.ccfg, self.n_clients
-        lagged = self._lagged
+        lagged, telem = self._lagged, self._telem
         bucket_step = make_bucket_update_step(self.spec, ccfg, self.tcfg,
                                               self.policy, lagged=lagged)
         commit = make_relay_commit(self.policy)
@@ -524,6 +551,7 @@ class VectorizedCollabTrainer:
                        noise, picks, prio, mask, idx, *lag):
             # `lag` = (hist, dl) under a download clock: the snapshot ring
             # and this round's (N,) snapshot depths
+            rstate0 = rstate
             # phase 0: the participants' (k, ...) block, gathered by `idx`
             full = (params, opt, batches, data_x, data_y, ids, noise, picks,
                     prio, mask) + lag[1:]
@@ -551,12 +579,20 @@ class VectorizedCollabTrainer:
                            for k, v in metrics.items()}
             else:
                 params, opt = p_s, o_s
+            # telemetry, over the full-width metrics and mask: a synchronous
+            # commit's lag is 0, so commit_hist is the participant count in
+            # bin 0; stale reads come from the full-width delays
+            tail = () if not telem else (obs.round_telemetry(
+                rstate0, rstate, N, mask=mask,
+                loss_parts=(metrics["total"],),
+                gnorm_parts=(metrics["grad_norm"],), mask_parts=(mask,),
+                dl=lag[1] if lagged else None),)
             if lagged:
                 # the ring advances every round, also when nothing
                 # committed: "d rounds ago" counts rounds, not merges
                 return (params, opt, rstate, history.push(lag[0], rstate),
-                        metrics)
-            return params, opt, rstate, metrics
+                        metrics) + tail
+            return (params, opt, rstate, metrics) + tail
 
         return round_core
 
@@ -601,8 +637,10 @@ class VectorizedCollabTrainer:
             mask_np = view.mask.copy()
             ids = _i32(view.seat_ids, dev)
             if view.evicted.size:
-                self.relay_state = self._evict(self.relay_state,
-                                               _i32(view.evicted, dev))
+                with self._span("evict", round=r) as sp:
+                    self.relay_state = self._evict(self.relay_state,
+                                                   _i32(view.evicted, dev))
+                    sp.block(self.relay_state)
         else:
             mask_np = np.asarray(self.schedule.mask(r, N), bool)
         present = np.nonzero(mask_np)[0]
@@ -610,9 +648,10 @@ class VectorizedCollabTrainer:
                      else np.zeros((N,), np.int64))
         dl_np = self.dl_clock.delays(r, N) if self._lagged else None
         commits = self._commits(r, mask_np, delays_np)
+        telem = None
         if self.hetero:
-            metrics_all = self._run_buckets(r, mask_np, present, delays_np,
-                                            dl_np)
+            metrics_all, telem = self._run_buckets(r, mask_np, present,
+                                                   delays_np, dl_np)
             model_size = 0
         else:
             noise, picks, prio = self._round_draws(r, range(N),
@@ -620,11 +659,14 @@ class VectorizedCollabTrainer:
             mask = torch.as_tensor(mask_np).to(dev)
             lag = ((self.hist, _i32(dl_np, dev)) if self._lagged else ())
             if self._async:
-                out = self._round_step(
-                    self.params, self.opt_state, self.relay_state,
-                    self.pending, self.batches, self.data_x, self.data_y,
-                    ids, noise, picks, prio, mask,
-                    _i32(delays_np, dev), _i32(r, dev), *lag)
+                with self._span("round_step", round=r) as sp:
+                    out = sp.block(self._round_step(
+                        self.params, self.opt_state, self.relay_state,
+                        self.pending, self.batches, self.data_x,
+                        self.data_y, ids, noise, picks, prio, mask,
+                        _i32(delays_np, dev), _i32(r, dev), *lag))
+                if self._telem:
+                    *out, telem = out
                 self.params, self.opt_state, self.relay_state, self.pending \
                     = out[:4]
             else:
@@ -637,10 +679,13 @@ class VectorizedCollabTrainer:
                     idx = torch.as_tensor(present).to(dev)
                 else:
                     idx = None                   # full width: no gather
-                out = self._round_step(
-                    self.params, self.opt_state, self.relay_state,
-                    self.batches, self.data_x, self.data_y, ids, noise,
-                    picks, prio, mask, idx, *lag)
+                with self._span("round_step", round=r) as sp:
+                    out = sp.block(self._round_step(
+                        self.params, self.opt_state, self.relay_state,
+                        self.batches, self.data_x, self.data_y, ids, noise,
+                        picks, prio, mask, idx, *lag))
+                if self._telem:
+                    *out, telem = out
                 self.params, self.opt_state, self.relay_state = out[:3]
             if self._lagged:
                 self.hist = out[-2]
@@ -652,52 +697,73 @@ class VectorizedCollabTrainer:
             C=ccfg.num_classes, d=ccfg.d_feature, m_up=ccfg.m_up,
             m_down=ccfg.m_down, model_size=model_size)
         self.ledger.log_round(up, down)
-        return collab.log_round(self.history, present, self.evaluate_all(),
-                                metrics_all, commits, up, down)
+        with self._span("eval"):
+            accs = self.evaluate_all()
+        rec = collab.log_round(self.history, present, accs, metrics_all,
+                               commits, up, down, telem)
+        self._obs.emit(rec)
+        return rec
 
     def _run_buckets(self, r: int, mask_np, present, delays_np,
-                     dl_np) -> List[Dict]:
+                     dl_np) -> Tuple[List[Dict], object]:
         """One round across the buckets: every bucket's step reads the
         round-start relay state (or, under lag, the shared ring), then one
         commit writes all uploads in bucket order and merges once. A
         synchronous round with no participant skips the commit on the host
         (the ring still advances); the asynchronous commit runs every round,
-        with the mask and delays in upload order. -> every client's
-        metrics, by client id."""
+        with the mask and delays in upload order. -> (every client's
+        metrics, by client id; the RoundTelemetry or None), the telemetry
+        computed once after the commit, with the mask and delays in client
+        id order (its counts do not depend on the order)."""
         dev = self.device
         rstate0 = self.relay_state
-        payloads, parts = [], []
-        for b in self.buckets:
-            noise, picks, prio = self._round_draws(r, b.ids,
-                                                   b.data_y.shape[1])
-            b.params, b.opt, metrics, payload = b.step(
-                b.params, b.opt, self.hist if self._lagged else rstate0,
-                b.batches, b.data_x, b.data_y, b.ids_t, noise, picks, prio,
-                torch.as_tensor(mask_np[b.ids]).to(dev),
-                *((_i32(dl_np[b.ids], dev),) if self._lagged else ()))
-            payloads.append(payload)
-            parts.append(metrics)
+        pending0 = self.pending if self._async else None
+        payloads, parts, masks = [], [], []
+        with self._span("bucket_steps", round=r) as sp:
+            for b in self.buckets:
+                noise, picks, prio = self._round_draws(r, b.ids,
+                                                       b.data_y.shape[1])
+                masks.append(torch.as_tensor(mask_np[b.ids]).to(dev))
+                b.params, b.opt, metrics, payload = b.step(
+                    b.params, b.opt, self.hist if self._lagged else rstate0,
+                    b.batches, b.data_x, b.data_y, b.ids_t, noise, picks,
+                    prio, masks[-1],
+                    *((_i32(dl_np[b.ids], dev),) if self._lagged else ()))
+                payloads.append(payload)
+                parts.append(metrics)
+            sp.block(parts)
         hist = (self.hist,) if self._lagged else ()
         out = None
-        if self._async:
-            order = self._upload_order
-            out = self._relay_commit(
-                rstate0, self.pending, payloads, _i32(r, dev),
-                _i32(delays_np[order], dev),
-                torch.as_tensor(mask_np[order]).to(dev), *hist)
-            self.relay_state, self.pending = out[:2]
-        elif self.ccfg.mode in collab.RELAY_MODES and present.size:
-            out = self._relay_commit(rstate0, payloads, *hist)
-            self.relay_state = out[0] if self._lagged else out
-        elif self._lagged:
-            self.hist = self._hist_push(self.hist, rstate0)
-        if self._lagged and out is not None:
-            self.hist = out[-1]
+        with self._span("commit", round=r) as sp:
+            if self._async:
+                order = self._upload_order
+                out = self._relay_commit(
+                    rstate0, self.pending, payloads, _i32(r, dev),
+                    _i32(delays_np[order], dev),
+                    torch.as_tensor(mask_np[order]).to(dev), *hist)
+                self.relay_state, self.pending = out[:2]
+            elif self.ccfg.mode in collab.RELAY_MODES and present.size:
+                out = self._relay_commit(rstate0, payloads, *hist)
+                self.relay_state = out[0] if self._lagged else out
+            elif self._lagged:
+                self.hist = self._hist_push(self.hist, rstate0)
+            if self._lagged and out is not None:
+                self.hist = out[-1]
+            sp.block(self.relay_state)
+        telem = None
+        if self._telem:
+            rest = ((pending0, self.pending, _i32(r, dev),
+                     _i32(delays_np, dev)) if self._async else ())
+            rest += (_i32(dl_np, dev),) if self._lagged else ()
+            telem = self._telem_fn(
+                rstate0, self.relay_state, torch.as_tensor(mask_np).to(dev),
+                tuple(masks), tuple(m["total"] for m in parts),
+                tuple(m["grad_norm"] for m in parts), *rest)
         metrics_all: List[Dict] = [None] * self.n_clients
         for b, metrics in zip(self.buckets, parts):
             for j, m in enumerate(_host_metrics(metrics)):
                 metrics_all[int(b.ids[j])] = m
-        return metrics_all
+        return metrics_all, telem
 
     def run(self, rounds: int, log_every: int = 0) -> List[Dict]:
         for k in range(rounds):

@@ -48,6 +48,11 @@ behind these functions; the engines do the rest.
       mask-weighted sum, and pass its result to `merge_round`. The sharded
       relay keeps per-shard sums this way; None keeps every other policy's
       reduction, byte for byte.
+  debug_entries(state) -> list of dicts
+      Introspection on the host, outside every step (tests, notebooks): the
+      live slots as {"obs", "valid", "owner", ...} dicts in slot order,
+      with the policy's own keys ("class" and "age" of per_class, "age" of
+      staleness, "shard" of the sharded relay).
 
 Every state is a NamedTuple of tensors on one device and carries the shared
 prototype fields (`global_protos`, `valid_g`, `mean_logits`), a logical
@@ -166,6 +171,9 @@ class RelayPolicy:
         raise NotImplementedError
 
     def evict_owners(self, state, owners):
+        raise NotImplementedError
+
+    def debug_entries(self, state):
         raise NotImplementedError
 
     # when None the engines keep their own mask-weighted prototype sum

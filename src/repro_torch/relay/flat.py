@@ -189,3 +189,8 @@ class FlatRelay(base.RelayPolicy):
 
     def evict_owners(self, state, owners):
         return evict_slots(state, owners)
+
+    def debug_entries(self, state):
+        owner = state.owner.tolist()
+        return [{"obs": state.obs[i], "valid": state.valid[i], "owner": o}
+                for i, o in enumerate(owner) if o != EMPTY_OWNER]

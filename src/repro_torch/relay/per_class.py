@@ -165,3 +165,11 @@ class PerClassRelay(base.RelayPolicy):
             valid=state.valid & ~hit,
             age=torch.where(hit, zero, state.age),
             stamp=torch.where(hit, zero, state.stamp))
+
+    def debug_entries(self, state):
+        valid = state.valid.cpu().numpy()
+        owner, age = state.owner.cpu().numpy(), state.age.cpu().numpy()
+        return [{"obs": state.obs[c, s], "class": int(c),
+                 "valid": bool(valid[c, s]), "owner": int(owner[c, s]),
+                 "age": int(age[c, s])}
+                for c, s in zip(*np.nonzero(valid))]

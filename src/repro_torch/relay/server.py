@@ -98,3 +98,7 @@ class RelayServer:
     @property
     def mean_logits(self) -> torch.Tensor:
         return self.state.mean_logits
+
+    def debug_entries(self):
+        """The live slots of the state as the policy's entry dicts."""
+        return self.policy.debug_entries(self.state)

@@ -31,8 +31,7 @@ shard's own merge. With S = 1 the gossip mean IS the inner merge and
 `reduce_uploads` is the engines' own weighted sum, op for op, so
 `sharded:<inner>,1` evolves the state of `<inner>` bit for bit.
 
-Not ported here: `out_spec` (placement, ROADMAP slice 9) and
-`debug_entries` (introspection, slice 6).
+Not ported here: `out_spec` (placement, ROADMAP slice 9).
 """
 from __future__ import annotations
 
@@ -265,3 +264,9 @@ class ShardedRelay(base.RelayPolicy):
         clocks = state.clock.cpu().numpy()
         return clocks[shard_of(np.asarray(owners, np.int64),
                                self.shards)].astype(np.int64)
+
+    def debug_entries(self, state):
+        """The inner policy's entries of every shard, each tagged with its
+        shard."""
+        return [{**e, "shard": s} for s in range(self.shards)
+                for e in self.inner.debug_entries(shard_view(state, s))]

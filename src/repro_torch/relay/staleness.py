@@ -126,3 +126,9 @@ class StalenessRelay(base.RelayPolicy):
 
     def evict_owners(self, state, owners):
         return flat.evict_slots(state, owners)      # resets age too
+
+    def debug_entries(self, state):
+        owner, age = state.owner.tolist(), state.age.tolist()
+        return [{"obs": state.obs[i], "valid": state.valid[i], "owner": o,
+                 "age": age[i]}
+                for i, o in enumerate(owner) if o != EMPTY_OWNER]

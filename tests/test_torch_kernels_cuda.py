@@ -423,6 +423,55 @@ def test_vec_round_on_the_card_never_syncs_and_matches_seq(cuda):
         assert max(abs(p - q) for p, q in zip(ra["accs"], rb["accs"])) <= 2e-2
 
 
+@pytest.mark.parametrize("fleet", [
+    {}, {"participation": "uniform_k:2"},
+    {"clock": "lognormal:2", "download_clock": "periodic:2,3"},
+    {"policy": "sharded:flat,2", "arrivals": "stream:2,1.5,0.3,7,0"}])
+def test_telemetry_step_on_the_card_never_syncs(cuda, fleet):
+    """The round step built with telemetry, under CUDA sync-debug mode
+    "error" for three rounds (synchronous, compacted, asynchronous with
+    download lag, streaming): it returns the RoundTelemetry last, the host
+    reads it once a round, and its integer leaves equal the sequential
+    engine's on the card."""
+    from repro_torch import obs
+    from repro_torch.core import client, collab, vec_collab
+    from repro_torch.data import partition, synthetic
+    from repro_torch.models import mlp
+    from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
+    x, y = synthetic.class_images(192, seed=0, noise=0.4)
+    parts = partition.uniform_split(x, y, 3, seed=1)
+    spec = client.ClientSpec(apply=mlp.apply,
+                             head=lambda p: (p["head_w"], p["head_b"]))
+
+    def build(cls):
+        gen = torch.Generator().manual_seed(0)
+        ps = [mlp.init_mlp(gen, device="cpu") for _ in range(3)]
+        return cls([spec] * 3, ps, parts, (x, y), CollabConfig(lambda_kd=2.0),
+                   TrainConfig(), seed=0, fleet=FleetConfig(**fleet),
+                   device=cuda, telemetry=True)
+
+    vec = build(vec_collab.VectorizedCollabTrainer)
+    step = vec._round_step
+
+    def no_sync_step(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert isinstance(out[-1], obs.RoundTelemetry)
+        assert out[-1].occupancy.is_cuda
+        return out
+
+    vec._round_step = no_sync_step
+    vec.run(3)
+    seq = build(collab.CollabTrainer)
+    seq.run(3)
+    for ra, rb in zip(vec.history, seq.history):
+        for k in obs.metrics.EXACT_LEAVES:
+            assert ra["telemetry"][k] == rb["telemetry"][k], k
+
+
 def test_ops_raise_on_what_the_kernels_do_not_take(cuda):
     s, q, y, _ = _disc_inputs(8, 10, 10, False, cuda)
     with pytest.raises(ValueError):

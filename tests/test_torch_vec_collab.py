@@ -297,9 +297,11 @@ def test_vec_engine_rejects_what_it_does_not_run():
                   FleetConfig(arrivals="stream:2,1,0.1,100,0")):
         tvec.VectorizedCollabTrainer(*args, CollabConfig(), TrainConfig(),
                                      fleet=fleet, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
+    assert tvec.VectorizedCollabTrainer(*args, CollabConfig(), TrainConfig(),
+                                        telemetry=True, device="cpu")._telem
+    with pytest.raises(TypeError, match="telemetry"):
         tvec.VectorizedCollabTrainer(*args, CollabConfig(), TrainConfig(),
-                                     telemetry=True, device="cpu")
+                                     telemetry="yes", device="cpu")
     other = tclient.ClientSpec(apply=tmlp.apply,
                                head=lambda p: (p["head_w"], p["head_b"]))
     with pytest.raises(ValueError, match="fedavg"):
