@@ -113,19 +113,36 @@ Phases (each failure raises, so the process exits non-zero):
      step after a prefill of S-1 tokens against the prefill of S;
   9. serve profile: one prefill and 4 decode steps under torch.profiler
      (device busy share, flash_attention's device time per launch and its
-     share of the prefill's device time).
+     share of the prefill's device time);
+  10. train (`repro_torch.launch.train`): 10a, the reduced float32
+     TinyLlama and xLSTM, 3 cors steps of 2 clients and a round sync over
+     stats from prototypes.accumulate, on the card and on the CPU from the
+     same weights, batches and negative ids (metrics, parameters, Adam
+     moments, ProtoState and steps within PARITY_* of each other); 10b,
+     TinyLlama-1.1B at its published widths (bf16, random weights from
+     seed 0), 2 clients x batch 2 x 2048 tokens, cors, L_disc on 4096
+     tokens, the merge in every step, 3 steps: metrics finite, the
+     parameters moved, proto counts 3 x 8192, exactly one proto_accum
+     launch a step (the client axis, (2, 4096, 2048, 32000)) and no
+     flash_attention launch (training attends with the plain functions),
+     peak memory under 70 GB; s/step, tokens/s, model FLOPs against bf16
+     peak, and one profiled step (busy share, device ops, top kernels,
+     proto_accum's device time); 10c, the collab_lm twin on the card for
+     2 rounds under lognormal:2 uploads and periodic:2,3 downloads, its
+     JSONL rendered.
 Phase 4 also holds three faulty flash results at the serving shape against
 the bf16 check, which must reject each: a bf16 accumulator, the last 16 keys
 dropped, and P rounded to bf16 once before P V.
 Phase 4 also runs every disc_loss and proto_accum shape twice and requires
-equal bits, and runs the kernels with a leading client axis (the vectorized
-engine's shapes), whose results must be bit-equal to one launch a client,
+equal bits (proto_accum also at 10b's shape, (2, 4096, 2048, 32000)), and
+runs the kernels with a leading client axis (the vectorized engine's
+shapes), whose results must be bit-equal to one launch a client,
 also on a (k, ...) block gathered by `index_select` from an N-client stack
 (static-k compaction's shapes: k = 3 of 5, 8 of 32); phase 6 requires one
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c, 5d, 5e, 5f and 5g) before the last line,
+phases 5c, 5d, 5e, 5f, 5g and 10b) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -301,6 +318,27 @@ CHECK_PROMPT = 256
 # about 3.4e-6 x max|logit| for both; bf16 attention in the same model must
 # fail it.
 CHECK_TOL = 5e-5
+# Phase 10: LM training (launch/train.py). 10a holds the step on the card
+# against the CPU on reduced float32 models; 10b trains TinyLlama-1.1B at
+# its published widths (bf16, random weights from seed 0): 2 clients, cors,
+# batch 2 x 2048 tokens a client (its context), L_disc on T = 4096 tokens,
+# the merge in every step (sync_in_step, the reference's default), LM_STEPS
+# steps; 10c runs the collab_lm twin on the card.
+LM_CLIENTS, LM_STEPS = 2, 3
+LM_BATCH, LM_SEQ, LM_DISC_TOKENS = 2, 2048, 8192
+LM_MEM_LIMIT = 70e9            # the peak 10b must stay under
+PARITY_BATCH, PARITY_SEQ, PARITY_DISC = 4, 64, 128
+# 10a's tolerances, card against CPU (the same weights, batches and
+# negative ids; TF32 off): metrics |d| <= 1e-4 x max(1, |m|) (float32
+# products summed in another order); parameters: Adam's first steps move
+# an element by about lr whatever its gradient's size, so an element whose
+# gradient is ~0 may move the other way: |d| <= 2 lr a step, and at most
+# 1% of the elements beyond 1e-4; ProtoState sums within 5e-3 x
+# max(1, |sum|) (the features of parameters that differ so), counts equal.
+PARITY_MET_TOL, PARITY_PARAM_TOL, PARITY_PARAM_FRAC = 1e-4, 1e-4, 0.01
+PARITY_PROTO_TOL = 5e-3
+# proto_accum at 10b's shape: (N, B*S, d', V)
+LM_PROTO_SHAPE = (LM_CLIENTS, LM_BATCH * LM_SEQ, 2048, 32000)
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -535,9 +573,12 @@ def check_proto_batched(N, n, d, C, dtype, dev, gen):
     lab = torch.randint(0, C, (N, n), generator=gen, dtype=torch.int32).to(dev)
     tag = f"proto_accum batched ({N}, {n}, {d}, {C}) {str(dtype).split('.')[-1]}"
     out = ops.proto_accum(f, lab, C)
+    again = ops.proto_accum(f, lab, C)
     per = [ops.proto_accum(f[i], lab[i], C) for i in range(N)]
     torch.cuda.synchronize()
     for k in range(2):
+        if not torch.equal(out[k], again[k]):
+            raise AssertionError(f"{tag}: two launches disagree")
         if not torch.equal(out[k], torch.stack([p[k] for p in per])):
             raise AssertionError(f"{tag}: output {k} differs from one launch "
                                  f"a client")
@@ -552,8 +593,8 @@ def check_proto_batched(N, n, d, C, dtype, dev, gen):
     r["bound_ms"], r["bound_by"] = bound_ms(
         N * (n * d * f.element_size() + 4 * n + 4 * (C * d + C)), N * n * d)
     r["share_of_bound"] = r["bound_ms"] / r["ms"]
-    print(f"[kernels] {tag}: max_abs_err {err:.3e}, bit-equal to {N} "
-          f"one-client launches, kernel_ms {r['ms']:.4f} plain_ms "
+    print(f"[kernels] {tag}: max_abs_err {err:.3e}, two launches and {N} "
+          f"one-client launches bit-equal, kernel_ms {r['ms']:.4f} plain_ms "
           f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} (index_add_ "
           f"on f32) bound_ms {r['bound_ms']:.6f} ({r['bound_by']}), "
           f"{r['share_of_bound']:.3f} of the bound")
@@ -752,6 +793,11 @@ def phase_kernels(dev):
         r = check_proto_batched(CLIENTS, 240, d, 10, dtype, dev, gen)
         res["proto_accum_batched"].append(
             dict(r, shape=[CLIENTS, 240, d, 10, str(dtype).split(".")[-1]]))
+    # the LM train step's upload stats (phase 10b's shape): features cast to
+    # float32 by prototypes.accumulate
+    r = check_proto_batched(*LM_PROTO_SHAPE, torch.float32, dev, gen)
+    res["proto_accum_batched"].append(dict(r, shape=[*LM_PROTO_SHAPE,
+                                                     "float32"]))
     for B, S, H, G, hd in FLASH_SHAPES:        # the main path's row first
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
@@ -1835,6 +1881,253 @@ def phase_serve_profile(cfg, params, prompts):
             "prefill_busy": busy / 1e6 / wall, "decode_busy": busy_d / 1e6 / wall_d}
 
 
+def lm_train_batches(vocab, n_clients, batch, seq, steps, seed):
+    """`steps` stacked (N, B, S) batches of tokens and labels from the
+    synthetic Markov stream, a private slice of it a client."""
+    import numpy as np
+    from repro_torch.data import synthetic
+    n_tok = max(4 * batch * (seq + 1), 20_000)
+    stream = synthetic.token_stream(n_clients * n_tok, vocab=vocab,
+                                    seed=seed)
+    per = [list(synthetic.lm_batches(stream[i * n_tok:(i + 1) * n_tok],
+                                     batch, seq, steps, seed=seed + i))
+           for i in range(n_clients)]
+    return [{k: torch.as_tensor(np.stack([p[s][k] for p in per]))
+             for k in ("tokens", "labels")} for s in range(steps)]
+
+
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda a: a.to(dev), tree)
+
+
+def lm_stats(cfg, params, batch, n_clients):
+    """The round's upload stats of the clients' current models on `batch`,
+    through prototypes.accumulate with the client axis (one launch)."""
+    from repro_torch.core import prototypes
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    feats = []
+    with torch.no_grad():
+        for i in range(n_clients):
+            p = tree_map(lambda a: a[i], params)
+            f = lm.forward(p, cfg, {"tokens": batch["tokens"][i]})["features"]
+            feats.append(f.reshape(-1, f.shape[-1]))
+    dev = feats[0].device
+    return prototypes.accumulate(
+        prototypes.init_state(cfg.vocab_size, cfg.d_feature, dev,
+                              clients=n_clients),
+        torch.stack(feats), batch["labels"].reshape(n_clients, -1).to(dev))
+
+
+def phase_lm_parity(dev):
+    """10a: make_train_step (2 clients, cors, 3 steps), then make_round_sync
+    over stats from prototypes.accumulate, on the card and on the CPU from
+    the same weights, batches and negative ids."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+    from repro_torch.types import CollabConfig
+    worst = {}
+    for arch in ("tinyllama-1.1b", "xlstm-125m"):
+        cfg = get_arch(arch).reduced()
+        ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
+                            d_feature=cfg.d_feature)
+        cpu = train.init_state(cfg, torch.Generator().manual_seed(0),
+                               LM_CLIENTS, device="cpu")
+        gpu = _to(cpu, dev)
+        batches = lm_train_batches(cfg.vocab_size, LM_CLIENTS, PARITY_BATCH,
+                             PARITY_SEQ, LM_STEPS, seed=3)
+        gen = torch.Generator().manual_seed(5)
+        negs = [train.draw_negatives(gen, cfg, ccfg, LM_CLIENTS)
+                for _ in range(LM_STEPS)]
+        step = train.make_train_step(cfg, ccfg, n_clients=LM_CLIENTS,
+                                     disc_tokens=PARITY_DISC)
+        e_met = 0.0
+        for s, (b, neg) in enumerate(zip(batches, negs)):
+            cpu, mc = step(cpu, b, neg)
+            gpu, mg = step(gpu, _to(b, dev), neg.to(dev))
+            for k in mc:
+                e = abs(float(mg[k]) - float(mc[k]))
+                if not e <= PARITY_MET_TOL * max(1.0, abs(float(mc[k]))):
+                    raise AssertionError(f"[train parity] {arch} step {s} "
+                                         f"{k}: card {float(mg[k])} cpu "
+                                         f"{float(mc[k])}")
+                e_met = max(e_met, e)
+        sync = train.make_round_sync(ccfg)
+        cpu = sync(cpu, lm_stats(cfg, cpu.params, batches[-1], LM_CLIENTS))
+        gpu = sync(gpu, lm_stats(cfg, gpu.params, _to(batches[-1], dev),
+                                 LM_CLIENTS))
+        e_par, n_far, n_all = 0.0, 0, 0
+        for a, b in zip(leaves((cpu.params, cpu.opt.m)),
+                        leaves((gpu.params, gpu.opt.m))):
+            d = (b.cpu().float() - a.float()).abs()
+            e_par = max(e_par, float(d.max()))
+            n_far += int((d > PARITY_PARAM_TOL).sum())
+            n_all += d.numel()
+        lim = 2 * 1e-3 * LM_STEPS
+        if not (e_par <= lim and n_far <= PARITY_PARAM_FRAC * n_all):
+            raise AssertionError(f"[train parity] {arch}: parameters differ "
+                                 f"by {e_par:.3e} (limit {lim}), {n_far} of "
+                                 f"{n_all} beyond {PARITY_PARAM_TOL}")
+        if not torch.equal(gpu.proto.count.cpu(), cpu.proto.count):
+            raise AssertionError(f"[train parity] {arch}: proto counts differ")
+        if not (torch.equal(gpu.opt.step.cpu(), cpu.opt.step)
+                and int(gpu.step) == int(cpu.step) == LM_STEPS):
+            raise AssertionError(f"[train parity] {arch}: step counts differ")
+        e_pro = float((gpu.proto.sum.cpu() - cpu.proto.sum).abs().max())
+        scale = max(1.0, float(cpu.proto.sum.abs().max()))
+        if not e_pro <= PARITY_PROTO_TOL * scale:
+            raise AssertionError(f"[train parity] {arch}: proto sums differ "
+                                 f"by {e_pro:.3e} > {PARITY_PROTO_TOL} x "
+                                 f"{scale:.3e}")
+        worst[arch] = {"metrics": e_met, "params": e_par,
+                       "params_beyond_1e-4": n_far / n_all, "proto_sum": e_pro}
+        print(f"[train parity] {cfg.name}: {LM_STEPS} cors steps of "
+              f"{LM_CLIENTS} clients (B {PARITY_BATCH}, S {PARITY_SEQ}) and a "
+              f"round sync, card vs cpu: metrics {e_met:.3e}, parameters and "
+              f"moments {e_par:.3e} ({n_far} of {n_all} beyond "
+              f"{PARITY_PARAM_TOL}), proto sums {e_pro:.3e} of {scale:.3e}, "
+              f"counts and steps equal")
+    return worst
+
+
+def lm_step_flops(cfg, n_clients, B, S, T, K):
+    """-> (hardware, model) FLOPs of one train step, from the shapes.
+    Hardware FLOPs count what the step runs: dense products 2 x params x
+    tokens forward, run twice by the per-layer remat and twice more in the
+    backward (8 P T), and attention's two products over all S^2 pairs (the
+    plain functions mask, they do not skip) at the same 4x. Model FLOPs
+    count 6 P T and the causal half of the pairs at 3x. Both count L_disc's
+    teacher logits (T + K) x d' x V and its two products with the student's
+    softmax, 3x for the backward."""
+    d, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
+    H, G, hd, ff = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    per_layer = d * H * hd * 2 + d * G * hd * 2 + 3 * d * ff
+    dense = 2 * (L * per_layer + d * V) * B * S
+    attn = L * 4 * B * S * S * H * hd
+    disc = 2 * (T + K) * d * V + 2 * T * V + 2 * T * K * V
+    return (n_clients * (4 * (dense + attn) + 3 * disc),
+            n_clients * (3 * (dense + attn / 2) + 3 * disc))
+
+
+def phase_lm_train(dev):
+    """10b: full-width TinyLlama-1.1B training steps on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+    from repro_torch.types import CollabConfig
+    cfg = get_arch("tinyllama-1.1b")
+    ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
+                        d_feature=cfg.d_feature)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             LM_CLIENTS, device=dev)
+    n_par = sum(t.numel() for t in leaves(state.params)) // LM_CLIENTS
+    head0 = state.params["lm_head"].clone()
+    batches = [_to(b, dev) for b in lm_train_batches(
+        cfg.vocab_size, LM_CLIENTS, LM_BATCH, LM_SEQ, LM_STEPS + 1, seed=0)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    negs = [train.draw_negatives(gen, cfg, ccfg, LM_CLIENTS)
+            for _ in range(LM_STEPS + 1)]
+    step = train.make_train_step(cfg, ccfg, n_clients=LM_CLIENTS,
+                                 disc_tokens=LM_DISC_TOKENS)
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"V={cfg.vocab_size} {cfg.dtype}, {n_par / 1e9:.3f} B parameters a "
+          f"client, {LM_CLIENTS} clients x batch {LM_BATCH} x {LM_SEQ} tokens, "
+          f"set up in {time.perf_counter() - t0:.2f} s")
+    ops.reset_launches()
+    secs, mets = [], []
+    for s in range(LM_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s], negs[s])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+        print(f"[train] step {s + 1}: {secs[-1]:.3f} s, {mets[-1]}")
+    launches, batched = dict(ops.LAUNCHES), dict(ops.LAUNCHES_BATCHED)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": LM_STEPS,
+            "flash_attention": 0}
+    if launches != want:
+        raise AssertionError(f"[train] launch counts {launches} != {want}")
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": LM_STEPS}
+    if batched != want:                 # every launch with the client axis
+        raise AssertionError(f"[train] launches with a client axis {batched}"
+                             f" != {want}")
+    if not all(math.isfinite(v) for m in mets for v in m.values()):
+        raise AssertionError(f"[train] non-finite metrics {mets}")
+    tokens = LM_CLIENTS * LM_BATCH * LM_SEQ
+    if int(state.proto.count.sum()) != LM_STEPS * tokens:
+        raise AssertionError(f"[train] proto count {state.proto.count.sum()} "
+                             f"!= {LM_STEPS * tokens}")
+    moved = float((state.params["lm_head"] - head0).float().abs().max())
+    if not (moved > 0 and all(bool(torch.isfinite(t).all())
+                              for t in leaves(state.params))):
+        raise AssertionError(f"[train] parameters did not move or are not "
+                             f"finite (lm_head moved {moved})")
+    if peak > LM_MEM_LIMIT:
+        raise AssertionError(f"[train] peak memory {peak / 1e9:.1f} GB > "
+                             f"{LM_MEM_LIMIT / 1e9:.0f} GB")
+    s_step = statistics.median(secs[1:])
+    T = min(LM_DISC_TOKENS, LM_BATCH * LM_SEQ)
+    flops, model_flops = lm_step_flops(cfg, LM_CLIENTS, LM_BATCH, LM_SEQ, T,
+                                       train.num_negatives(cfg, ccfg))
+    print(f"[train] launches {launches}, with a client axis {batched}; "
+          f"proto count {LM_STEPS} x {tokens}; lm_head moved {moved:.3e}; "
+          f"s/step {s_step:.4f} (median of steps 2-{LM_STEPS}), "
+          f"{tokens / s_step:.1f} tokens/s, peak memory {peak / 1e9:.2f} GB; "
+          f"hardware FLOPs a step (remat and masked pairs) {flops:.3e} -> "
+          f"{flops / s_step / 1e12:.1f} TFLOP/s, "
+          f"{flops / s_step / BF16_FLOPS:.3f} of bf16 peak; model FLOPs "
+          f"(6 P T, causal) {model_flops:.3e} -> "
+          f"{model_flops / s_step / BF16_FLOPS:.3f} of bf16 peak")
+    wall, ev = profile(lambda: step(state, batches[-1], negs[-1]))
+    busy, port = report_profile("train profile", wall, ev, top=15)
+    n_pa, us_pa = port["proto_accum"]
+    if n_pa != 1 or "flash_attention" in port:
+        raise AssertionError(f"[train profile] port kernels {port}")
+    print(f"[train profile] proto_accum {us_pa:.2f} us a launch at "
+          f"{LM_PROTO_SHAPE}; {100 * us_pa / busy:.3f}% of the step's device "
+          f"time")
+    return {"s_per_step": s_step, "tokens_per_s": tokens / s_step,
+            "peak_bytes": peak, "hardware_flops": flops,
+            "share_of_bf16_peak": flops / s_step / BF16_FLOPS,
+            "model_flops": model_flops,
+            "model_share_of_bf16_peak": model_flops / s_step / BF16_FLOPS,
+            "busy_share": busy / 1e6 / wall, "device_ops": sum(e.count
+                                                               for e in ev),
+            "proto_accum_us": us_pa, "launches": launches,
+            "launches_batched": batched, "steps_s": secs}
+
+
+def phase_lm_twin(dev):
+    """10c: the collab_lm twin on the card, 2 rounds under an upload and a
+    download clock, its JSONL rendered."""
+    from repro_torch import collab_lm, obs
+    from repro_torch.obs import report
+    with tempfile.TemporaryDirectory() as tdir:
+        path = os.path.join(tdir, "lm.jsonl")
+        t0 = time.perf_counter()
+        collab_lm.main(["--rounds", "2", "--clock-model", "lognormal:2",
+                        "--download-clock", "periodic:2,3", "--telemetry-out",
+                        path, "--device", str(dev)])
+        secs = time.perf_counter() - t0
+        records = obs.read_jsonl(path)
+        text = report.render(records)
+    if len(records) != 2 or "run report: 2 rounds" not in text:
+        raise AssertionError(f"[lm twin] JSONL of {len(records)} records")
+    for r in records:
+        if not all(math.isfinite(v) for v in r["ce"].values()):
+            raise AssertionError(f"[lm twin] non-finite CE {r['ce']}")
+    print(f"[lm twin] 2 rounds on the card in {secs:.2f} s; the JSONL "
+          f"renders ({len(text.splitlines())} lines)")
+    return secs
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -1893,6 +2186,11 @@ def main():
     del params
     torch.cuda.empty_cache()
     e_k, e_d, e_c = phase_serve_check(dev)
+    torch.cuda.empty_cache()
+    lm_parity = phase_lm_parity(dev)
+    lm_train = phase_lm_train(dev)
+    torch.cuda.empty_cache()
+    lm_twin_s = phase_lm_twin(dev)
     launches["flash_attention"] = serve_launches["flash_attention"]
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         launches[name + "_batched"] = launches_vec[name]
@@ -1923,6 +2221,15 @@ def main():
             k["launches_by_path"] = {
                 p: v["vec" if name.endswith("_batched") else "seq"][j]
                 for p, v in paths.items()}
+        # 10b's launches, split as the wrappers counted them: with a client
+        # axis (the _batched rows) or without
+        base = name.removesuffix("_batched")
+        n_b = lm_train["launches_batched"].get(base, 0)
+        k.setdefault("launches_by_path", {})["lm_train"] = (
+            n_b if name.endswith("_batched")
+            else lm_train["launches"][base] - n_b)
+        if name == "proto_accum_batched":
+            k["lm_train_device_us_per_launch"] = lm_train["proto_accum_us"]
         if name == "flash_attention":
             k["share_of_prefill_device_time"] = prof["flash_share"]
             k["controls_times_limit"] = {n: c[0] for n, c in controls.items()}
@@ -1938,7 +2245,10 @@ def main():
           f"{json.dumps(async_scale)}; N={CLIENTS} shards "
           f"{json.dumps(shard_cost)}; N={SCALE_CLIENTS} population "
           f"{json.dumps(population)}; telemetry on / off "
-          f"{json.dumps(telemetry)}")
+          f"{json.dumps(telemetry)}; lm train parity "
+          f"{json.dumps(lm_parity)}; lm train "
+          f"{json.dumps({k: v for k, v in lm_train.items() if 'launches' not in k})}"
+          f"; lm twin 2 rounds {lm_twin_s:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,11 @@ the port. Dense weights keep their (in, out) layout, and the LeNet flattens
 its pooled activation in NHWC order (`models/cnn.py`), so `fc1` is copied as
 is. A leading client axis (the vectorized engines' stacked parameters) is
 kept. An LM's stacked segments are split into per-layer dicts. A relay
-state of any policy converts field by field (`relay_state_to_numpy`).
+state of any policy converts field by field (`relay_state_to_numpy`). An
+LM `TrainState` converts both ways (`train_state_from_jax`,
+`train_state_to_numpy`): stacked clients, layer-stacked segments to
+per-layer lists and back, the stacked `AdamState`, the `ProtoState` and
+the step.
 """
 from __future__ import annotations
 
@@ -71,8 +75,10 @@ def params_to_numpy(params: Dict[str, torch.Tensor],
 
 
 def _tensor(a, device) -> torch.Tensor:
-    """numpy array -> tensor of the same dtype (bfloat16 arrays, which numpy
-    knows only through an extension dtype, by their bits)."""
+    """numpy array (or tensor) -> tensor of the same dtype (bfloat16 arrays,
+    which numpy knows only through an extension dtype, by their bits)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
@@ -86,28 +92,100 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def lm_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """The reference's `lm.init_lm` pytree, its leaves as numpy arrays ->
-    the port's LM parameters (`models/lm.py`) on `device`, same dtypes.
+def _take(a, i: int, axis: int):
+    return a[i] if axis == 0 else a[:, i]
 
-    `segments[i]` is a dict of leaves stacked on a leading layer axis in the
-    reference; here it becomes a list of per-layer dicts. Dense weights keep
-    the reference's (in, out) layout (the port multiplies `x @ w`), so no
-    leaf is transposed."""
+
+def lm_params_from_jax(tree: Dict[str, Any], device=None,
+                       clients: bool = False) -> Dict[str, Any]:
+    """The reference's `lm.init_lm` pytree (TinyLlama or xLSTM), its leaves
+    as numpy arrays (or CPU tensors) -> the port's LM parameters
+    (`models/lm.py`) on `device`, same dtypes. With `clients`, every leaf
+    leads with a client axis (a `TrainState`'s), which is kept.
+
+    `segments[i]` is a dict of leaves stacked on a layer axis in the
+    reference (after the client axis); here it becomes a list of per-layer
+    dicts. Dense weights keep the reference's (in, out) layout (the port
+    multiplies `x @ w`), so no leaf is transposed."""
     dev = resolve_device(device)
+    axis = int(clients)
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if k == "segments":
-            segs = []
-            for seg in v:
-                n = len(np.asarray(seg["norm1"]["scale"]))
-                segs.append([_map(seg, lambda a, i=i: _tensor(np.asarray(a)[i],
-                                                               dev))
-                             for i in range(n)])
-            out[k] = segs
+            out[k] = [[_map(seg, lambda a, i=i: _tensor(_take(a, i, axis),
+                                                        dev))
+                       for i in range(seg["norm1"]["scale"].shape[axis])]
+                      for seg in v]
         else:
             out[k] = _map(v, lambda a: _tensor(a, dev))
     return out
+
+
+def _host(t: torch.Tensor):
+    """A tensor -> numpy on the host; a bfloat16 one stays a CPU tensor
+    (numpy has no bfloat16; `checkpoint.save_pytree` writes it as the
+    reference does)."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def lm_params_to_numpy(params: Dict[str, Any],
+                       clients: bool = False) -> Dict[str, Any]:
+    """`lm_params_from_jax` backwards: per-layer lists stacked on the layer
+    axis (after the client axis, with `clients`), leaves on the host."""
+    axis = int(clients)
+    out: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k == "segments":
+            out[k] = [_stack_layers(seg, axis) for seg in v]
+        else:
+            out[k] = _map(v, _host)
+    return out
+
+
+def _stack_layers(layers, axis: int):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {name: _stack_layers([lp[name] for lp in layers], axis)
+                for name in first}
+    return _host(torch.stack(layers, dim=axis))
+
+
+def train_state_from_jax(state, device=None):
+    """The reference's `TrainState` (its leaves numpy arrays, for example
+    `jax.tree.map(np.asarray, state)`, or a checkpoint loaded onto
+    `train_state_to_numpy`'s layout) -> the port's `launch.train.TrainState`
+    on `device`: client-stacked LM parameters and Adam moments, the (N,)
+    Adam step, the ProtoState and the step."""
+    from repro_torch.core.prototypes import ProtoState
+    from repro_torch.launch.train import TrainState
+    from repro_torch.optim import AdamState
+    dev = resolve_device(device)
+    conv = lambda tree: lm_params_from_jax(tree, dev, clients=True)
+    opt = state.opt
+    return TrainState(
+        conv(state.params),
+        AdamState(_tensor(opt.step, dev), conv(opt.m), conv(opt.v)),
+        ProtoState(_tensor(state.proto.sum, dev),
+                   _tensor(state.proto.count, dev)),
+        _tensor(state.step, dev))
+
+
+def train_state_to_numpy(state):
+    """The port's `TrainState` -> the reference's layout, as the port's own
+    NamedTuples (whose fields are the reference's) with host leaves: saved
+    by `checkpoint.save_pytree`, its keys are the reference's
+    `TrainState` paths."""
+    from repro_torch.core.prototypes import ProtoState
+    from repro_torch.launch.train import TrainState
+    from repro_torch.optim import AdamState
+    conv = lambda tree: lm_params_to_numpy(tree, clients=True)
+    return TrainState(conv(state.params),
+                      AdamState(_host(state.opt.step), conv(state.opt.m),
+                                conv(state.opt.v)),
+                      ProtoState(_host(state.proto.sum),
+                                 _host(state.proto.count)),
+                      _host(state.step))
 
 
 def relay_state_to_numpy(state) -> Dict[str, np.ndarray]:

@@ -3,8 +3,11 @@ the port of `repro/core/losses.py`.
 
 L_disc (Eq. 5/7) uses the model's own classifier tau_u as the discriminator:
 h(s, t) = <softmax(tau_u(s)), softmax(tau_u(t))>, trained as a binary
-"same class?" classifier with one positive and K = C - 1 negatives. On the
-card it runs through the hand-written disc_loss kernels (`kernels/ops.py`).
+"same class?" classifier with one positive and K negatives. Two regimes:
+`disc_loss`, K = C - 1 (paper-faithful), on the card through the
+hand-written disc_loss kernels (`kernels/ops.py`); and `disc_loss_sampled`,
+K sampled negative classes (LM-scale vocabularies), plain PyTorch as the
+reference's jnp.
 
 Every loss takes an optional leading client axis (the vectorized engine's
 stacked fleet): each is a mean over its own client's samples, a scalar for
@@ -82,6 +85,45 @@ def disc_loss(features, obs, labels, head_w, head_b=None, valid=None,
          else valid.float())
     sample_valid = torch.take_along_dim(v, labels.long(), dim=-1)  # drop s with no t^y
     return (per * sample_valid).sum(-1) / sample_valid.sum(-1).clamp(min=1.0)
+
+
+_EPS = 1e-7
+
+
+def sample_negatives(gen: torch.Generator, num_negatives: int,
+                     num_classes: int, lead=()):
+    """K negative class ids uniform in [0, C), (*lead, K) int64, drawn from
+    `gen` on its device (the reference draws them with
+    `jax.random.randint(key, (K,), 0, C)`)."""
+    return torch.randint(0, num_classes, tuple(lead) + (num_negatives,),
+                         generator=gen, device=gen.device)
+
+
+def disc_loss_sampled(neg_ids, features, protos, labels, head_w, head_b=None,
+                      student_logits=None):
+    """LM-scale L_disc: K sampled negative classes `neg_ids` (K,), shared
+    across the batch; the port of `repro/core/losses.py:92-116`, which
+    draws them inside.
+
+    protos (C, d') act as the observation bank and are constants; the
+    gradient flows into the student logits and, through tau_u, into
+    head_w (and head_b) on the teacher side too, as `jax.grad` does. A
+    sampled class equal to y_i is masked out for that sample (it would be
+    a false negative). features (B, d'), labels (B,) -> a scalar.
+    """
+    s_logits = (_tau(head_w, head_b, features)
+                if student_logits is None else student_logits)
+    lab, neg = labels.long(), neg_ids.long()
+    z_pos = _tau(head_w, head_b, protos[lab])                     # (B, C)
+    z_neg = _tau(head_w, head_b, protos[neg])                     # (K, C)
+    p = torch.softmax(s_logits.float(), dim=-1)                   # (B, C)
+    h_pos = torch.clamp((p * torch.softmax(z_pos, dim=-1)).sum(-1),
+                        _EPS, 1 - _EPS)                           # (B,)
+    h_neg = torch.clamp(p @ torch.softmax(z_neg, dim=-1).T,
+                        _EPS, 1 - _EPS)                           # (B, K)
+    not_self = (neg[None, :] != lab[:, None]).float()
+    loss = -torch.log(h_pos) - (torch.log1p(-h_neg) * not_self).sum(-1)
+    return loss.mean()
 
 
 def mi_lower_bound(disc, K: int):

@@ -110,7 +110,8 @@ from repro_torch.core import baselines, client as client_lib, collab, comm, \
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
 from repro_torch.relay import events, history, participation
-from repro_torch.relay.participation import freeze_absent, keep_if, tree_map
+from repro_torch.relay.participation import freeze_absent, keep_if
+from repro_torch.tree import tree_map
 from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
 
 

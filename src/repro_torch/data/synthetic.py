@@ -1,6 +1,6 @@
 """Synthetic data: numpy copies of the reference's
-`repro/data/synthetic.py:class_images` and `token_stream`, bit-equal for
-the same arguments."""
+`repro/data/synthetic.py:class_images`, `token_stream` and `lm_batches`,
+bit-equal for the same arguments."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -65,3 +65,15 @@ def token_stream(n_tokens: int, *, vocab: int = 512, order: int = 2,
         else:
             toks[i] = rng.integers(vocab)
     return toks
+
+
+def lm_batches(tokens: np.ndarray, batch: int, seq: int, steps: int,
+               seed: int = 0):
+    """Yield dicts(tokens (B,S), labels (B,S)) sliced from the stream."""
+    rng = np.random.default_rng(seed)
+    n = len(tokens) - seq - 1
+    for _ in range(steps):
+        idx = rng.integers(0, n, size=batch)
+        x = np.stack([tokens[i:i + seq] for i in idx])
+        y = np.stack([tokens[i + 1:i + seq + 1] for i in idx])
+        yield {"tokens": x, "labels": y}

@@ -3,7 +3,8 @@
 A CPU tensor goes to the plain version in `ref.py`. A CUDA tensor goes to the
 kernel, or the call raises: there is no fallback to plain on the card. Each
 kernel wrapper adds one to its entry of `LAUNCHES` where it launches, and
-nowhere else, so a run can show that its main path went through the kernels.
+nowhere else, so a run can show that its main path went through the kernels;
+a launch with a leading client axis also adds one to `LAUNCHES_BATCHED`.
 Outputs and scratch are allocated here; kernels run on the current stream.
 """
 from __future__ import annotations
@@ -17,6 +18,10 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"disc_loss_fwd": 0, "disc_loss_bwd": 0,
                             "proto_accum": 0, "flash_attention": 0}
+# Of those, the launches with a leading client axis (one for every client),
+# for the kernels that take one: a run can tell them from the 2-D calls.
+LAUNCHES_BATCHED: Dict[str, int] = {"disc_loss_fwd": 0, "disc_loss_bwd": 0,
+                                    "proto_accum": 0}
 
 # The device symbols (`__global__` functions in csrc/) each wrapper launches,
 # by the wrapper's LAUNCHES key: how a profile's kernel names map back to it.
@@ -31,8 +36,15 @@ FLASH_HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BATCHED):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name: str, batched: bool) -> None:
+    LAUNCHES[name] += 1
+    if batched:
+        LAUNCHES_BATCHED[name] += 1
 
 
 def _on_cuda(*tensors) -> bool:
@@ -164,7 +176,7 @@ def disc_loss_fwd(s, q, labels, valid=None):
                                _ptr(v), loss.data_ptr(), row_max.data_ptr(),
                                log_z.data_ptr(), h_raw.data_ptr(), _ptr(ws),
                                _ptr(cnt), N, B, C, M, stream), "disc_loss_fwd")
-        LAUNCHES["disc_loss_fwd"] += 1
+        _count("disc_loss_fwd", bool(lead))
     return loss, row_max, log_z, h_raw
 
 
@@ -200,7 +212,7 @@ def disc_loss_bwd(g, s, q, labels, valid, row_max, log_z, h_raw):
                                h_raw.contiguous().data_ptr(), ds.data_ptr(),
                                dq.data_ptr(), _ptr(ws), _ptr(cnt), N, B, C, M,
                                stream), "disc_loss_bwd")
-        LAUNCHES["disc_loss_bwd"] += 1
+        _count("disc_loss_bwd", bool(lead))
     return ds, dq
 
 
@@ -272,7 +284,7 @@ def proto_accum(features, labels, num_classes: int):
         _check(getattr(L, fn)(f.data_ptr(), lab.data_ptr(), lab64, sums.data_ptr(),
                               counts.data_ptr(), _ptr(ws), _ptr(cnt), N, n, d, C,
                               K, stream), "proto_accum")
-        LAUNCHES["proto_accum"] += 1
+        _count("proto_accum", bool(lead))
     return sums, counts
 
 
@@ -305,8 +317,10 @@ def flash_attention(q, k, v, causal: bool = True):
         # the kernel's output has no grad_fn: without this the gradient
         # through attention would be dropped without a word
         raise NotImplementedError(
-            "flash_attention has no backward kernel yet (ROADMAP: LM "
-            "training); on the card call it under torch.no_grad() or "
+            "flash_attention has no backward kernel: training computes "
+            "attention with the plain functions, as the reference does "
+            "(nn.attention.gqa_block(mode=\"train\")), and the kernel serves "
+            "prefill only; on the card call it under torch.no_grad() or "
             "torch.inference_mode(), or with inputs that do not require grad")
     L = build.lib("flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

@@ -1,0 +1,362 @@
+"""The CoRS train step at LM scale, the port of `repro/launch/train.py`.
+
+Client semantics: parameters and Adam state carry a leading `clients` axis,
+as in the reference, so `convert` carries a `TrainState` across. The
+reference `vmap`s one client's step over that axis (each client one pod);
+on one card the port runs the clients one after another inside the step:
+one client's activations are live at a time, the math is unchanged, and
+nothing is read back to the host per client. Each client's forward and
+backward go through `lm.forward(mode="train")`: plain attention by the
+reference's rule, each layer rematerialised.
+
+The only cross-client exchange in cors and fd is the prototype merge of
+the per-class feature stats, computed by `prototypes.accumulate` (on the
+card the proto_accum kernel) in one launch for all clients, with the
+client axis (N, B*S, d'). It runs where the step merges them: cors or fd
+with `sync_in_step`. Elsewhere the reference's stats are dead code (XLA
+drops them), and the port skips the launch. The baselines come from the
+same `make_train_step`: fedavg averages the parameters every step (O(D));
+il exchanges nothing.
+
+Draws: the reference splits a key per client and draws each client's K
+negative classes with `jax.random.randint`; the port takes them as an
+(N, K) argument (`draw_negatives` makes them from a `torch.Generator`).
+The reference's sharding helpers come with slice 9 (multi-device).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import losses, prototypes
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.optim import adam_init, adam_update
+from repro_torch.relay import history as relay_history
+from repro_torch.relay.participation import bcast_mask, freeze_absent
+from repro_torch.tree import leaves, tree_map
+from repro_torch.types import CollabConfig, ModelConfig
+
+
+class TrainState(NamedTuple):
+    params: Any                      # LM tree, every leaf (N, ...)
+    opt: Any                         # stacked AdamState, step (N,)
+    proto: prototypes.ProtoState     # (C, d'), (C,)
+    step: torch.Tensor               # 0-d int32
+
+
+# ---------------------------------------------------------------------------
+# per-client loss
+# ---------------------------------------------------------------------------
+def _lm_outputs(cfg: ModelConfig, params, batch):
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "encoder-decoder training is not ported yet (ROADMAP.md, queue "
+            "1: other LM families)")
+    return lm.forward(params, cfg, batch, mode="train")
+
+
+def _head_w(cfg: ModelConfig, params):
+    w = params.get("lm_head")
+    if w is None:
+        w = params["embed"].T
+    return w
+
+
+def num_negatives(cfg: ModelConfig, ccfg: CollabConfig) -> int:
+    """K of the LM's L_disc: min(num_negatives or 1023, V - 1)."""
+    return min(ccfg.num_negatives or 1023, cfg.vocab_size - 1)
+
+
+def draw_negatives(gen: torch.Generator, cfg: ModelConfig,
+                   ccfg: CollabConfig, n_clients: int) -> torch.Tensor:
+    """(n_clients, K) negative class ids from `gen`, on its device."""
+    return losses.sample_negatives(gen, num_negatives(cfg, ccfg),
+                                   cfg.vocab_size, (n_clients,))
+
+
+def make_loss_fn(cfg: ModelConfig, ccfg: CollabConfig, *,
+                 disc_tokens: int = 8192):
+    """Per-client loss: Eq. (6) adapted to LM classification (class = next
+    token). L_disc uses K sampled negatives on the first `disc_tokens`
+    tokens. `loss_fn(params, batch, proto_means, neg_ids)` -> (total,
+    (metrics, features, labels)); neg_ids (K,) is read in cors mode only.
+
+    The port's `ce_loss` and `kd_loss` reduce the last sample axis and take
+    any leading axis for clients, so the tokens are flattened to (B*S, .)
+    first: each call returns the reference's mean over all tokens."""
+    V = cfg.vocab_size
+
+    def loss_fn(params, batch, proto_means, neg_ids=None):
+        out = _lm_outputs(cfg, params, batch)
+        feats, logits = out["features"], out["logits"]
+        labels = batch["labels"]
+        f_flat = feats.reshape(-1, feats.shape[-1])
+        y_flat = labels.reshape(-1)
+        z_flat = logits.reshape(-1, V)
+        l_ce = losses.ce_loss(z_flat, y_flat)
+        metrics = {"ce": l_ce}
+        total = l_ce + 0.01 * out["aux"]
+        if ccfg.mode == "cors":
+            l_kd = losses.kd_loss(f_flat, proto_means, y_flat)
+            T = min(disc_tokens, f_flat.shape[0])
+            l_disc = losses.disc_loss_sampled(
+                neg_ids, f_flat[:T], proto_means, y_flat[:T],
+                _head_w(cfg, params), None, student_logits=z_flat[:T])
+            total = total + ccfg.lambda_kd * l_kd + ccfg.lambda_disc * l_disc
+            metrics.update(kd=l_kd, disc=l_disc)
+        metrics["total"] = total
+        return total, (metrics, feats, labels)
+
+    return loss_fn
+
+
+def client_grads(loss_fn, params, batch, proto_means, neg_ids=None):
+    """One client's gradients (a tree like `params`), metrics, features and
+    labels; the features and labels detached."""
+    p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+    total, (metrics, feats, labels) = loss_fn(p, batch, proto_means, neg_ids)
+    grads = torch.autograd.grad(total, leaves(p))
+    it = iter(grads)
+    return (tree_map(lambda _: next(it), p),
+            {k: v.detach() for k, v in metrics.items()},
+            feats.detach(), labels)
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+def make_train_step(cfg: ModelConfig, ccfg: CollabConfig, *,
+                    n_clients: int = 1, lr: float = 1e-3,
+                    disc_tokens: int = 8192, sync_in_step: bool = True):
+    """sync_in_step=False is the paper-faithful cadence: Algorithm 1
+    exchanges prototypes once per ROUND, not per step; `make_round_sync()`
+    then does the merge (of stats the caller accumulates, as the reference
+    does: this step returns none). The default True folds the exchange into
+    every step.
+
+    `train_step(state, batch, neg_ids=None, participation=None)` ->
+    (state, metrics). batch: tokens and labels (N, B, S) on the state's
+    device; neg_ids (N, K) (cors only); participation an optional (N,) bool
+    tensor: absent clients' params and Adam state freeze for the step, their
+    stats are zero-weighted in the merge, fedavg averages over present
+    clients, and the metrics are means over present clients."""
+    loss_fn = make_loss_fn(cfg, ccfg, disc_tokens=disc_tokens)
+    C = cfg.vocab_size
+    merge_stats = ccfg.mode in ("cors", "fd") and sync_in_step
+
+    def train_step(state: TrainState, batch, neg_ids=None,
+                   participation=None):
+        proto_means = prototypes.means(state.proto)
+        grads = tree_map(torch.empty_like, state.params)
+        per_client, feats, labels = [], [], []
+        for i in range(n_clients):
+            g, m, f, y = client_grads(
+                loss_fn, tree_map(lambda a: a[i], state.params),
+                {k: v[i] for k, v in batch.items()}, proto_means,
+                None if neg_ids is None else neg_ids[i])
+            tree_map(lambda buf, gi: buf[i].copy_(gi), grads, g)
+            del g
+            per_client.append(m)
+            if merge_stats:
+                feats.append(f.reshape(-1, f.shape[-1]))
+                labels.append(y.reshape(-1))
+        params, opt = adam_update(state.params, grads, state.opt, lr=lr)
+        del grads
+        metrics = {k: torch.stack([m[k] for m in per_client])
+                   for k in per_client[0]}
+        wf = None
+        if participation is not None:
+            wf = participation.float()
+            params = freeze_absent(participation, params, state.params)
+            opt = freeze_absent(participation, opt, state.opt)
+        if ccfg.mode == "fedavg":
+            params = tree_map(lambda p: _fedavg(p, wf), params)
+            if participation is not None:
+                params = freeze_absent(participation, params, state.params)
+        proto = state.proto
+        if merge_stats:
+            # the paper's exchange: one launch for every client's stats
+            stats = prototypes.accumulate(
+                prototypes.init_state(C, feats[0].shape[-1], feats[0].device,
+                                      clients=n_clients),
+                torch.stack(feats), torch.stack(labels))
+            if wf is not None:
+                stats = prototypes.ProtoState(stats.sum * wf[:, None, None],
+                                              stats.count * wf[:, None])
+            proto = _decayed(ccfg, state.proto, stats.sum.sum(0),
+                             stats.count.sum(0))
+        if wf is None:
+            metrics = {k: v.mean() for k, v in metrics.items()}
+        else:
+            n_eff = wf.sum().clamp(min=1.0)
+            metrics = {k: (v * wf).sum() / n_eff for k, v in metrics.items()}
+        return TrainState(params, opt, proto, state.step + 1), metrics
+
+    return train_step
+
+
+def _fedavg(p, wf):
+    """The fedavg baseline's per-step mean over clients, in float32, back
+    in p's dtype and broadcast to every client; over present clients
+    (weights wf) under a participation mask."""
+    if wf is None:
+        s = p.float().mean(0)
+    else:
+        s = (p.float() * bcast_mask(wf, p)).sum(0) / wf.sum().clamp(min=1.0)
+    return s.to(p.dtype).expand(p.shape).contiguous()
+
+
+def _decayed(ccfg: CollabConfig, proto: prototypes.ProtoState, add_sum,
+             add_count) -> prototypes.ProtoState:
+    decay = ccfg.proto_momentum or 1.0
+    return prototypes.ProtoState(decay * proto.sum + add_sum,
+                                 decay * proto.count + add_count)
+
+
+def make_round_sync(ccfg: CollabConfig):
+    """Per-round prototype exchange (paper Algorithm 1 cadence): merge the
+    clients' accumulated stats into the shared ProtoState, once per round
+    when the step was built with sync_in_step=False. Takes one stats
+    ProtoState per client-architecture bucket, each with its own leading
+    client axis: a mixed fleet is N_buckets train steps and one round
+    sync. For stats that commit late use `make_async_round_sync`."""
+    def round_sync(state: TrainState, *bucket_stats: prototypes.ProtoState):
+        merged = prototypes.merge(*[
+            prototypes.ProtoState(s.sum.sum(0), s.count.sum(0))
+            for s in bucket_stats])
+        return state._replace(proto=_decayed(ccfg, state.proto, merged.sum,
+                                             merged.count))
+    return round_sync
+
+
+def make_async_round_sync(ccfg: CollabConfig, d_max: int):
+    """`make_round_sync` for a bounded-delay fleet (`repro_torch.sim`
+    clocks): a client's round-r stats with commit delay d join the shared
+    prototype state in round r+d. The merge is a sum, so late contributions
+    are order-free; the clock state is a fixed-shape pending ProtoState of
+    d_max future slots (slot j = stats due j+1 rounds from now).
+
+    Returns (init_pending, round_sync):
+      init_pending(C, d', device=None) -> pending ProtoState (d_max, C, .)
+      round_sync(state, pending, delays_b, stats_b, ...) -> (state, pending)
+        with (k_b,) int commit delays and the bucket's stacked stats per
+        bucket. Delays stay on the device. As the reference's
+        `.at[delays].add(mode="drop")`, a negative delay counts from the
+        end (-1 is d_max) and one outside [-(d_max+1), d_max] is dropped;
+        `index_add_` would raise on it, so it is masked. d_max = 0 is
+        `make_round_sync` exactly.
+    """
+    assert d_max >= 0, d_max
+    slots = d_max + 1
+
+    def init_pending(C: int, d_feature: int, device=None):
+        dev = resolve_device(device)
+        return prototypes.ProtoState(
+            torch.zeros(d_max, C, d_feature, device=dev),
+            torch.zeros(d_max, C, device=dev))
+
+    def round_sync(state: TrainState, pending: prototypes.ProtoState,
+                   *delays_and_stats):
+        assert len(delays_and_stats) % 2 == 0, \
+            "pass (delays, stats) per bucket"
+        C, d = state.proto.sum.shape
+        dev = state.proto.sum.device
+        sums = torch.zeros(slots, C, d, device=dev)
+        counts = torch.zeros(slots, C, device=dev)
+        for b in range(0, len(delays_and_stats), 2):
+            delays = torch.as_tensor(delays_and_stats[b], device=dev).long()
+            stats = delays_and_stats[b + 1]
+            idx = torch.where(delays < 0, delays + slots, delays)
+            keep = (idx >= 0) & (idx < slots)
+            idx = idx.clamp(0, slots - 1)
+            sums.index_add_(0, idx, torch.where(
+                bcast_mask(keep, stats.sum), stats.sum, 0.0))
+            counts.index_add_(0, idx, torch.where(
+                bcast_mask(keep, stats.count), stats.count, 0.0))
+        commit_sum, commit_count = sums[0], counts[0]
+        if d_max > 0:
+            commit_sum = commit_sum + pending.sum[0]
+            commit_count = commit_count + pending.count[0]
+            # new pending[j] (due j+1 rounds from now) = old pending[j+1]
+            # + the fresh stats with delay j+1
+            shift = lambda a, fresh: torch.cat(
+                [a[1:], torch.zeros_like(a[:1])]) + fresh[1:]
+            pending = prototypes.ProtoState(shift(pending.sum, sums),
+                                            shift(pending.count, counts))
+        state = state._replace(proto=_decayed(ccfg, state.proto, commit_sum,
+                                              commit_count))
+        return state, pending
+
+    return init_pending, round_sync
+
+
+def make_download_lag_round_sync(ccfg: CollabConfig, h_max: int):
+    """`make_round_sync` for a fleet whose clients READ stale prototypes
+    (download clocks): the plain merge, then a push of the post-merge
+    ProtoState into a ring of the last `h_max` (`relay/history.py`), so a
+    client with download delay d is served the prototypes of round t - d.
+
+    Returns (init_history, round_sync, read_at):
+      init_history(C, d', device=None) -> History ring of empty ProtoStates
+      round_sync(state, hist, *bucket_stats) -> (state, hist)
+      read_at(hist, delays) -> ProtoState as of `delays` rounds ago; a
+        scalar, or a (k,) tensor for a stacked ProtoState, one a client.
+    h_max = 1 keeps only the current post-merge proto."""
+    assert h_max >= 1, h_max
+    sync = make_round_sync(ccfg)
+
+    def init_history(C: int, d_feature: int, device=None):
+        return relay_history.init(
+            prototypes.init_state(C, d_feature, resolve_device(device)),
+            h_max)
+
+    def round_sync(state: TrainState, hist: relay_history.History,
+                   *bucket_stats: prototypes.ProtoState):
+        state = sync(state, *bucket_stats)
+        return state, relay_history.push(hist, state.proto)
+
+    return init_history, round_sync, relay_history.read_at
+
+
+def proto_round_telemetry(prev: prototypes.ProtoState,
+                          new: prototypes.ProtoState) -> Dict[str, Any]:
+    """One round's prototype-level observability: the drift of the class
+    means across the round's merge, the total absorbed stat mass, and class
+    coverage. Host-side (three reads a round, not a step); JSON-safe for
+    the `obs` JSONL sink and report."""
+    dm = prototypes.means(new) - prototypes.means(prev)
+    return {
+        "proto_drift": float(torch.sqrt(torch.sum(torch.square(dm)))),
+        "proto_mass": float(torch.sum(new.count)),
+        "classes_seen": int(torch.sum(new.count > 0)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# state construction
+# ---------------------------------------------------------------------------
+def _stack_clients(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def init_state(cfg: ModelConfig, gen: Optional[torch.Generator],
+               n_clients: int = 1, device=None) -> TrainState:
+    """N clients' random LMs from `gen` (one after another), stacked, with
+    zero Adam moments (step (N,)), an empty ProtoState and step 0. With
+    `gen=None`, meta tensors: `init_state_shapes`."""
+    ps = [lm.init_lm(gen, cfg, device=device) for _ in range(n_clients)]
+    p = _stack_clients(ps)
+    del ps
+    dev = leaves(p)[0].device
+    return TrainState(p, adam_init(p, clients=n_clients),
+                      prototypes.init_state(cfg.vocab_size, cfg.d_feature,
+                                            dev),
+                      torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def init_state_shapes(cfg: ModelConfig, n_clients: int = 1) -> TrainState:
+    """The TrainState's shapes and dtypes as `meta` tensors, nothing
+    allocated: the counterpart of the reference's `jax.eval_shape`."""
+    return init_state(cfg, None, n_clients)

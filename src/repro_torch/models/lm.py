@@ -1,18 +1,22 @@
 """Decoder-only LM spine, the port of `repro/models/lm.py` for GQA models
-with dense MLPs (TinyLlama and its reduced variants).
+with dense MLPs (TinyLlama and its reduced variants) and, in train mode,
+the xLSTM family (mLSTM and sLSTM segments).
 
 Parameters are a plain dict: `embed` (V, D), `segments` (one list of
 per-layer dicts for each segment of `blocks.segments_of(cfg)`),
 `final_norm` and `lm_head` (D, V), absent when the embeddings are tied.
-`forward` covers train (features and logits) and prefill (also the caches);
-`decode_step` is the one-token serve path. Features are the post-final-norm
-last hidden states, the d'-dimensional representations the paper shares.
+`forward` covers train (features and logits with their autograd graph,
+each layer rematerialised by `blocks.REMAT_POLICY`) and prefill (also the
+caches); `decode_step` is the one-token serve path. The xLSTM kinds train
+only: prefill, decode and `init_cache` raise for them. Features are the
+post-final-norm last hidden states, the d'-dimensional representations
+the paper shares.
 Caches are `{"segments": [(K, V), ...], "shared": []}` with K and V of
 shape (L, B, S, G, hd), the reference's layout.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.nn import layers, rope as rope_lib
+from repro_torch.tree import tree_map
 
 _LATER = "is not ported yet (ROADMAP.md, queue 1: other LM families)"
 
@@ -35,31 +40,25 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(f"encoder-decoder models {_LATER}")
 
 
-def init_lm(gen: torch.Generator, cfg, device=None) -> Dict[str, Any]:
+def init_lm(gen: Optional[torch.Generator], cfg,
+            device=None) -> Dict[str, Any]:
     """Random parameters drawn from `gen` on its own device (a CUDA generator
     makes full-width weights in well under a second), then moved to
-    `device`."""
+    `device`. With `gen=None` the parameters are `meta` tensors (shapes and
+    dtypes only, whatever `device` says)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if gen is None else resolve_device(device)
     dt = _dtype(cfg)
     params: Dict[str, Any] = {}
     if cfg.input_kind == "tokens":
         params["embed"] = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
     params["segments"] = blocks.init_segments(gen, cfg, dt)
     params["final_norm"] = layers.init_norm(cfg.norm_kind, cfg.d_model, dt,
-                                            gen.device)
+                                            layers.gen_device(gen))
     if not cfg.tie_embeddings or cfg.input_kind != "tokens":
         params["lm_head"] = layers.dense_init(gen, cfg.d_model,
                                               cfg.vocab_size, dt)
-    return _to_device(params, dev)
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda a: a.to(dev), params)
 
 
 def _embed(params, cfg, batch):
@@ -152,7 +151,7 @@ def init_cache(cfg, batch_size: int, ctx_len: int, *, window: int = 0,
     S = min(ctx_len, window) if window else ctx_len
     caches: Dict[str, Any] = {"segments": [], "shared": []}
     for kind, n in blocks.segments_of(cfg):
-        blocks.check_supported(cfg, kind)
+        blocks.check_servable(cfg, kind)
         shape = (n, batch_size, S, cfg.num_kv_heads, cfg.head_dim)
         caches["segments"].append(
             (torch.zeros(shape, dtype=_dtype(cfg), device=dev),

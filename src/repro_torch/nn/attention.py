@@ -1,14 +1,18 @@
 """GQA attention, the port of `repro/nn/attention.py`: prefill through the
-hand-written flash kernel, decode as plain PyTorch ops.
+hand-written flash kernel, training and decode as plain PyTorch ops.
 
-`gqa_block` sends its self-attention (`kv is None`, `window == 0`) to
-`kernels.ops.flash_attention`: the CUDA kernel for tensors on the card, its
-plain version for tensors on the CPU. On the causal, `q_offset = 0` serving
-path that is the function the reference computes with `full_attention` or
-`chunked_attention` (`attention.py:134-137`). Cross-attention and sliding
-windows raise `NotImplementedError`; nothing is routed quietly to a plain
-path on the card. `full_attention` and `chunked_attention` are kept as the
-reference's plain functions (decode uses `full_attention`).
+`gqa_block` takes the mode. In prefill its self-attention (`kv is None`,
+`window == 0`) goes to `kernels.ops.flash_attention`: the CUDA kernel for
+tensors on the card, its plain version for tensors on the CPU. On the
+causal, `q_offset = 0` serving path that is the function the reference
+computes with `full_attention` or `chunked_attention`
+(`attention.py:134-137`). In train mode it calls those plain functions by
+the reference's own rule (`full_attention` when `Sk <= 2 * chunk` or
+`Sk % chunk != 0`, else `chunked_attention`), under autograd, as the
+reference trains: the choice is fixed by the mode, never by whether a
+kernel builds. Cross-attention and sliding-window prefill raise
+`NotImplementedError`; nothing is routed quietly to a plain path on the
+card. Decode uses `full_attention`.
 
 Layouts: x (B, S, D); q (B, S, H, hd); k/v (B, S, G, hd) with G = KV heads.
 """
@@ -123,13 +127,16 @@ def full_attention(q, k, v, *, causal: bool, window: int = 0,
 
 def gqa_block(params, x, positions, *, num_heads, num_kv_heads, head_dim,
               rope_kind, rope_theta, causal=True, window=0,
-              return_kv=False, kv=None):
-    """Self-attention on a full sequence -> y (B,S,D) [, (k, v)]."""
+              return_kv=False, kv=None, mode: str = "prefill",
+              chunk: int = 512):
+    """Self-attention on a full sequence -> y (B,S,D) [, (k, v)]; `mode`
+    "train" computes it with the plain functions (see the module's
+    docstring), any other mode with the prefill kernel."""
     if kv is not None:
         raise NotImplementedError(
             "cross-attention (kv=...) is not ported yet: it comes with "
             "models/encdec.py (ROADMAP.md, queue 1: other LM families)")
-    if window:
+    if window and mode != "train":
         raise NotImplementedError(
             "sliding-window prefill is not ported yet: the flash kernel has "
             "no window (ROADMAP.md, queue 1: other LM families)")
@@ -137,7 +144,13 @@ def gqa_block(params, x, positions, *, num_heads, num_kv_heads, head_dim,
     if rope_kind != "none":
         q = rope_lib.apply_rope(q, positions, theta=rope_theta, kind=rope_kind)
         k = rope_lib.apply_rope(k, positions, theta=rope_theta, kind=rope_kind)
-    o = _prefill_attention(q, k, v, causal=causal)
+    if mode != "train":
+        o = _prefill_attention(q, k, v, causal=causal)
+    elif k.shape[1] <= 2 * chunk or k.shape[1] % chunk != 0:
+        o = full_attention(q, k, v, causal=causal, window=window)
+    else:
+        o = chunked_attention(q, k, v, causal=causal, window=window,
+                              chunk=chunk)
     B, S = x.shape[:2]
     y = o.reshape(B, S, num_heads * head_dim) @ params["wo"]
     if return_kv:

@@ -4,7 +4,9 @@ norms and MLPs on plain dicts of tensors.
 Dense weights keep the reference's (in, out) layout, so `x @ w` is its
 `einsum("...d,df->...f")` and `convert.lm_params_from_jax` copies them as
 they are. Init draws from a `torch.Generator` (the reference's
-distributions, other numbers) on the generator's device, then casts. The
+distributions, other numbers) on the generator's device, then casts; with
+no generator (`gen=None`) it builds tensors on the `meta` device, shapes
+and dtypes only (`launch/train.init_state_shapes`). The
 norms compute in float32 and cast back to x's dtype, as the reference does.
 """
 from __future__ import annotations
@@ -19,15 +21,21 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where init draws: the generator's device, `meta` without one."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return (torch.randn(d_in, d_out, generator=gen, device=gen.device)
+    return (torch.randn(d_in, d_out, generator=gen, device=gen_device(gen))
             * scale).to(dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
-    return (torch.randn(vocab, d, generator=gen, device=gen.device)
+def embed_init(gen: Optional[torch.Generator], vocab: int, d: int,
+               dtype) -> torch.Tensor:
+    return (torch.randn(vocab, d, generator=gen, device=gen_device(gen))
             * 0.02).to(dtype)
 
 
@@ -84,7 +92,7 @@ def swiglu(params, x):
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
-    dev = gen.device
+    dev = gen_device(gen)
     return {"w_up": dense_init(gen, d_model, d_ff, dtype),
             "b_up": torch.zeros(d_ff, dtype=dtype, device=dev),
             "w_down": dense_init(gen, d_ff, d_model, dtype),

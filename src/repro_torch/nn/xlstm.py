@@ -1,0 +1,176 @@
+"""xLSTM blocks, the port of `repro/nn/xlstm.py` in train mode: mLSTM
+(matrix memory, chunk-parallel) and sLSTM (scalar memory, sequential).
+
+mLSTM recurrence (per head, state C: (P_v, P_k), normalizer n: (P_k,)):
+    C_t = f_t C_{t-1} + i_t v_t k_t^T
+    n_t = f_t n_{t-1} + i_t k_t
+    y_t = (C_t q_t) / max(|n_t . q_t|, 1)
+run as the reference runs it: dense products inside a chunk, a short
+recurrence across chunks, the normalizer as an appended ones column of v.
+The reference's `lax.scan`s become Python loops: the inter-chunk scan of
+`mlstm_chunked` and `slstm_scan` over time. The sLSTM keeps the
+reference's stabiliser (m_t = max(f_pre + m_{t-1}, i_pre)), its -30.0
+initial m and its float32 state. Prefill and decode of these blocks are
+not ported (`models/blocks.py` raises for them).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn import layers
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+def init_mlstm(gen, cfg, dtype):
+    d = cfg.d_model
+    di = 2 * d                      # projection factor 2 (xLSTM paper)
+    dev = layers.gen_device(gen)
+    return {
+        "w_up": layers.dense_init(gen, d, 2 * di, dtype),
+        "conv_w": (torch.randn(cfg.ssm_conv, di, generator=gen, device=dev)
+                   * 0.2).to(dtype),
+        "conv_b": torch.zeros(di, dtype=dtype, device=dev),
+        "wq": layers.dense_init(gen, di, di, dtype),
+        "wk": layers.dense_init(gen, di, di, dtype),
+        "wv": layers.dense_init(gen, di, di, dtype),
+        "w_gates": layers.dense_init(gen, di, 2 * cfg.num_heads, dtype),
+        "out_norm": layers.init_rmsnorm(di, dtype, dev),
+        "w_down": layers.dense_init(gen, di, d, dtype),
+    }
+
+
+def _conv_silu(w, b, x):
+    """Causal depthwise conv over the sequence axis of x (B, S, C), then
+    SiLU; the taps summed in the reference's order."""
+    cw = w.shape[0]
+    pad = F.pad(x, (0, 0, cw - 1, 0))
+    out = sum(pad[:, i:i + x.shape[1], :] * w[i][None, None, :]
+              for i in range(cw))
+    return F.silu(out + b[None, None, :])
+
+
+def mlstm_chunked(q, k, v, logf, logi, Q: int, state=None):
+    """q,k,v (B,S,H,P); logf,logi (B,S,H). Returns y (B,S,H,P) f32, state.
+
+    state = C (B,H,P+1,P), whose row P is the normalizer.
+    """
+    B, S, H, P = q.shape
+    f32 = torch.float32
+    Q = min(Q, S)
+    assert S % Q == 0, (S, Q)
+    nc = S // Q
+    ones = torch.ones(B, S, H, 1, dtype=f32, device=q.device)
+    va = torch.cat([v.float(), ones], dim=-1)                 # (B,S,H,P+1)
+    scale = P ** -0.5
+
+    qc = (q.float() * scale).reshape(B, nc, Q, H, P)
+    kc = k.float().reshape(B, nc, Q, H, P)
+    vc = va.reshape(B, nc, Q, H, P + 1)
+    ic = logi.float().reshape(B, nc, Q, H)
+    fc = logf.float().reshape(B, nc, Q, H)
+    cums = torch.cumsum(fc, dim=2)
+    total = cums[:, :, -1, :]
+
+    Gm = torch.einsum("bcihp,bcjhp->bcijh", qc, kc)           # (B,nc,Q,Q,H)
+    Ld = cums[:, :, :, None, :] - cums[:, :, None, :, :] + ic[:, :, None, :, :]
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=q.device))
+    W = torch.where(causal[None, None, :, :, None], Gm * torch.exp(Ld),
+                    torch.zeros((), device=q.device))
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", W, vc)
+
+    decay_to_end = torch.exp(total[:, :, None, :] - cums + ic)  # (B,nc,Q,H)
+    Sc = torch.einsum("bcjh,bcjhp,bcjhn->bchpn", decay_to_end, vc, kc)
+
+    C = (torch.zeros(B, H, P + 1, P, dtype=f32, device=q.device)
+         if state is None else state)
+    enter = []
+    for c in range(nc):                    # the reference's lax.scan
+        enter.append(C)
+        C = torch.exp(total[:, c])[:, :, None, None] * C + Sc[:, c]
+    C_enter = torch.stack(enter, dim=1)                       # (B,nc,H,P+1,P)
+    y_inter = torch.einsum("bcihn,bcih,bchpn->bcihp",
+                           qc, torch.exp(cums), C_enter)
+    ya = (y_intra + y_inter).reshape(B, S, H, P + 1)
+    y = ya[..., :P] / torch.clamp(torch.abs(ya[..., P:]), min=1.0)
+    return y, C
+
+
+def mlstm_block(p, cfg, x):
+    B, S, d = x.shape
+    H = cfg.num_heads
+    di = 2 * d
+    P = di // H
+    up = x @ p["w_up"]
+    xm, z = up[..., :di], up[..., di:]
+    conv = _conv_silu(p["conv_w"], p["conv_b"], xm)
+    q = (conv @ p["wq"]).reshape(B, S, H, P)
+    k = (conv @ p["wk"]).reshape(B, S, H, P)
+    v = (xm @ p["wv"]).reshape(B, S, H, P)
+    gates = (conv @ p["w_gates"]).float()
+    logi, fpre = gates[..., :H], gates[..., H:]
+    logf = F.logsigmoid(fpre)
+    y, _ = mlstm_chunked(q, k, v, logf, logi, cfg.ssm_chunk)
+    y = y.reshape(B, S, di).to(x.dtype) * F.silu(z)
+    y = layers.rmsnorm(p["out_norm"], y, cfg.norm_eps)
+    return y @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+def init_slstm(gen, cfg, dtype):
+    d = cfg.d_model
+    H = cfg.num_heads
+    P = d // H
+    dev = layers.gen_device(gen)
+    return {
+        "w_gates": layers.dense_init(gen, d, 4 * d, dtype),   # i,f,z,o per cell
+        "r_gates": (torch.randn(4, H, P, P, generator=gen, device=dev)
+                    / math.sqrt(P)).to(dtype),                # block-diag recurrence
+        "out_norm": layers.init_rmsnorm(d, dtype, dev),
+        "w_up": layers.dense_init(gen, d, 2 * d, dtype),      # GLU ffn
+        "w_down": layers.dense_init(gen, d, d, dtype),
+    }
+
+
+def slstm_scan(gx, r, state):
+    """gx (B,S,4,d) input gate pre-activations; r (4,H,P,P) recurrence.
+
+    state = (c, n, m, h), each (B,d) float32. Returns h_seq (B,S,d), state.
+    """
+    B, S, four, d = gx.shape
+    H, P = r.shape[1], r.shape[2]
+    r32 = r.float()
+    c, n, m, h = state
+    hs = []
+    for t in range(S):                     # the reference's lax.scan
+        hh = h.reshape(B, H, P)
+        rec = torch.einsum("ghpq,bhq->bghp", r32, hh).reshape(B, four, d)
+        g = gx[:, t].float() + rec
+        i_pre, f_pre, z_pre, o_pre = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
+        m_new = torch.maximum(f_pre + m, i_pre)
+        i = torch.exp(i_pre - m_new)
+        f = torch.exp(f_pre + m - m_new)
+        c = f * c + i * torch.tanh(z_pre)
+        n = f * n + i
+        m = m_new
+        h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1e-6)
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, m, h)
+
+
+def slstm_block(p, cfg, x):
+    B, S, d = x.shape
+    gx = (x @ p["w_gates"]).reshape(B, S, 4, d)
+    z = torch.zeros(B, d, dtype=torch.float32, device=x.device)
+    state = (z, z, torch.full((B, d), -30.0, device=x.device), z)
+    hs, _ = slstm_scan(gx, p["r_gates"], state)
+    hs = layers.rmsnorm(p["out_norm"], hs.to(x.dtype), cfg.norm_eps)
+    up = hs @ p["w_up"]
+    g, u = up[..., :d], up[..., d:]
+    return (F.silu(g) * u) @ p["w_down"]

@@ -21,6 +21,7 @@ from repro_torch.relay.participation import (  # noqa: F401
     ParticipationSchedule, UniformK, get_schedule)
 from repro_torch.relay.per_class import (PerClassRelay,  # noqa: F401
                                          PerClassRelayState)
+from repro_torch.relay.server import RelayServer  # noqa: F401
 from repro_torch.relay.shards import (ShardedRelay,  # noqa: F401
                                       ShardedRelayState, shard_of,
                                       shard_view)

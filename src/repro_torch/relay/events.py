@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core import prototypes
 from repro_torch.relay import participation
+from repro_torch.tree import tree_map
 
 
 class PendingState(NamedTuple):
@@ -102,7 +103,7 @@ def event_slot_order(round_idx, d_max: int):
 
 def _ordered(pending: PendingState, order):
     """The pending buffer as (D, N, ...) with D in event order."""
-    return participation.tree_map(
+    return tree_map(
         lambda a: a.movedim(0, 1).index_select(0, order), pending)
 
 

@@ -35,7 +35,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.relay.participation import tree_map
+from repro_torch.tree import tree_map
 
 
 class History(NamedTuple):

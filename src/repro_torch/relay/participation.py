@@ -32,26 +32,12 @@ import torch
 
 from repro_torch.relay import events
 from repro_torch.specs import parse_spec
+from repro_torch.tree import tree_map
 
 
 def bcast_mask(vec, like):
     """Broadcast a (k,) mask or weight vector against a (k, ...) leaf."""
     return vec.reshape(vec.shape + (1,) * (like.dim() - 1))
-
-
-def tree_map(fn, tree, *rest):
-    """`fn` over the leaves of trees of one structure: dicts, tuples and
-    NamedTuples (an `AdamState`, a relay state) of tensors; None leaves stay
-    None."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(o[k] for o in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        out = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
-        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-    return fn(tree, *rest)
 
 
 def freeze_absent(mask, new_tree, old_tree):

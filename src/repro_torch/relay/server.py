@@ -96,8 +96,18 @@ class RelayServer:
         return self.state.global_protos
 
     @property
+    def valid_g(self) -> torch.Tensor:
+        return self.state.valid_g
+
+    @property
     def mean_logits(self) -> torch.Tensor:
         return self.state.mean_logits
+
+    @property
+    def obs_buffer(self) -> List[Dict]:
+        """The filled slots as a list of entry dicts, every one with an
+        "owner" key (seeded and fallback entries included)."""
+        return self.debug_entries()
 
     def debug_entries(self):
         """The live slots of the state as the policy's entry dicts."""

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.core import prototypes
 from repro_torch.relay import base, flat
-from repro_torch.relay.participation import tree_map
+from repro_torch.tree import tree_map
 from repro_torch.types import CollabConfig
 
 _M32 = 0xFFFFFFFF

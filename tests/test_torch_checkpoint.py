@@ -135,3 +135,128 @@ def test_twin_writes_telemetry_and_checkpoints(tmp_path, capsys):
         got = jio.load_pytree(str(out / f"client{i}.npz"), template)
         assert json.loads((out / f"client{i}.json").read_text())["step"] == 1
         assert all(np.isfinite(np.asarray(v)).all() for v in got.values())
+
+
+# -- NamedTuples and bf16 leaves ------------------------------------------
+def _adam_pair():
+    from repro.optim import adam_init as jadam_init, adam_update as jadam_upd
+    from repro_torch.optim import adam_init, adam_update
+    rng = np.random.default_rng(0)
+    p = {"w": rng.standard_normal((3, 2)).astype(np.float32),
+         "b": rng.standard_normal(2).astype(np.float32)}
+    g = {k: np.ones_like(v) for k, v in p.items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    _, jo = jadam_upd(jp, {k: jnp.asarray(v) for k, v in g.items()},
+                      jadam_init(jp))
+    _, to = adam_update(tp, {k: torch.from_numpy(v) for k, v in g.items()},
+                        adam_init(tp))
+    return {"opt": jo}, {"opt": to}
+
+
+def _relay_pair():
+    from repro.relay import flat as jflat
+    from repro.types import CollabConfig as JCollab
+    from repro_torch.relay import flat as tflat
+    from repro_torch.types import CollabConfig
+    return (jflat.FlatRelay().init_state(JCollab(), 84, 0, None, 2),
+            tflat.FlatRelay().init_state(CollabConfig(), 84, 0, None, 2,
+                                         device="cpu"))
+
+
+def _train_pair():
+    from repro.configs import get_arch as jget_arch
+    from repro.launch import train as jtrain
+    jcfg = jget_arch("tinyllama-1.1b").reduced(vocab_size=64, d_model=64)
+    js = jtrain.init_state(jcfg, jax.random.PRNGKey(2), 2)
+    return js, convert.train_state_from_jax(jax.tree.map(np.asarray, js),
+                                            device="cpu")
+
+
+def _port_tree(kind, t):
+    """The port's tree as it goes to disk: a TrainState in the reference's
+    layout (`convert.train_state_to_numpy`), anything else as it is."""
+    return convert.train_state_to_numpy(t) if kind == "train" else t
+
+
+PAIRS = {"adam": _adam_pair, "relay": _relay_pair, "train": _train_pair}
+
+
+@pytest.mark.parametrize("kind", sorted(PAIRS))
+def test_named_tuples_cross_load_as_their_own_type(tmp_path, kind):
+    """An AdamState, a relay state and a (reduced, float32) TrainState:
+    the same keys as the reference's (`.{field}`, JAX's GetAttrKey), the
+    port's file loads in the reference onto its own template equal to the
+    port's values, the reference's loads in the port as the port's own
+    NamedTuple type, and both sidecars are equal."""
+    jtree, ttree = PAIRS[kind]()
+    disk = _port_tree(kind, ttree)
+    assert list(tio._paths(disk)) == list(jio._paths(jtree))
+    assert any("/." in k or k.startswith(".") for k in tio._paths(disk))
+    tio.save_pytree(str(tmp_path / "port.npz"), disk, step=4)
+    jio.save_pytree(str(tmp_path / "ref.npz"), jtree, step=4)
+    assert json.loads((tmp_path / "port.json").read_text()) == \
+        json.loads((tmp_path / "ref.json").read_text())
+    got_j = jio.load_pytree(str(tmp_path / "port.npz"), jtree)
+    assert type(got_j) is type(jtree)
+    for k, v in jio._paths(got_j).items():
+        want = tio._paths(disk)[k]
+        want = want.numpy() if isinstance(want, torch.Tensor) else want
+        np.testing.assert_array_equal(np.asarray(v), want, err_msg=k)
+    got_t = tio.load_pytree(str(tmp_path / "ref.npz"), disk)
+    assert type(got_t) is type(disk)
+    if kind == "train":
+        got_t = convert.train_state_from_jax(got_t, device="cpu")
+        assert type(got_t) is type(ttree)
+    for k, v in tio._paths(_port_tree(kind, got_t)).items():
+        np.testing.assert_array_equal(
+            np.asarray(v), np.asarray(jio._paths(jtree)[k]), err_msg=k)
+
+
+def _bf16_tree():
+    from repro.optim import adam_init as jadam_init
+    rng = np.random.default_rng(1)
+    w = jnp.asarray(rng.standard_normal((4, 3)).astype(np.float32)
+                    ).astype(jnp.bfloat16)
+    return {"w": w, "seg": [{"s": jnp.arange(5, dtype=jnp.bfloat16)}],
+            "opt": jadam_init({"w": w}), "n": jnp.arange(3, dtype=jnp.int32)}
+
+
+def _to_torch(tree):
+    return jax.tree.map(lambda a: convert._tensor(np.asarray(a), "cpu"), tree)
+
+
+def test_bf16_leaves_are_written_as_the_reference_writes_them(tmp_path,
+                                                              monkeypatch):
+    """The port's .npz and sidecar of a tree with bf16 leaves (and a
+    NamedTuple) are byte for byte the reference's (zip member times pinned:
+    np.savez stamps the wall clock)."""
+    import time
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
+    jtree = _bf16_tree()
+    tio.save_pytree(str(tmp_path / "port.npz"), _to_torch(jtree), step=3)
+    jio.save_pytree(str(tmp_path / "ref.npz"), jtree, step=3)
+    for ext in ("npz", "json"):
+        assert (tmp_path / f"port.{ext}").read_bytes() == \
+            (tmp_path / f"ref.{ext}").read_bytes(), ext
+    meta = json.loads((tmp_path / "port.json").read_text())
+    assert meta["dtypes"]["w"] == "bfloat16"
+    assert meta["dtypes"]["opt/.m/w"] == "float32"
+
+
+def test_the_port_loads_the_references_bf16_file(tmp_path):
+    """The reference's own load of this file raises (ROADMAP: the
+    reference's faults); the port reads its bf16 leaves by the sidecar's
+    dtype, bit for bit, onto a template of any dtype."""
+    jtree = _bf16_tree()
+    jio.save_pytree(str(tmp_path / "ref.npz"), jtree, step=3)
+    ttree = _to_torch(jtree)
+    got = tio.load_pytree(str(tmp_path / "ref.npz"), ttree)
+    assert type(got["opt"]) is type(ttree["opt"])
+    for k, v in tio._paths(got).items():
+        assert v.dtype == tio._paths(ttree)[k].dtype, k
+        assert torch.equal(v, tio._paths(ttree)[k]), k
+    as_f32 = tio.load_pytree(str(tmp_path / "ref.npz"),
+                             {**ttree, "w": torch.zeros(4, 3)})
+    assert as_f32["w"].dtype == torch.float32
+    assert torch.equal(as_f32["w"], ttree["w"].float())

@@ -256,10 +256,12 @@ def test_disc_loss_client_axis_equals_one_launch_a_client(cuda, N, B, C, M,
     w = torch.randn(N, B, generator=g).to(cuda)
     vi = lambda i: None if v is None else v[i]
     before = dict(ops.LAUNCHES)
+    batched = dict(ops.LAUNCHES_BATCHED)
     out = ops.disc_loss_fwd(s, q, y, v)
     grads = ops.disc_loss_bwd(w, s, q, y, v, *out[1:])
-    assert ops.LAUNCHES["disc_loss_fwd"] == before["disc_loss_fwd"] + 1
-    assert ops.LAUNCHES["disc_loss_bwd"] == before["disc_loss_bwd"] + 1
+    for name in ("disc_loss_fwd", "disc_loss_bwd"):
+        assert ops.LAUNCHES[name] == before[name] + 1
+        assert ops.LAUNCHES_BATCHED[name] == batched[name] + 1
     for i in range(N):
         one = ops.disc_loss_fwd(s[i], q[i], y[i], vi(i))
         for a, b in zip(out, one):
@@ -267,6 +269,8 @@ def test_disc_loss_client_axis_equals_one_launch_a_client(cuda, N, B, C, M,
         for a, b in zip(grads, ops.disc_loss_bwd(w[i], s[i], q[i], y[i], vi(i),
                                                  *one[1:])):
             assert torch.equal(a[i], b)
+    for name in ("disc_loss_fwd", "disc_loss_bwd"):   # 2-D calls: not batched
+        assert ops.LAUNCHES_BATCHED[name] == batched[name] + 1
     want = ref.disc_loss_fwd(s, q, y, v)
     for a, b in zip(out, want):
         _close(a, b)
@@ -284,11 +288,15 @@ def test_proto_accum_client_axis_equals_one_launch_a_client(cuda, N, n, d, C,
     f = torch.randn(N, n, d, generator=g).to(dtype).to(cuda)
     lab = torch.randint(-1, C + 1, (N, n), generator=g).to(cuda)
     before = ops.LAUNCHES["proto_accum"]
+    batched = ops.LAUNCHES_BATCHED["proto_accum"]
     s, c = ops.proto_accum(f, lab, C)
     assert ops.LAUNCHES["proto_accum"] == before + 1
     for i in range(N):
         si, ci = ops.proto_accum(f[i], lab[i], C)
         assert torch.equal(s[i], si) and torch.equal(c[i], ci)
+    # the client-axis launch counts as batched, the 2-D ones do not
+    assert ops.LAUNCHES["proto_accum"] == before + 1 + N
+    assert ops.LAUNCHES_BATCHED["proto_accum"] == batched + 1
     rs, rc = ref.proto_accum(f, lab, C)
     _close(s, rs)
     assert torch.equal(c, rc)
@@ -563,8 +571,9 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, G, hd,
 
 def test_flash_attention_launches_one_kernel_by_dtype(cuda):
     """At the serving shape a bf16 call launches the tensor-core kernel once
-    and a float32 call the CUDA-core kernel once, by the profiler's names."""
-    from torch.profiler import ProfilerActivity, profile
+    and a float32 call the CUDA-core kernel once, by the profiler's names.
+    Each window opens with a fill kernel (`_device_kernels`): a window of
+    the lone flash call once recorded no flash kernel."""
     B, Sq, Sk, H, G, hd = SERVE_SHAPE
     g = torch.Generator().manual_seed(0)
     names = {}
@@ -572,14 +581,11 @@ def test_flash_attention_launches_one_kernel_by_dtype(cuda):
         q = torch.randn(B, Sq, H, hd, generator=g).to(dtype).to(cuda)
         k = torch.randn(B, Sk, G, hd, generator=g).to(dtype).to(cuda)
         before = ops.LAUNCHES["flash_attention"]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            ops.flash_attention(q, k, k, causal=True)
-            torch.cuda.synchronize()
+        ops.flash_attention(q, k, k, causal=True)
         assert ops.LAUNCHES["flash_attention"] == before + 1
-        names[dtype] = [(e.key, e.count) for e in prof.key_averages()
-                        if "flash_attention" in e.key
-                        and str(e.device_type).endswith("CUDA")]
+        names[dtype] = [(n, c) for n, c in _device_kernels(
+            lambda: ops.flash_attention(q, k, k, causal=True))
+            if "flash_attention" in n]
     tensor_core = re.compile(r"\bflash_attention_bf16_kernel\b")
     cuda_core = re.compile(r"\bflash_attention_kernel\b")
     bf, f32 = names[torch.bfloat16], names[torch.float32]
@@ -616,3 +622,90 @@ def test_flash_attention_raises_where_a_gradient_would_be_dropped(cuda):
     assert not out.requires_grad
     with torch.inference_mode():
         ops.flash_attention(q.detach(), k, k)
+
+
+def test_proto_accum_at_the_lm_train_shape(cuda):
+    """The LM train step's upload stats, (N, B*S, d', V) = (2, 4096, 2048,
+    32000) for TinyLlama-1.1B: counts equal, sums within the file's
+    tolerance, two launches bit-equal."""
+    g = torch.Generator().manual_seed(21)
+    N, n, d, C = 2, 4096, 2048, 32000
+    f = torch.randn(N, n, d, generator=g).to(cuda)
+    lab = torch.randint(0, C, (N, n), generator=g).to(cuda)
+    sums, counts = ops.proto_accum(f, lab, C)
+    again = ops.proto_accum(f, lab, C)
+    want = ref.proto_accum(f, lab, C)
+    assert torch.equal(counts, want[1])
+    _close(sums, want[0])
+    assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "xlstm-125m"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Two cors steps of the reduced LM (2 clients, float32) on the card
+    and on the CPU from the same weights, batches and negative ids: metrics
+    within 1e-4 relative; parameters within 2 lr a step, at most 1% of them
+    beyond 1e-4 (Adam moves an element whose gradient is ~0 by about lr,
+    either way); proto counts equal, sums within 5e-3 x max|sum|; one
+    proto_accum launch a step and no flash_attention launch on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves, tree_map
+    from repro_torch.types import CollabConfig
+    cfg = get_arch(arch).reduced()
+    ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
+                        d_feature=cfg.d_feature)
+    cpu = train.init_state(cfg, torch.Generator().manual_seed(0), 2,
+                           device="cpu")
+    gpu = tree_map(lambda a: a.to(cuda), cpu)
+    g = torch.Generator().manual_seed(1)
+    step = train.make_train_step(cfg, ccfg, n_clients=2, disc_tokens=48)
+    ops.reset_launches()
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (2, 2, 33), generator=g)
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        neg = train.draw_negatives(g, cfg, ccfg, 2)
+        cpu, mc = step(cpu, batch, neg)
+        gpu, mg = step(gpu, tree_map(lambda a: a.to(cuda), batch),
+                       neg.to(cuda))
+        for k in mc:
+            assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * max(
+                1.0, abs(float(mc[k]))), k
+    assert ops.LAUNCHES["proto_accum"] == 2
+    assert ops.LAUNCHES_BATCHED["proto_accum"] == 2    # with the client axis
+    assert ops.LAUNCHES["flash_attention"] == 0
+    far = total = 0
+    for a, b in zip(leaves(cpu.params), leaves(gpu.params)):
+        d = (b.cpu() - a).abs()
+        assert float(d.max()) <= 2 * 2e-3
+        far += int((d > 1e-4).sum())
+        total += d.numel()
+    assert far <= 0.01 * total
+    assert torch.equal(gpu.proto.count.cpu(), cpu.proto.count)
+    torch.testing.assert_close(
+        gpu.proto.sum.cpu(), cpu.proto.sum, rtol=0,
+        atol=5e-3 * max(1.0, float(cpu.proto.sum.abs().max())))
+
+
+def test_train_mode_attention_is_plain_and_keeps_its_gradient(cuda):
+    """gqa_block in train mode takes the plain functions under autograd on
+    the card (no flash launch, the weights get gradients); the prefill mode
+    still goes through the kernel and raises for inputs that require
+    grad."""
+    from repro_torch.nn import attention, rope
+    g = torch.Generator().manual_seed(2)
+    p = {n: (torch.randn(64, 64 if n in ("wq", "wo") else 32, generator=g)
+             * 0.1).to(cuda).requires_grad_(True)
+         for n in ("wq", "wk", "wv", "wo")}
+    x = torch.randn(2, 1536, 64, generator=g).to(cuda)   # chunked: 1536 % 512
+    kw = dict(num_heads=2, num_kv_heads=1, head_dim=32, rope_kind="rope",
+              rope_theta=10000.0)
+    pos = rope.default_positions(2, 1536, "rope", device=cuda)
+    ops.reset_launches()
+    y = attention.gqa_block(p, x, pos, mode="train", **kw)
+    y.square().sum().backward()
+    assert ops.LAUNCHES["flash_attention"] == 0
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in p.values())
+    with pytest.raises(NotImplementedError, match="prefill"):
+        attention.gqa_block(p, x, pos, **kw)
