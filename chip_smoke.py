@@ -10,7 +10,9 @@ Phases (each failure raises, so the process exits non-zero):
      flash_attention kernel;
   3. precision: TF32 off for cuDNN convolutions and matmuls;
   4. kernels: each kernel against its plain PyTorch version on the card at
-     the main paths' shapes and larger ones, with times, the bound from
+     the main paths' shapes and larger ones (flash_attention also at MLA's
+     split head dims, 192/128 and 96/64, and in bf16 at phase 11's GQA
+     prefill shapes), with times, the bound from
      bytes and operations, and a library call's time where one PyTorch call
      computes the same function;
   5. slice: 3 synchronous CoRS rounds of 5 LeNet clients (the example's data
@@ -129,7 +131,24 @@ Phases (each failure raises, so the process exits non-zero):
      peak, and one profiled step (busy share, device ops, top kernels,
      proto_accum's device time); 10c, the collab_lm twin on the card for
      2 rounds under lognormal:2 uploads and periodic:2,3 downloads, its
-     JSONL rendered.
+     JSONL rendered;
+  11. families: every other decoder-only arch at its published widths in
+     bf16 (random weights from seed 0; DeepSeek-67B cut to 16 of its 95
+     layers to fit the card): granite-moe-1b-a400m, deepseek-v2-lite-16b,
+     minicpm3-4b, chatglm3-6b, qwen2-vl-7b (embeddings and M-RoPE
+     positions from `serve_batch_specs`; `serve_lm.serve` decodes seeded
+     random embeddings for it, as it cannot feed its tokens back), zamba2-1.2b,
+     xlstm-125m and deepseek-67b, one after another, each freed before
+     the next: 4 prompts of 256 tokens, 8 greedy tokens, after a warm-up;
+     flash launches asserted (24 / 27 / 62 / 28 / 28 / 6 / 0 / 16, MLA's
+     at its split head dims), logits finite, ids (4, 8) for the token
+     models; parameters, set-up s, prefill ms, decode ms a step, peak
+     memory, and one profiled prefill (flash's share of its device time);
+     then each family in float32 at full width and its least depth (2
+     layers, 6 for zamba2), MoE at a capacity factor of num_experts: the
+     kernel path against plain attention and decode against prefill within
+     CHECK_TOL x max(1, |logit|), attention in bf16 failing it where the
+     family has attention.
 Phase 4 also holds three faulty flash results at the serving shape against
 the bf16 check, which must reject each: a bf16 accumulator, the last 16 keys
 dropped, and P rounded to bf16 once before P V.
@@ -339,6 +358,29 @@ PARITY_MET_TOL, PARITY_PARAM_TOL, PARITY_PARAM_FRAC = 1e-4, 1e-4, 0.01
 PARITY_PROTO_TOL = 5e-3
 # proto_accum at 10b's shape: (N, B*S, d', V)
 LM_PROTO_SHAPE = (LM_CLIENTS, LM_BATCH * LM_SEQ, 2048, 32000)
+# Phase 11: every decoder-only family serves at its published widths (bf16,
+# random weights from seed 0): FAMILY_BATCH prompts of FAMILY_PROMPT tokens
+# (a multiple of zamba2's SSD chunk, 128, and of the xLSTM's, 256), then
+# FAMILY_TOKENS greedy tokens. (arch, layers kept or None for all, flash
+# launches a prefill): one for each attention layer (MLA's at its split
+# head dims), one for each of zamba2's 6 applications of its shared block,
+# none for the xLSTM. DeepSeek-67B (67 B parameters, 134 GB in bf16) is cut
+# to 16 of its 95 layers to fit one 80 GB card, every width kept.
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_TOKENS = 4, 256, 8
+FAMILIES = (("granite-moe-1b-a400m", None, 24),
+            ("deepseek-v2-lite-16b", None, 27), ("minicpm3-4b", None, 62),
+            ("chatglm3-6b", None, 28), ("qwen2-vl-7b", None, 28),
+            ("zamba2-1.2b", None, 6), ("xlstm-125m", None, 0),
+            ("deepseek-67b", 16, 16))
+# flash_attention at MLA's split head dims (B, S, H, G, hd, hv), benched in
+# phase 4: phase 11's DeepSeek-V2-Lite and MiniCPM3 prefill shapes
+FLASH_MLA_SHAPES = ((4, 256, 16, 16, 192, 128), (4, 256, 40, 40, 96, 64))
+# ... and at the other families' equal head dims (B, S, H, G, hd), bf16 and
+# causal as phase 11 serves them, on the tensor-core kernel: Qwen2-VL,
+# ChatGLM3, DeepSeek-67B, Granite, Zamba2's shared block
+FLASH_FAMILY_SHAPES = ((4, 256, 28, 4, 128), (4, 256, 32, 2, 128),
+                       (4, 256, 64, 8, 128), (4, 256, 16, 8, 64),
+                       (4, 256, 32, 32, 64))
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -708,13 +750,17 @@ def flash_controls(B, S, H, G, hd, dev, gen):
     return out
 
 
-def check_flash(B, S, H, G, hd, dtype, causal, dev, gen):
+def check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv=None):
+    """The kernel against its plain version at (B, S, H, G, hd), values hv
+    wide (hd when None; MLA's prefill has hv < hd)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    hv = hd if hv is None else hv
     q = torch.randn(B, S, H, hd, generator=gen).to(dtype).to(dev)
     k = torch.randn(B, S, G, hd, generator=gen).to(dtype).to(dev)
-    v = torch.randn(B, S, G, hd, generator=gen).to(dtype).to(dev)
-    tag = (f"flash_attention ({B}, {S}, {H}, {G}, {hd}) "
+    v = torch.randn(B, S, G, hv, generator=gen).to(dtype).to(dev)
+    dims = f"{hd}" if hv == hd else f"{hd}/{hv}"
+    tag = (f"flash_attention ({B}, {S}, {H}, {G}, {dims}) "
            f"{str(dtype).split('.')[-1]} {'causal' if causal else 'full'}")
     out = ops.flash_attention(q, k, v, causal=causal)
     want = ref.flash_attention(q, k, v, causal=causal)
@@ -733,11 +779,11 @@ def check_flash(B, S, H, G, hd, dtype, causal, dev, gen):
              library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=causal, enable_gqa=True), reps),
              max_abs_err=err, limit_used=excess)
-    # q and k/v read once, the output written once; 4 B H S S hd operations
-    # (two products), half of them unmasked when causal
-    flops = 4 * B * H * S * S * hd / (2 if causal else 1)
+    # q, k and v read once, the output written once; 2 B H S S (hd + hv)
+    # operations (two products), half of them unmasked when causal
+    flops = 2 * B * H * S * S * (hd + hv) / (2 if causal else 1)
     r["bound_ms"], r["bound_by"] = bound_ms(
-        (2 * B * S * H + 2 * B * S * G) * hd * q.element_size(), flops,
+        (B * S * H + B * S * G) * (hd + hv) * q.element_size(), flops,
         BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
     r["share_of_bound"] = r["bound_ms"] / r["ms"]
     lim = ("1e-4 + 2^-7 |plain|" if dtype == torch.bfloat16
@@ -805,6 +851,17 @@ def phase_kernels(dev):
                 res["flash_attention"].append(dict(
                     r, shape=[B, S, H, G, hd, str(dtype).split(".")[-1],
                               "causal" if causal else "full"]))
+    for B, S, H, G, hd, hv in FLASH_MLA_SHAPES:     # MLA's split head dims
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                r = check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv)
+                res["flash_attention"].append(dict(
+                    r, shape=[B, S, H, G, hd, hv, str(dtype).split(".")[-1],
+                              "causal" if causal else "full"]))
+    for B, S, H, G, hd in FLASH_FAMILY_SHAPES:     # phase 11's GQA prefills
+        r = check_flash(B, S, H, G, hd, torch.bfloat16, True, dev, gen)
+        res["flash_attention"].append(dict(
+            r, shape=[B, S, H, G, hd, "bfloat16", "causal"]))
     res["flash_controls"] = flash_controls(*FLASH_SHAPES[0], dev, gen)
     return res
 
@@ -855,38 +912,53 @@ def phase_slice(dev):
     return gpu, launches, secs
 
 
+# The profiler drops the first device records of a window, more of them the
+# more the process has profiled (each large window adds one, and a window
+# now and then loses over a hundred), and keeps the host's launch calls. So
+# a window opens with MARKERS spin kernels (left out of the events), and its
+# device ops are counted from the host's calls that enqueue one.
+MARKERS = 1024
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemcpy",
+                "cudaMemcpy2DAsync", "cudaMemsetAsync", "cudaMemset")
+
+
 def profile(fn):
     """fn() under torch.profiler -> (host wall s, the device events of
-    key_averages()). The window opens with a marker kernel
-    (`torch.cuda._sleep`'s spin kernel, left out of the events): the
-    profiler can miss a window's first device events, and windows of one
-    vec round read one of the round's first kernels short now and then
-    (PR 20)."""
+    key_averages(), the device ops fn launched, the marker records dropped).
+    The window opens with MARKERS marker kernels (`torch.cuda._sleep`'s spin
+    kernel), so that the device records the profiler drops are theirs."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(100_000)
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ev = [e for e in prof.key_averages()
-          if getattr(e, "device_type", None) is not None
-          and str(e.device_type).endswith("CUDA")
-          and "spin_kernel" not in e.key]
-    return wall, ev
+    events = prof.key_averages()
+    dev_ev = [e for e in events
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    ev = [e for e in dev_ev if "spin_kernel" not in e.key]
+    launched = sum(e.count for e in events if e.key in LAUNCH_CALLS) - MARKERS
+    dropped = MARKERS - sum(e.count for e in dev_ev if "spin_kernel" in e.key)
+    return wall, ev, launched, dropped
 
 
-def report_profile(tag, wall, ev, top=12):
-    """Prints busy share and the top kernels; returns busy us and, for each
-    LAUNCHES key of the port, (launches, device us) of its kernels."""
+def report_profile(tag, wall, ev, launched, dropped, top=12):
+    """Prints busy share, device ops and the top kernels; returns busy us
+    and, for each LAUNCHES key of the port, (launches, device us) of its
+    kernels."""
     from repro_torch.kernels import ops
     busy_us = sum(e.self_device_time_total for e in ev)
     print(f"[{tag}] wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}%), "
-          f"{sum(e.count for e in ev)} device ops")
+          f"{launched} device ops ({sum(e.count for e in ev)} device records "
+          f"kept by the profiler; it dropped {dropped} of {MARKERS} markers)")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:5d}  {e.key[:90]}")
@@ -1411,17 +1483,14 @@ def check_telemetry(p, trainers, files, late, stale, evicted, ckpt_dir,
           f"leaves) bit-equal on the card{msg}")
 
 
-def phase_telemetry_cost(dev, n, off=None, off_counts=None):
+def phase_telemetry_cost(dev, n, off=None):
     """vec, cors / flat at N = n (240 samples a client): telemetry on
     (metrics only) against off, TELEMETRY_PAIRS timed rounds of each in
     turns (the order alternating, launches exact, no host sync) and the
     median s/round of rounds 2 on; the 4th round of each runs under
-    torch.profiler instead (device ops, busy time; the off run's device
-    events counted by name into `off_counts`). `off`, when given, is the
-    telemetry-off trainer (phase 5b's, which phase 6 profiles too: the
-    device op count of a round depends a little on the process's history
-    of allocations, so the equality is asked of one trainer); the on
-    trainer first catches up with its rounds, untimed. -> {"on": {...},
+    torch.profiler instead (device ops, busy time). `off`, when given, is
+    the telemetry-off trainer (phase 5b's, which phase 6 profiles too); the
+    on trainer first catches up with its rounds, untimed. -> {"on": {...},
     "off": {...}}."""
     from repro_torch.collab_image_classification import build_trainer
     from repro_torch.kernels import ops
@@ -1439,8 +1508,7 @@ def phase_telemetry_cost(dev, n, off=None, off_counts=None):
             t = runs[tag]
             if r == ROUNDS:
                 _, n_ops, busy, busy_us = phase_profile(
-                    t, f"telemetry {tag} N={n}", True,
-                    off_counts if tag == "off" else None)
+                    t, f"telemetry {tag} N={n}", True)
                 profiled[tag] = {"ops": n_ops, "busy_ms": busy_us / 1e3,
                                  "busy": busy}
                 continue
@@ -1694,19 +1762,16 @@ def phase_population_scale(dev, sync32):
     return res
 
 
-def phase_profile(engine, tag, batched, counts=None):
+def phase_profile(engine, tag, batched):
     """One more round under torch.profiler: device busy share, device ops,
     the device time by kernel name, and one kernel symbol a wrapper call for
-    the slice's kernels (KERNEL_SYMBOLS); `counts`, when given, receives the
-    device events' counts by name. -> (device us a launch by kernel, device
-    ops, busy share, busy us)."""
+    the slice's kernels (KERNEL_SYMBOLS). -> (device us a launch by kernel,
+    device ops, busy share, busy us)."""
     from repro_torch.kernels import ops
     ops.reset_launches()
-    wall, ev = profile(engine.run_round)
-    if counts is not None:
-        counts.update({e.key: e.count for e in ev})
+    wall, ev, launched, dropped = profile(engine.run_round)
     calls = dict(ops.LAUNCHES)
-    busy, port = report_profile(tag, wall, ev)
+    busy, port = report_profile(tag, wall, ev, launched, dropped)
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         if port.get(name, (0, 0))[0] != calls[name]:
             raise AssertionError(f"{name}: {port.get(name)} kernels for "
@@ -1716,7 +1781,7 @@ def phase_profile(engine, tag, batched, counts=None):
           f"{total / 1e3:.4f} ms of device time a round")
     sfx = "_batched" if batched else ""
     return ({name + sfx: us / n for name, (n, us) in port.items()},
-            sum(e.count for e in ev), busy / 1e6 / wall, busy)
+            launched, busy / 1e6 / wall, busy)
 
 
 def phase_scale(dev, secs_seq5, secs_vec5):
@@ -1860,8 +1925,9 @@ def phase_serve_profile(cfg, params, prompts):
             out = prefill(params, {"tokens": toks})
             state["caches"] = lm.pad_cache_for_decode(cfg, out["caches"], 4)
             state["nxt"] = out["logits"][:, -1].argmax(-1)[:, None]
-        wall, ev = profile(run_prefill)
-        busy, port = report_profile("serve profile prefill", wall, ev)
+        wall, ev, launched, dropped = profile(run_prefill)
+        busy, port = report_profile("serve profile prefill", wall, ev,
+                                    launched, dropped)
         n, us = port["flash_attention"]
         print(f"[serve profile prefill] flash_attention: {us / n:.2f} us per "
               f"launch, {100 * us / busy:.1f}% of the prefill's device time")
@@ -1872,10 +1938,10 @@ def phase_serve_profile(cfg, params, prompts):
                 out = decode(params, {"tokens": nxt}, state["caches"],
                              cache_index=toks.shape[1] + i, masked=True)
                 nxt = out["logits"][:, -1].argmax(-1)[:, None]
-        wall_d, ev_d = profile(run_decode)
+        wall_d, ev_d, launched_d, dropped_d = profile(run_decode)
         busy_d, _ = report_profile("serve profile decode x4", wall_d, ev_d,
-                                   top=8)
-        print(f"[serve profile decode x4] {sum(e.count for e in ev_d) / 4:.0f}"
+                                   launched_d, dropped_d, top=8)
+        print(f"[serve profile decode x4] {launched_d / 4:.0f}"
               f" device ops and {wall_d / 4 * 1e3:.2f} ms a step")
     return {"flash_device_us": us / n, "flash_share": us / busy,
             "prefill_busy": busy / 1e6 / wall, "decode_busy": busy_d / 1e6 / wall_d}
@@ -2085,8 +2151,10 @@ def phase_lm_train(dev):
           f"{flops / s_step / BF16_FLOPS:.3f} of bf16 peak; model FLOPs "
           f"(6 P T, causal) {model_flops:.3e} -> "
           f"{model_flops / s_step / BF16_FLOPS:.3f} of bf16 peak")
-    wall, ev = profile(lambda: step(state, batches[-1], negs[-1]))
-    busy, port = report_profile("train profile", wall, ev, top=15)
+    wall, ev, launched, dropped = profile(
+        lambda: step(state, batches[-1], negs[-1]))
+    busy, port = report_profile("train profile", wall, ev, launched,
+                                dropped, top=15)
     n_pa, us_pa = port["proto_accum"]
     if n_pa != 1 or "flash_attention" in port:
         raise AssertionError(f"[train profile] port kernels {port}")
@@ -2098,8 +2166,7 @@ def phase_lm_train(dev):
             "share_of_bf16_peak": flops / s_step / BF16_FLOPS,
             "model_flops": model_flops,
             "model_share_of_bf16_peak": model_flops / s_step / BF16_FLOPS,
-            "busy_share": busy / 1e6 / wall, "device_ops": sum(e.count
-                                                               for e in ev),
+            "busy_share": busy / 1e6 / wall, "device_ops": launched,
             "proto_accum_us": us_pa, "launches": launches,
             "launches_batched": batched, "steps_s": secs}
 
@@ -2128,6 +2195,183 @@ def phase_lm_twin(dev):
     return secs
 
 
+def family_depth(cfg, n):
+    """cfg cut to n layers, its distinct kinds cycled in order (the xLSTM's
+    (mlstm, slstm) at 2), every width kept."""
+    kinds = list(dict.fromkeys(cfg.block_pattern))
+    return dataclasses.replace(cfg, num_layers=n, block_pattern=tuple(
+        kinds[i % len(kinds)] for i in range(n)))
+
+
+def family_inputs(cfg, B, S, dev, gen, offset=0):
+    """A batch for `cfg`: tokens cut from `token_stream` as the serving twin
+    cuts its prompts, or, for an embeddings model, seeded random
+    embeddings with M-RoPE positions starting at `offset`, shaped by
+    `serve.serve_batch_specs`."""
+    from repro_torch import serve_lm
+    from repro_torch.launch import serve
+    from repro_torch.nn import rope
+    from repro_torch.types import ShapeConfig
+    if cfg.input_kind == "tokens":
+        return {"tokens": torch.as_tensor(serve_lm.make_prompts(cfg, B, S),
+                                          device=dev)}
+    specs = serve.serve_batch_specs(cfg, ShapeConfig("phase 11", S, B,
+                                                     "prefill"))
+    emb = specs["embeddings"]
+    return {"embeddings": torch.randn(emb.shape, generator=gen, device=dev
+                                      ).to(emb.dtype),
+            "positions": rope.default_positions(B, S, cfg.rope_kind,
+                                                offset=offset, device=dev)}
+
+
+def phase_family_serve(dev, arch, layers, want_flash):
+    """One family at its published widths in bf16: serve FAMILY_BATCH x
+    FAMILY_PROMPT tokens and FAMILY_TOKENS decode steps (after a warm-up
+    of 2), launches asserted, then one prefill under torch.profiler."""
+    from repro_torch import serve_lm
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = get_arch(arch)
+    if layers:
+        cfg = family_depth(cfg, layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in _leaves(params))
+    # tokens fed back, or (Qwen2-VL) seeded embeddings with their M-RoPE
+    # positions, drawn before the timed loop
+    tokens = cfg.input_kind == "tokens"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = family_inputs(cfg, FAMILY_BATCH, FAMILY_PROMPT, dev, gen)
+    next_batch = serve_lm.greedy_tokens
+    if not tokens:
+        steps = [family_inputs(cfg, FAMILY_BATCH, 1, dev, gen,
+                               offset=FAMILY_PROMPT + i)
+                 for i in range(FAMILY_TOKENS)]
+        next_batch = lambda i, logits: steps[i]
+    run = lambda n: serve_lm.serve(params, cfg, batch, n, next_batch)
+    with torch.inference_mode():
+        run(2)                                           # warm-up
+        ops.reset_launches()
+        r = run(FAMILY_TOKENS)
+        launches = dict(ops.LAUNCHES)
+        prefill = serve.make_prefill_step(cfg)
+        wall, ev, launched, dropped = profile(lambda: prefill(params, batch))
+    peak = torch.cuda.max_memory_allocated()
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": 0,
+            "flash_attention": want_flash}
+    if launches != want:
+        raise AssertionError(f"{arch}: launch counts {launches} != {want}")
+    if not bool(torch.isfinite(r["logits"]).all()):
+        raise AssertionError(f"{arch}: non-finite serving logits")
+    if tuple(r["logits"].shape) != (FAMILY_TOKENS + 1, FAMILY_BATCH,
+                                    cfg.vocab_size):
+        raise AssertionError(f"{arch}: logits of shape {tuple(r['logits'].shape)}")
+    if tokens and tuple(r["ids"].shape) != (FAMILY_BATCH, FAMILY_TOKENS):
+        raise AssertionError(f"{arch}: generated ids of shape "
+                             f"{tuple(r['ids'].shape)}")
+    busy, port = report_profile(f"family {arch} prefill profile", wall, ev,
+                                launched, dropped, top=6)
+    n_f, us_f = port.get("flash_attention", (0, 0.0))
+    if n_f != want_flash:
+        raise AssertionError(f"{arch}: {n_f} flash kernels in the profiled "
+                             f"prefill, not {want_flash}")
+    out = {"arch": arch, "layers": cfg.num_layers, "params": n_par,
+           "setup_s": setup_s, "prefill_ms": r["prefill_s"] * 1e3,
+           "decode_ms_per_step": r["decode_s"] * 1e3 / FAMILY_TOKENS,
+           "peak_gb": peak / 1e9, "flash_launches": launches["flash_attention"],
+           "flash_us_per_launch": us_f / n_f if n_f else None,
+           "flash_share_of_prefill_device_time": us_f / busy,
+           "prefill_busy_share": busy / 1e6 / wall}
+    print(f"[family] {arch}: {cfg.num_layers}L d={cfg.d_model} {cfg.dtype}, "
+          f"{n_par / 1e9:.3f} B parameters, set up in {setup_s:.2f} s; "
+          f"prefill {FAMILY_BATCH}x{FAMILY_PROMPT}: {out['prefill_ms']:.2f} ms; "
+          f"decode {out['decode_ms_per_step']:.2f} ms/step; peak "
+          f"{out['peak_gb']:.2f} GB; flash {launches['flash_attention']} "
+          f"launches, {100 * out['flash_share_of_prefill_device_time']:.1f}% "
+          f"of the prefill's device time"
+          + (f"; ids[0] {r['ids'][0].tolist()}" if tokens else ""))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_check(dev, arch):
+    """One family at full width in float32 at its least depth (2 layers, 6
+    for zamba2 so the shared block runs once), MoE at a capacity factor of
+    num_experts: the kernel path against plain attention and decode
+    against prefill at the last position, each within CHECK_TOL x max(1,
+    |logit|); attention in bf16 (where the family has attention) must
+    fail it. Recurrent families prefill min(CHECK_PROMPT, ssm_chunk)
+    tokens: prefills of S and S - 1 must both divide into SSD chunks."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+    from repro_torch.nn import attention
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    cfg = family_depth(cfg, cfg.shared_attn_period or 2)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    recurrent = bool({"mamba", "mlstm"} & set(cfg.block_pattern))
+    S = min(CHECK_PROMPT, cfg.ssm_chunk) if recurrent else CHECK_PROMPT
+    has_attn = "attn" in cfg.block_pattern or bool(cfg.shared_attn_period)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_lm(gen, cfg, device=dev)
+    batch = family_inputs(cfg, SERVE_BATCH, S, dev, gen)
+    head = {k: v[:, :-1] for k, v in batch.items()}
+    last = {k: v[:, -1:] for k, v in batch.items()}
+    run = lambda b: lm.forward(params, cfg, b, mode="prefill")
+    with torch.inference_mode():
+        kern = run(batch)["logits"][:, -1]
+        with attention.prefill_attention(ref.flash_attention):
+            plain = run(batch)["logits"][:, -1]
+        ctrl = None
+        if has_attn:
+            with attention.prefill_attention(bf16_attention):  # must fail
+                ctrl = run(batch)["logits"][:, -1]
+        dec = lm.decode_step(params, cfg, last, lm.pad_cache_for_decode(
+            cfg, run(head)["caches"]))["logits"][:, 0]
+    scale = max(1.0, float(plain.abs().max()))
+    e_k = float((kern - plain).abs().max())
+    e_d = float((dec - kern).abs().max())
+    e_c = None if ctrl is None else float((ctrl - plain).abs().max())
+    print(f"[family check] {arch} float32 {cfg.num_layers}L "
+          f"{SERVE_BATCH}x{S}: max |kernel path - plain| {e_k:.3e}, max "
+          f"|decode - prefill| {e_d:.3e}, max |logit| {scale:.3e} (tol "
+          f"{CHECK_TOL * scale:.3e}); control, attention in bf16: "
+          + ("no attention layer" if e_c is None else f"{e_c:.3e}"))
+    if e_c is not None and not e_c > CHECK_TOL * scale:
+        raise AssertionError(f"{arch}: the float32 check passes bf16 "
+                             f"attention: {e_c:.3e} <= {CHECK_TOL} x {scale:.3e}")
+    for what, e in (("kernel path vs plain", e_k), ("decode vs prefill", e_d)):
+        if not e <= CHECK_TOL * scale:
+            raise AssertionError(f"{arch}: {what}: {e:.3e} > {CHECK_TOL} x "
+                                 f"{scale:.3e}")
+    if not bool(torch.isfinite(kern).all()):
+        raise AssertionError(f"{arch}: non-finite float32 logits")
+    del params
+    torch.cuda.empty_cache()
+    return {"kernel_vs_plain": e_k, "decode_vs_prefill": e_d,
+            "bf16_attention_control": e_c, "max_logit": scale,
+            "layers": cfg.num_layers, "prompt": S}
+
+
+def phase_families(dev):
+    """Phase 11: each family served in bf16, then its float32 check."""
+    serve_rows, checks = [], {}
+    for arch, layers, want in FAMILIES:
+        serve_rows.append(phase_family_serve(dev, arch, layers, want))
+    for arch, _, _ in FAMILIES:
+        checks[arch] = phase_family_check(dev, arch)
+    return serve_rows, checks
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -2148,34 +2392,19 @@ def main():
     with tempfile.TemporaryDirectory() as tdir:
         paths.update(phase_fleet_paths(dev, "telemetry", TELEMETRY_PATHS,
                                        tdir))
-    off_counts, counts6 = {}, {}
-    telemetry = {CLIENTS: phase_telemetry_cost(dev, CLIENTS, vec, off_counts),
+    telemetry = {CLIENTS: phase_telemetry_cost(dev, CLIENTS, vec),
                  SCALE_CLIENTS: phase_telemetry_cost(dev, SCALE_CLIENTS)}
+    # phase 5b's trainer, 5g's telemetry-off arm: a round launches as many
+    # device ops here as in 5g's window
     off_ops = telemetry[CLIENTS]["off"]["ops"]
-    for window in range(3):
-        # phase 5b's trainer, 5g's telemetry-off arm: its device ops must
-        # equal 5g's count. A profiler window can lose device events: taken
-        # after seq's window of 11,000 events, this one read one event
-        # fewer in three PR 20 runs (in one, 71 fewer, every kernel's count
-        # short). So vec goes first, and a window that disagrees is taken
-        # again, at most twice; the numbers reported are the last window's
-        counts6.clear()
-        dev_us_vec, ops_vec, busy_vec, _ = phase_profile(
-            vec, "profile vec" + " again" * window, True, counts6)
-        if ops_vec == off_ops:
-            break
-        diff = {k: (off_counts.get(k, 0), counts6.get(k, 0))
-                for k in set(off_counts) | set(counts6)
-                if off_counts.get(k, 0) != counts6.get(k, 0)}
-        print(f"[profile] vec: {ops_vec} device ops against 5g's telemetry-"
-              f"off {off_ops}; by name (5g, this window): {diff}")
-    else:
+    dev_us_vec, ops_vec, busy_vec, _ = phase_profile(vec, "profile vec", True)
+    if ops_vec != off_ops:
         raise AssertionError(f"telemetry off at N={CLIENTS}: {off_ops} device "
-                             f"ops, not phase 6's {ops_vec} in 3 windows")
+                             f"ops, not phase 6's {ops_vec}")
     dev_us, ops_seq, busy_seq, _ = phase_profile(gpu, "profile seq", False)
     dev_us.update(dev_us_vec)
     print(f"[profile] device ops a round: vec {ops_vec} (= 5g's telemetry-off "
-          f"count, window {window + 1}), seq {ops_seq} ({ops_vec / ops_seq:.3f}"
+          f"count), seq {ops_seq} ({ops_vec / ops_seq:.3f}"
           f" of seq); device busy vec {100 * busy_vec:.1f}%, seq "
           f"{100 * busy_seq:.1f}%")
     del gpu, vec
@@ -2191,6 +2420,8 @@ def main():
     lm_train = phase_lm_train(dev)
     torch.cuda.empty_cache()
     lm_twin_s = phase_lm_twin(dev)
+    torch.cuda.empty_cache()
+    families, family_checks = phase_families(dev)
     launches["flash_attention"] = serve_launches["flash_attention"]
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         launches[name + "_batched"] = launches_vec[name]
@@ -2231,12 +2462,16 @@ def main():
         if name == "proto_accum_batched":
             k["lm_train_device_us_per_launch"] = lm_train["proto_accum_us"]
         if name == "flash_attention":
+            k["launches_by_path"]["serve tinyllama-1.1b"] = launches[name]
+            k["launches_by_path"].update(
+                {f"serve {f['arch']}": f["flash_launches"] for f in families})
             k["share_of_prefill_device_time"] = prof["flash_share"]
             k["controls_times_limit"] = {n: c[0] for n, c in controls.items()}
             k["bf16_kernel_resources"] = resources
             k["serve_check_f32"] = {"kernel_vs_plain": e_k,
                                     "decode_vs_prefill": e_d,
                                     "bf16_attention_control": e_c}
+            k["family_checks_f32"] = family_checks
         kernels.append(k)
     print(f"[card] {smi}; vec over seq s/round: N={CLIENTS} "
           f"{scale['n5']:.3f}x, N={SCALE_CLIENTS} {scale['n32']:.3f}x; device "
@@ -2248,7 +2483,8 @@ def main():
           f"{json.dumps(telemetry)}; lm train parity "
           f"{json.dumps(lm_parity)}; lm train "
           f"{json.dumps({k: v for k, v in lm_train.items() if 'launches' not in k})}"
-          f"; lm twin 2 rounds {lm_twin_s:.2f} s")
+          f"; lm twin 2 rounds {lm_twin_s:.2f} s; families "
+          f"{json.dumps(families)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,41 @@
-"""Architecture registry of the port: --arch <id> -> ModelConfig.
+"""Architecture registry of the port: --arch <id> -> ModelConfig, and the
+assigned input shapes (`get_shape`).
 
-The port holds the architectures whose modules it has: TinyLlama (trained
-and served) and xLSTM-125M (trained). Every other id of
-the reference's registry (`repro/configs/__init__.py`) raises `KeyError`
-naming the ROADMAP queue that brings its family.
+The port holds every decoder-only architecture of the reference's registry
+(`repro/configs/__init__.py`). Whisper-small, the encoder-decoder, raises
+`KeyError` naming the ROADMAP queue that brings `models/encdec.py`.
 """
 from __future__ import annotations
 
-from repro_torch.configs import tinyllama_1_1b, xlstm_125m
-from repro_torch.types import ModelConfig
+from repro_torch.configs import (chatglm3_6b, deepseek_67b,
+                                 deepseek_v2_lite_16b, granite_moe_1b_a400m,
+                                 minicpm3_4b, qwen2_vl_7b, tinyllama_1_1b,
+                                 xlstm_125m, zamba2_1_2b)
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.types import ModelConfig, ShapeConfig
 
-ARCHS = {c.CONFIG.name: c.CONFIG for c in (tinyllama_1_1b, xlstm_125m)}
+ARCHS = {
+    c.CONFIG.name: c.CONFIG
+    for c in (chatglm3_6b, deepseek_67b, qwen2_vl_7b, granite_moe_1b_a400m,
+              xlstm_125m, tinyllama_1_1b, zamba2_1_2b, deepseek_v2_lite_16b,
+              minicpm3_4b)
+}
 
-# the reference's other architectures: their families come in later slices
-NOT_PORTED = ("chatglm3-6b", "deepseek-67b", "qwen2-vl-7b",
-              "granite-moe-1b-a400m", "zamba2-1.2b",
-              "deepseek-v2-lite-16b", "whisper-small", "minicpm3-4b")
+# the reference's encoder-decoder: models/encdec.py comes in a later slice
+NOT_PORTED = ("whisper-small",)
 
 
 def get_arch(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md, queue 1: "
-                       f"other LM families); available: {sorted(ARCHS)}")
+                       f"Whisper and models/encdec.py); available: "
+                       f"{sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]

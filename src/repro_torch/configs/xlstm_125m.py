@@ -1,7 +1,6 @@
 """xLSTM-125M [arXiv:2405.04517] — sLSTM + mLSTM blocks (1 sLSTM per 6),
 4 heads, d_ff=0 (blocks carry their own projections); the port's copy of
-`repro/configs/xlstm_125m.py`. The port trains it; serving it waits for
-the other LM families (ROADMAP.md, queue 1)."""
+`repro/configs/xlstm_125m.py`. The port trains and serves it."""
 from repro_torch.types import ModelConfig
 
 _PATTERN = tuple("slstm" if i % 6 == 3 else "mlstm" for i in range(12))

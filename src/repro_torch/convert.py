@@ -98,14 +98,17 @@ def _take(a, i: int, axis: int):
 
 def lm_params_from_jax(tree: Dict[str, Any], device=None,
                        clients: bool = False) -> Dict[str, Any]:
-    """The reference's `lm.init_lm` pytree (TinyLlama or xLSTM), its leaves
-    as numpy arrays (or CPU tensors) -> the port's LM parameters
-    (`models/lm.py`) on `device`, same dtypes. With `clients`, every leaf
-    leads with a client axis (a `TrainState`'s), which is kept.
+    """The reference's `lm.init_lm` pytree (any decoder-only arch), its
+    leaves as numpy arrays (or CPU tensors) -> the port's LM parameters
+    (`models/lm.py`) on `device`, same dtypes (the float32 MoE router and
+    mamba `A_log`, `dt_bias` and `D` among bf16 weights). With `clients`,
+    every leaf leads with a client axis (a `TrainState`'s), which is kept.
 
     `segments[i]` is a dict of leaves stacked on a layer axis in the
-    reference (after the client axis); here it becomes a list of per-layer
-    dicts. Dense weights keep the reference's (in, out) layout (the port
+    reference (after the client axis; MoE's stacked `_e` expert weights
+    keep their expert axis after it); here it becomes a list of per-layer
+    dicts. The unstacked `shared` block (zamba2) converts leaf by leaf.
+    Dense weights keep the reference's (in, out) layout (the port
     multiplies `x @ w`), so no leaf is transposed."""
     dev = resolve_device(device)
     axis = int(clients)

@@ -4,19 +4,22 @@
 // src/repro/kernels/flash_attention.py. The contract is that of
 // src/repro/kernels/ref.py:flash_attention:
 //
-//   q (B, Sq, H, hd), k and v (B, Sk, G, hd), H % G == 0, float32 or bf16;
+//   q (B, Sq, H, hd), k (B, Sk, G, hd) and v (B, Sk, G, hv), H % G == 0,
+//   float32 or bf16; hv == hd but for MLA's pairs (below);
 //   query head h reads KV head h / (H / G) (never repeated in memory);
 //   s = (q * hd^-0.5) k^T in float32; causal mask q_pos >= k_pos, both
 //   counted from 0; masked scores are -1e30; running max, sum and
 //   accumulator in float32; out = acc / max(l, 1e-30) in q's dtype,
-//   written straight into (B, Sq, H, hd).
+//   written straight into (B, Sq, H, hv).
 //
-// What bounds it: 4 * B * H * Sq * Sk * hd operations (half of that causal)
-// over 2 * (B*Sq*H + B*Sk*G) * hd elements of input and output, so at the
+// What bounds it: 2 * B * H * Sq * Sk * (hd + hv) operations (half of that
+// causal) over (B*Sq*H + B*Sk*G) * (hd + hv) elements of input and output
+// (q and k at hd, v and the output at hv), so at the
 // serving prefill shape (B 4, S 1024, H 32, G 4, hd 64) it is bound by
 // operations: 17.2 GFLOP, 0.0174 ms at the bf16 tensor cores' 989 TFLOP/s.
 //
-// Two kernels, one per input type.
+// Two kernels: the tensor-core kernel for bf16 at equal head dims, and the
+// CUDA-core kernel for float32 and for MLA's split dims in both types.
 //
 // bf16: `flash_attention_bf16_kernel`, on the tensor cores (wgmma). One
 // block owns BQ = 128 query rows of one (batch, head): two consumer
@@ -55,18 +58,26 @@
 // causal; dynamic shared memory is 42,048 / 83,008 / 99,392 bytes at hd 32 /
 // 64 / 128 (`flash_attention_bf16_smem`).
 //
-// float32: `flash_attention_kernel`, on the CUDA cores in float32, kept
-// deliberately: TF32 tensor cores would miss the float32 checks, and this
-// kernel already beats scaled_dot_product_attention in float32. One block
-// owns 64 query rows of one (batch, head) and walks the key tiles itself,
-// the running state in registers:
-//   - a query row is split over TPR = hd / 32 neighbouring threads, each
-//     holding 32 of its dims (q, pre-scaled, and acc) in registers; dims are
-//     interleaved in float4 chunks (thread p owns chunks p, p + TPR, ...) so
-//     the TPR threads of a row read neighbouring shared-memory words;
+// float32, and MLA's split head dims: `flash_attention_kernel`, on the CUDA
+// cores in float32, kept deliberately for float32: TF32 tensor cores would
+// miss the float32 checks, and this kernel already beats
+// scaled_dot_product_attention in float32. Its value dim HV is a template
+// parameter of its own: MLA's prefill attends with query/key dim
+// hd = qk_nope + qk_rope and value dim hv = v_head_dim (DeepSeek-V2-Lite
+// 192 / 128, MiniCPM3 96 / 64, the reduced CPU configs 80 / 64), and there
+// it serves bf16 too (load through `to_f32`, round once in `store`), since
+// the wgmma kernel takes equal dims only. One block owns 64 query rows of
+// one (batch, head) and walks the key tiles itself, the running state in
+// registers:
+//   - a query row is split over TPR = hv / 32 neighbouring threads, each
+//     holding hd / TPR of its q dims (pre-scaled) and 32 of its acc dims in
+//     registers (48 and 32 at 192 / 128 and at 96 / 64); dims are
+//     interleaved in float4 chunks (thread p owns chunks p, p + TPR, ...)
+//     so the TPR threads of a row read neighbouring shared-memory words;
 //   - each tile of 32 keys and values is loaded once into shared memory in
-//     float32 for all rows; every row reads the same key at the same time,
-//     so the reads are broadcasts;
+//     float32 for all rows (32 x (192 + 128) floats, 40 KB, at the largest
+//     pair); every row reads the same key at the same time, so the reads
+//     are broadcasts;
 //   - per tile, the 32 scores of a row go to registers (a partial dot per
 //     thread, summed over the row's TPR lanes by shuffles), then one rescale
 //     of (l, acc) by the tile's max, then p = exp(s - m) and acc += p v.
@@ -90,22 +101,37 @@ namespace f32 {
 
 constexpr int BQ = 64;                 // query rows per block
 constexpr int BK = 32;                 // keys per shared-memory tile
-constexpr int DPT = 32;                // dims of a row held by one thread
-constexpr int CH = DPT / 4;            // float4 chunks a thread holds
+constexpr int DV = 32;                 // value dims of a row held by one thread
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);                      // round to nearest even
+}
 
-template <typename T, int HD, bool CAUSAL>
-__global__ void __launch_bounds__(BQ * (HD / DPT))
+template <int HD, int HV>
+struct Split {
+  static constexpr int TPR = HV / DV;            // threads per query row
+  static constexpr int DQ = HD / TPR;            // q dims a thread holds
+  static constexpr int CHQ = DQ / 4, CHV = DV / 4;   // float4 chunks of each
+  static_assert(HV % DV == 0 && HD % TPR == 0 && DQ % 4 == 0,
+                "the row split must divide both head dims into float4s");
+};
+
+template <typename T, int HD, int HV, bool CAUSAL>
+__global__ void __launch_bounds__(BQ * (HV / DV))
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        int Sq, int Sk, int H, int G, float scale) {
-  constexpr int TPR = HD / DPT;        // threads per query row
+  using SP = Split<HD, HV>;
+  constexpr int TPR = SP::TPR, DQ = SP::DQ, CHQ = SP::CHQ, CHV = SP::CHV;
   constexpr int NT = BQ * TPR;
   __shared__ __align__(16) float Ks[BK][HD];
-  __shared__ __align__(16) float Vs[BK][HD];
+  __shared__ __align__(16) float Vs[BK][HV];
 
   const int tid = threadIdx.x;
   const int row = tid / TPR, part = tid % TPR;
@@ -115,31 +141,43 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_pos = q0 + row;
 
   // this thread's dims: chunk c covers dims 4 * (part + TPR * c) + 0..3
-  float qr[DPT], acc[DPT];
+  float qr[DQ], acc[DV];
   const T* qrow = q + (((size_t)b * Sq + q_pos) * H + h) * HD;
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
+  for (int c = 0; c < CHQ; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 4 * (part + TPR * c) + e;
       qr[4 * c + e] = (q_pos < Sq) ? to_f32(qrow[d]) * scale : 0.f;
-      acc[4 * c + e] = 0.f;
     }
   }
+#pragma unroll
+  for (int i = 0; i < DV; ++i) acc[i] = 0.f;
   float m = NEG_INF, l = 0.f;
 
   const int k_end = CAUSAL ? min(Sk, q0 + BQ) : Sk;
-  const size_t kv_row = (size_t)G * HD;          // stride between key positions
   const T* kbase = k + ((size_t)b * Sk * G + g) * HD;
-  const T* vbase = v + ((size_t)b * Sk * G + g) * HD;
+  const T* vbase = v + ((size_t)b * Sk * G + g) * HV;
+  const size_t kv_row = (size_t)G * HD;          // stride between key positions
 
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();                               // previous tile consumed
-    for (int i = tid; i < BK * HD; i += NT) {
-      const int j = i / HD, d = i % HD;
-      const bool in = k0 + j < Sk;
-      Ks[j][d] = in ? to_f32(kbase[(size_t)(k0 + j) * kv_row + d]) : 0.f;
-      Vs[j][d] = in ? to_f32(vbase[(size_t)(k0 + j) * kv_row + d]) : 0.f;
+    if constexpr (HD == HV) {                      // one pass loads K and V
+      for (int i = tid; i < BK * HD; i += NT) {
+        const int j = i / HD, d = i % HD;
+        const bool in = k0 + j < Sk;
+        Ks[j][d] = in ? to_f32(kbase[(size_t)(k0 + j) * kv_row + d]) : 0.f;
+        Vs[j][d] = in ? to_f32(vbase[(size_t)(k0 + j) * kv_row + d]) : 0.f;
+      }
+    } else {                                       // MLA's pairs: hv < hd
+      for (int i = tid; i < BK * HD; i += NT) {
+        const int j = i / HD, d = i % HD;
+        Ks[j][d] = k0 + j < Sk ? to_f32(kbase[(size_t)(k0 + j) * kv_row + d]) : 0.f;
+      }
+      for (int i = tid; i < BK * HV; i += NT) {
+        const int j = i / HV, d = i % HV;
+        Vs[j][d] = k0 + j < Sk ? to_f32(vbase[(size_t)(k0 + j) * G * HV + d]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -149,7 +187,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       float part_dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < CH; ++c) {
+      for (int c = 0; c < CHQ; ++c) {
         const float4 kk = *reinterpret_cast<const float4*>(&Ks[j][4 * (part + TPR * c)]);
         part_dot += qr[4 * c] * kk.x + qr[4 * c + 1] * kk.y +
                     qr[4 * c + 2] * kk.z + qr[4 * c + 3] * kk.w;
@@ -167,13 +205,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
+    for (int i = 0; i < DV; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       const float p = expf(s[j] - m_new);
       l += p;
 #pragma unroll
-      for (int c = 0; c < CH; ++c) {
+      for (int c = 0; c < CHV; ++c) {
         const float4 vv = *reinterpret_cast<const float4*>(&Vs[j][4 * (part + TPR * c)]);
         acc[4 * c] += p * vv.x;
         acc[4 * c + 1] += p * vv.y;
@@ -186,9 +224,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (q_pos < Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = o + (((size_t)b * Sq + q_pos) * H + h) * HD;
+    T* orow = o + (((size_t)b * Sq + q_pos) * H + h) * HV;
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
+    for (int c = 0; c < CHV; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         store(&orow[4 * (part + TPR * c) + e], acc[4 * c + e] * inv);
@@ -196,24 +234,37 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, int HV, bool CAUSAL>
 int launch_hd(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
               int H, int G, cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, HD, CAUSAL><<<grid, BQ * (HD / DPT), 0, stream>>>(
+  flash_attention_kernel<T, HD, HV, CAUSAL><<<grid, BQ * (HV / DV), 0, stream>>>(
       q, k, v, o, Sq, Sk, H, G, (float)(1.0 / std::sqrt((double)HD)));
   return (int)cudaGetLastError();
 }
 
+// float32 at every pair; bf16 at MLA's pairs only (equal dims in bf16 take
+// the tensor-core kernel below)
 template <typename T, bool CAUSAL>
 int launch_causal(const T* q, const T* k, const T* v, T* o, int B, int Sq,
-                  int Sk, int H, int G, int hd, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch_hd<T, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-    case 64: return launch_hd<T, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-    case 128: return launch_hd<T, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-    default: return (int)cudaErrorInvalidValue;
+                  int Sk, int H, int G, int hd, int hv, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4) {
+    if (hd == hv) {
+      switch (hd) {
+        case 32: return launch_hd<T, 32, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+        case 64: return launch_hd<T, 64, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+        case 128: return launch_hd<T, 128, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
   }
+  if (hd == 192 && hv == 128)
+    return launch_hd<T, 192, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+  if (hd == 96 && hv == 64)
+    return launch_hd<T, 96, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+  if (hd == 80 && hv == 64)
+    return launch_hd<T, 80, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace f32
@@ -710,16 +761,25 @@ bool bad_shape(int B, int Sq, int Sk, int H, int G) {
 
 extern "C" int flash_attention_f32(const float* q, const float* k, const float* v,
                                    float* o, int B, int Sq, int Sk, int H, int G,
-                                   int hd, int causal, cudaStream_t stream) {
+                                   int hd, int hv, int causal, cudaStream_t stream) {
   if (bad_shape(B, Sq, Sk, H, G)) return (int)cudaErrorInvalidValue;
-  return causal ? f32::launch_causal<float, true>(q, k, v, o, B, Sq, Sk, H, G, hd, stream)
-                : f32::launch_causal<float, false>(q, k, v, o, B, Sq, Sk, H, G, hd, stream);
+  return causal ? f32::launch_causal<float, true>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream)
+                : f32::launch_causal<float, false>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream);
 }
 
+// bf16: equal dims on the tensor cores, MLA's pairs on the CUDA cores
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* o, int B, int Sq, int Sk, int H, int G,
-                                    int hd, int causal, cudaStream_t stream) {
+                                    int hd, int hv, int causal, cudaStream_t stream) {
   if (bad_shape(B, Sq, Sk, H, G)) return (int)cudaErrorInvalidValue;
+  if (hd != hv) {
+    using T = __nv_bfloat16;
+    const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+            *tv = static_cast<const T*>(v);
+    T* to = static_cast<T*>(o);
+    return causal ? f32::launch_causal<T, true>(tq, tk, tv, to, B, Sq, Sk, H, G, hd, hv, stream)
+                  : f32::launch_causal<T, false>(tq, tk, tv, to, B, Sq, Sk, H, G, hd, hv, stream);
+  }
   return causal ? tc::launch_causal<true>(q, k, v, o, B, Sq, Sk, H, G, hd, stream)
                 : tc::launch_causal<false>(q, k, v, o, B, Sq, Sk, H, G, hd, stream);
 }

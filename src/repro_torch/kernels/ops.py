@@ -33,6 +33,11 @@ KERNEL_SYMBOLS: Dict[str, tuple] = {
                         "flash_attention_kernel"),          # float32
 }
 FLASH_HEAD_DIMS = (32, 64, 128)
+# (query/key dim, value dim) pairs of MLA's prefill (qk_nope + qk_rope,
+# v_head_dim): DeepSeek-V2-Lite, MiniCPM3 and the reduced configs. The
+# CUDA-core kernel takes them in float32 and bf16.
+FLASH_MLA_DIMS = ((192, 128), (96, 64), (80, 64))
+FLASH_DIMS = tuple((d, d) for d in FLASH_HEAD_DIMS) + FLASH_MLA_DIMS
 
 
 def reset_launches() -> None:
@@ -290,22 +295,25 @@ def proto_accum(features, labels, num_classes: int):
 
 # -- flash_attention ----------------------------------------------------------
 def flash_attention(q, k, v, causal: bool = True):
-    """q (B, Sq, H, hd); k, v (B, Sk, G, hd), H % G == 0, float32 or bf16,
-    hd in FLASH_HEAD_DIMS -> (B, Sq, H, hd) in q's dtype; see
-    `ref.flash_attention`."""
-    if (q.dim() != 4 or k.dim() != 4 or v.shape != k.shape
+    """q (B, Sq, H, hd); k (B, Sk, G, hd); v (B, Sk, G, hv), H % G == 0,
+    float32 or bf16, (hd, hv) in FLASH_DIMS -> (B, Sq, H, hv) in q's dtype;
+    see `ref.flash_attention`. Equal dims in bf16 run on the tensor cores,
+    everything else on the CUDA cores."""
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or v.shape[:3] != k.shape[:3]
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]):
-        raise ValueError(f"need q (B, Sq, H, hd) and k, v (B, Sk, G, hd); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"need q (B, Sq, H, hd), k (B, Sk, G, hd) and v (B, "
+                         f"Sk, G, hv); got {tuple(q.shape)}, {tuple(k.shape)},"
+                         f" {tuple(v.shape)}")
     B, Sq, H, hd = q.shape
-    Sk, G = k.shape[1], k.shape[2]
+    Sk, G, hv = k.shape[1], k.shape[2], v.shape[3]
     if G < 1 or H % G != 0:
         raise ValueError(f"query heads {H} must be a multiple of KV heads {G}")
     if Sk < 1:
         raise ValueError("flash_attention needs at least one key")
-    if hd not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head_dim in {FLASH_HEAD_DIMS}, "
-                         f"got {hd}")
+    if (hd, hv) not in FLASH_DIMS:
+        raise ValueError(f"flash_attention takes (head_dim, value dim) in "
+                         f"{FLASH_DIMS}, got {(hd, hv)}")
     fn = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}.get(q.dtype)
     if fn is None or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -324,10 +332,10 @@ def flash_attention(q, k, v, causal: bool = True):
             "torch.inference_mode(), or with inputs that do not require grad")
     L = build.lib("flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = q.new_empty(B, Sq, H, hv)
     if B and Sq:
         _check(getattr(L, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, Sq, Sk, H, G, hd,
+                              out.data_ptr(), B, Sq, Sk, H, G, hd, hv,
                               int(bool(causal)), _stream()), "flash_attention")
         LAUNCHES["flash_attention"] += 1
     return out

@@ -94,9 +94,10 @@ def disc_loss_bwd(g, student_logits, teacher_probs, labels, valid, row_max,
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """q (B, Sq, H, hd); k, v (B, Sk, G, hd), H % G == 0 -> (B, Sq, H, hd) in
-    q's dtype. GQA by reshaping q to (B, Sq, G, H/G, hd): query head h reads
-    KV head h // (H/G). q is scaled by hd^-0.5 in float32, scores and softmax
+    """q (B, Sq, H, hd); k (B, Sk, G, hd), v (B, Sk, G, hv), H % G == 0 ->
+    (B, Sq, H, hv) in q's dtype (hv != hd: MLA's prefill, whose values are
+    narrower than its queries and keys). GQA by reshaping q to (B, Sq, G,
+    H/G, hd): query head h reads KV head h // (H/G). q is scaled by hd^-0.5 in float32, scores and softmax
     in float32; the causal mask keeps q_pos >= k_pos, both from 0 (masked
     scores -1e30), as `repro/kernels/ref.py:flash_attention`."""
     B, Sq, H, hd = q.shape
@@ -109,4 +110,4 @@ def flash_attention(q, k, v, causal: bool = True):
         s = s.masked_fill(~mask[None, None, :, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgqhk,bkgd->bgqhd", p, v.float())
-    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)

@@ -1,16 +1,19 @@
 """Per-layer blocks (pre-norm residual) and segment grouping, the port of
-`repro/models/blocks.py` for GQA attention layers with a dense MLP and the
-xLSTM kinds (mLSTM, sLSTM).
+`repro/models/blocks.py`: attention layers (GQA or MLA, with a dense MLP or
+MoE) and the mamba, mLSTM and sLSTM kinds.
 
 A model is a list of *segments*: consecutive layers of the same kind. The
 reference stacks a segment's parameters on a leading layer axis and scans
 it; here a segment is a plain list of per-layer parameter dicts, run by a
-Python loop. Its attention cache keeps the reference's stacked layout,
-(L, B, S, G, hd) for keys and values, and each layer reads and writes its
-own slice of it. In train mode each layer is rematerialised by
-`REMAT_POLICY`, as the reference's `jax.checkpoint` does. MLA, MoE and
-mamba layers raise `NotImplementedError`, and so do prefill and decode of
-the xLSTM kinds: their modules come with the other LM families.
+Python loop. Its cache keeps the reference's stacked layout, each kind its
+own (`lm.init_cache`): GQA (K, V) (L, B, S, G, hd); MLA one latent tensor
+(L, B, S, r_kv + dr); mamba (conv (L, B, cw-1, C), h (L, B, H, P, N));
+mLSTM (conv, C); sLSTM (c, n, m, h). Each layer reads its slice. In
+decode, attention caches are written in place; the recurrent states come
+back as new tensors, which are written into the layer's slice. In train
+mode each layer is rematerialised by `REMAT_POLICY`, as the reference's
+`jax.checkpoint` does; MLA, MoE and mamba layers do not train yet (see
+`check_trainable`).
 """
 from __future__ import annotations
 
@@ -19,9 +22,11 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.nn import attention, layers, xlstm
+from repro_torch.nn import attention, layers, mla, moe, ssm, xlstm
+from repro_torch.tree import tree_map
 
-_LATER = "is not ported yet (ROADMAP.md, queue 1: other LM families)"
+_TRAIN_LATER = ("is not ported yet (ROADMAP.md, queue 1: training of MLA, "
+                "MoE, mamba and the shared block)")
 
 # Activation-checkpoint policy for the per-layer remat in train mode:
 #   "full" - recompute each layer in backward (the reference's default)
@@ -30,25 +35,16 @@ _LATER = "is not ported yet (ROADMAP.md, queue 1: other LM families)"
 # `launch/dryrun.py --remat`, which comes with slice 9 (multi-device).
 REMAT_POLICY = "full"
 
-_KINDS = ("attn", "mlstm", "slstm")
-
-
-def check_supported(cfg, kind: str) -> None:
-    """Raise `NotImplementedError` for a layer kind the port lacks."""
-    if kind not in _KINDS:
-        raise NotImplementedError(f"{kind} layers {_LATER}")
-    if cfg.is_mla:
-        raise NotImplementedError(f"MLA attention (nn/mla.py) {_LATER}")
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE layers (nn/moe.py) {_LATER}")
-
-
-def check_servable(cfg, kind: str) -> None:
-    """`check_supported`, and raise for the kinds ported in train mode only."""
-    check_supported(cfg, kind)
-    if kind != "attn":
-        raise NotImplementedError(f"prefill and decode of {kind} layers "
-                                  f"{_LATER}")
+def check_trainable(cfg, kind: str) -> None:
+    """Raise `NotImplementedError` for a layer that serves but does not
+    train yet: MLA, MoE (whose balance loss must flow through remat) and
+    mamba."""
+    if kind == "mamba":
+        raise NotImplementedError(f"training of mamba layers {_TRAIN_LATER}")
+    if kind == "attn" and cfg.is_mla:
+        raise NotImplementedError(f"training of MLA layers {_TRAIN_LATER}")
+    if kind == "attn" and cfg.num_experts:
+        raise NotImplementedError(f"training of MoE layers {_TRAIN_LATER}")
 
 
 def _wrap_remat(fn):
@@ -67,59 +63,101 @@ def _wrap_remat(fn):
 # single-layer init / apply
 # ---------------------------------------------------------------------------
 def init_block(gen: torch.Generator, cfg, kind: str, dtype):
-    check_supported(cfg, kind)
     dev = layers.gen_device(gen)
     p: Dict[str, Any] = {"norm1": layers.init_norm(cfg.norm_kind, cfg.d_model,
                                                    dtype, dev)}
-    if kind == "mlstm":
+    if kind == "attn":
+        if cfg.is_mla:
+            p["attn"] = mla.init_mla(gen, cfg, dtype)
+        else:
+            p["attn"] = attention.init_gqa(gen, cfg.d_model, cfg.num_heads,
+                                           cfg.num_kv_heads, cfg.head_dim,
+                                           dtype)
+        p["norm2"] = layers.init_norm(cfg.norm_kind, cfg.d_model, dtype, dev)
+        if cfg.num_experts:
+            p["moe"] = moe.init_moe(gen, cfg.d_model, cfg.num_experts,
+                                    cfg.moe_d_ff, cfg.num_shared_experts,
+                                    dtype)
+        else:
+            p["mlp"] = layers.init_mlp(cfg.mlp_kind, gen, cfg.d_model,
+                                       cfg.d_ff, dtype)
+    elif kind == "mamba":
+        p["mamba"] = ssm.init_mamba2(gen, cfg, dtype)
+    elif kind == "mlstm":
         p["mlstm"] = xlstm.init_mlstm(gen, cfg, dtype)
     elif kind == "slstm":
         p["slstm"] = xlstm.init_slstm(gen, cfg, dtype)
     else:
-        p["attn"] = attention.init_gqa(gen, cfg.d_model, cfg.num_heads,
-                                       cfg.num_kv_heads, cfg.head_dim, dtype)
-        p["norm2"] = layers.init_norm(cfg.norm_kind, cfg.d_model, dtype, dev)
-        p["mlp"] = layers.init_mlp(cfg.mlp_kind, gen, cfg.d_model, cfg.d_ff,
-                                   dtype)
+        raise ValueError(kind)
     return p
+
+
+def _attn(p, cfg, h, positions, *, window, mode, cache, cache_index, masked):
+    """The attention half of an attn layer -> (y, new_cache)."""
+    if cfg.is_mla:
+        if mode == "decode":
+            return mla.mla_decode(p, cfg, h, cache, positions,
+                                  cache_index=cache_index, masked=masked)
+        return mla.mla_block(p, cfg, h, positions, window=window,
+                             return_cache=True)
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=cfg.head_dim, rope_kind=cfg.rope_kind,
+              rope_theta=cfg.rope_theta)
+    if mode == "decode":
+        ck, cv = cache
+        y, nk, nv = attention.gqa_decode(
+            p, h, ck, cv, positions, cache_index=cache_index, window=window,
+            masked=masked, **kw)
+        return y, (nk, nv)
+    if mode == "prefill":
+        return attention.gqa_block(p, h, positions, causal=True,
+                                   window=window, return_kv=True, **kw)
+    return attention.gqa_block(p, h, positions, causal=True, window=window,
+                               mode="train", **kw), None
 
 
 def apply_block(p, cfg, kind: str, x, positions, *, window: int = 0,
                 mode: str = "train", cache=None, cache_index=None,
                 masked: bool = False):
-    """mode: train | prefill | decode. Returns (x, aux, new_cache); in
-    decode, `cache` is this layer's (k, v), updated in place. aux (the MoE
-    balance loss in the reference) is 0.0 for the dense layers ported."""
+    """mode: train | prefill | decode. Returns (x, aux, new_cache): aux is
+    the MoE balance loss (0.0 for other layers); in decode, `cache` is this
+    layer's, an attention cache updated in place, a recurrent state
+    returned anew."""
     if mode == "train":
-        check_supported(cfg, kind)
-    else:
-        check_servable(cfg, kind)
+        check_trainable(cfg, kind)
     h = layers.apply_norm(cfg.norm_kind, p["norm1"], x, cfg.norm_eps)
-    if kind == "mlstm":
-        return x + xlstm.mlstm_block(p["mlstm"], cfg, h), 0.0, None
-    if kind == "slstm":
-        return x + xlstm.slstm_block(p["slstm"], cfg, h), 0.0, None
-    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-              head_dim=cfg.head_dim, rope_kind=cfg.rope_kind,
-              rope_theta=cfg.rope_theta)
-    new_cache = None
-    if mode == "decode":
-        ck, cv = cache
-        y, nk, nv = attention.gqa_decode(
-            p["attn"], h, ck, cv, positions, cache_index=cache_index,
-            window=window, masked=masked, **kw)
-        new_cache = (nk, nv)
-    elif mode == "prefill":
-        y, new_cache = attention.gqa_block(p["attn"], h, positions,
-                                           causal=True, window=window,
-                                           return_kv=True, **kw)
+    decode = mode == "decode"
+    aux, new_cache = 0.0, None
+    if kind == "attn":
+        y, new_cache = _attn(p["attn"], cfg, h, positions, window=window,
+                             mode=mode, cache=cache, cache_index=cache_index,
+                             masked=masked)
+        x = x + y
+        h2 = layers.apply_norm(cfg.norm_kind, p["norm2"], x, cfg.norm_eps)
+        if cfg.num_experts:
+            y2, aux = moe.moe_block(p["moe"], h2, num_experts=cfg.num_experts,
+                                    k=cfg.experts_per_token,
+                                    cf=cfg.capacity_factor,
+                                    num_shared=cfg.num_shared_experts)
+        else:
+            y2 = layers.apply_mlp(cfg.mlp_kind, p["mlp"], h2)
+        return x + y2, aux, new_cache
+    if kind == "mamba":
+        if decode:
+            y, new_cache = ssm.mamba2_decode(p["mamba"], cfg, h, cache)
+        else:
+            y, new_cache = ssm.mamba2_block(p["mamba"], cfg, h,
+                                            return_cache=True)
+    elif kind in ("mlstm", "slstm"):
+        block = xlstm.mlstm_block if kind == "mlstm" else xlstm.slstm_block
+        if mode == "train":
+            y = block(p[kind], cfg, h)
+        else:
+            y, new_cache = block(p[kind], cfg, h, return_cache=not decode,
+                                 cache=cache, decode=decode)
     else:
-        y = attention.gqa_block(p["attn"], h, positions, causal=True,
-                                window=window, mode="train", **kw)
-    x = x + y
-    h2 = layers.apply_norm(cfg.norm_kind, p["norm2"], x, cfg.norm_eps)
-    x = x + layers.apply_mlp(cfg.mlp_kind, p["mlp"], h2)
-    return x, 0.0, new_cache
+        raise ValueError(kind)
+    return x + y, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -148,26 +186,27 @@ def init_segments(gen: torch.Generator, cfg, dtype) -> List[List[Dict[str, Any]]
 def run_segment(seg_params, cfg, kind: str, x, positions, *, window: int,
                 mode: str, cache=None, cache_index=None, masked: bool = False):
     """Run a segment's layers in order. In train mode each layer is
-    rematerialised by `REMAT_POLICY`. In prefill the new
-    caches are stacked to (L, B, S, G, hd); in decode `cache` is that
-    stacked pair and each layer updates its slice in place. Returns (x,
-    aux_sum, cache)."""
+    rematerialised by `REMAT_POLICY`. In prefill the layers' new caches are
+    stacked on a leading layer axis; in decode `cache` is that stacked
+    cache: layer i reads slice i of each leaf, and a recurrent state comes
+    back written into it. Returns (x, aux_sum, cache)."""
     aux = 0.0
-    ks, vs = [], []
+    new = []
     for i, lp in enumerate(seg_params):
         if mode == "train":
             fn = lambda xx, lp=lp: apply_block(lp, cfg, kind, xx, positions,
                                                window=window)[0]
             x = _wrap_remat(fn)(x)
             continue
-        lc = None if cache is None else (cache[0][i], cache[1][i])
+        lc = None if cache is None else tree_map(lambda a: a[i], cache)
         x, a, nc = apply_block(lp, cfg, kind, x, positions, window=window,
                                mode=mode, cache=lc, cache_index=cache_index,
                                masked=masked)
         aux = aux + a
         if mode == "prefill":
-            ks.append(nc[0])
-            vs.append(nc[1])
+            new.append(nc)
+        elif kind != "attn":               # attention wrote in place
+            tree_map(lambda a, n: a[i].copy_(n), cache, nc)
     if mode == "prefill":
-        return x, aux, (torch.stack(ks), torch.stack(vs))
+        return x, aux, tree_map(lambda *ls: torch.stack(ls), *new)
     return x, aux, cache

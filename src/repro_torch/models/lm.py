@@ -1,22 +1,23 @@
-"""Decoder-only LM spine, the port of `repro/models/lm.py` for GQA models
-with dense MLPs (TinyLlama and its reduced variants) and, in train mode,
-the xLSTM family (mLSTM and sLSTM segments).
+"""Decoder-only LM spine, the port of `repro/models/lm.py`, shared by every
+decoder-only architecture: GQA or MLA attention with a dense MLP or MoE,
+mamba with zamba2's shared attention block, and the xLSTM kinds.
 
-Parameters are a plain dict: `embed` (V, D), `segments` (one list of
-per-layer dicts for each segment of `blocks.segments_of(cfg)`),
-`final_norm` and `lm_head` (D, V), absent when the embeddings are tied.
-`forward` covers train (features and logits with their autograd graph,
-each layer rematerialised by `blocks.REMAT_POLICY`) and prefill (also the
-caches); `decode_step` is the one-token serve path. The xLSTM kinds train
-only: prefill, decode and `init_cache` raise for them. Features are the
-post-final-norm last hidden states, the d'-dimensional representations
-the paper shares.
-Caches are `{"segments": [(K, V), ...], "shared": []}` with K and V of
-shape (L, B, S, G, hd), the reference's layout.
+Parameters are a plain dict: `embed` (V, D) for token models, `segments`
+(one list of per-layer dicts for each segment of `blocks.segments_of(cfg)`),
+`final_norm`, `lm_head` (D, V), absent when the embeddings are tied, and
+`shared`, the one attention block that zamba2 applies after every
+`shared_attn_period` layers. `forward` covers train (features and logits
+with their autograd graph, each layer rematerialised by
+`blocks.REMAT_POLICY`) and prefill (also the caches); `decode_step` is the
+one-token serve path. Features are the post-final-norm last hidden
+states, the d'-dimensional representations the paper shares.
+Caches are `{"segments": [...], "shared": [...]}` in the reference's
+layout: one stacked cache a segment (`blocks`), and one unstacked
+attention cache for each application of the shared block.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,18 +27,24 @@ from repro_torch.models import blocks
 from repro_torch.nn import layers, rope as rope_lib
 from repro_torch.tree import tree_map
 
-_LATER = "is not ported yet (ROADMAP.md, queue 1: other LM families)"
-
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
 def _check_supported(cfg) -> None:
-    if cfg.shared_attn_period:
-        raise NotImplementedError(f"the shared attention block {_LATER}")
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder models {_LATER}")
+        raise NotImplementedError(
+            "encoder-decoder models are not ported yet (ROADMAP.md, queue 1: "
+            "Whisper and models/encdec.py)")
+
+
+def shared_points(cfg) -> List[int]:
+    """Cumulative-layer counts after which the shared attn block runs."""
+    if not cfg.shared_attn_period:
+        return []
+    k = cfg.shared_attn_period
+    return list(range(k, cfg.num_layers + 1, k))
 
 
 def init_lm(gen: Optional[torch.Generator], cfg,
@@ -58,6 +65,8 @@ def init_lm(gen: Optional[torch.Generator], cfg,
     if not cfg.tie_embeddings or cfg.input_kind != "tokens":
         params["lm_head"] = layers.dense_init(gen, cfg.d_model,
                                               cfg.vocab_size, dt)
+    if cfg.shared_attn_period:
+        params["shared"] = blocks.init_block(gen, cfg, "attn", dt)
     return tree_map(lambda a: a.to(dev), params)
 
 
@@ -84,19 +93,28 @@ def _positions(cfg, batch, B, S, device, offset=0):
 
 def forward(params, cfg, batch, *, mode: str = "train", window: int = 0):
     """-> dict(features, logits, aux, caches); caches only for prefill; aux
-    is 0.0 (no MoE layers are ported)."""
+    sums the MoE balance losses (0.0 without MoE layers)."""
     _check_supported(cfg)
     x = _embed(params, cfg, batch)
     B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
+    points = shared_points(cfg)
     aux_total = 0.0
     caches: Dict[str, Any] = {"segments": [], "shared": []}
-    for seg_params, (kind, _) in zip(params["segments"],
+    count = 0
+    for seg_params, (kind, n) in zip(params["segments"],
                                      blocks.segments_of(cfg)):
         x, aux, cache = blocks.run_segment(seg_params, cfg, kind, x,
                                            positions, window=window, mode=mode)
         aux_total = aux_total + aux
         caches["segments"].append(cache)
+        count += n
+        if count in points:
+            x, aux2, sc = blocks.apply_block(params["shared"], cfg, "attn", x,
+                                             positions, window=window,
+                                             mode=mode)
+            aux_total = aux_total + aux2
+            caches["shared"].append(sc)
     features = layers.apply_norm(cfg.norm_kind, params["final_norm"], x,
                                  cfg.norm_eps)
     return {"features": features, "logits": _head(params, cfg, features),
@@ -105,14 +123,16 @@ def forward(params, cfg, batch, *, mode: str = "train", window: int = 0):
 
 def decode_step(params, cfg, batch, caches, *, window: int = 0,
                 cache_index=None, masked: bool = False):
-    """One-token decode. batch: tokens (B, 1) (or embeddings (B, 1, d)).
+    """One-token decode. batch: tokens (B, 1) (or embeddings (B, 1, d), with
+    positions (B, 1, 3) for M-RoPE).
 
     caches: from `forward(mode="prefill")` (grown or padded) or
-    `init_cache`; the new token's keys and values are written into them IN
-    PLACE and the same caches are returned. Default (steady-state)
-    semantics: the token overwrites the LAST slot and every slot is valid.
-    Serving semantics: `cache_index` (an int, the slot to write) and
-    `masked=True` (attend only to slots <= cache_index).
+    `init_cache`; attention caches get the new token's entries IN PLACE,
+    recurrent states are overwritten with the new ones, and the same caches
+    are returned. Default (steady-state) semantics: the token overwrites
+    the LAST slot and every slot is valid. Serving semantics: `cache_index`
+    (an int, the slot to write) and `masked=True` (attend only to slots <=
+    cache_index).
     """
     _check_supported(cfg)
     x = _embed(params, cfg, batch)
@@ -123,13 +143,22 @@ def decode_step(params, cfg, batch, caches, *, window: int = 0,
                   else int(cache_index))
         positions = rope_lib.default_positions(B, 1, cfg.rope_kind,
                                                offset=offset, device=x.device)
+    points = shared_points(cfg)
     new_caches: Dict[str, Any] = {"segments": [], "shared": []}
-    for seg_params, (kind, _), cache in zip(
+    count = 0
+    for seg_params, (kind, n), cache in zip(
             params["segments"], blocks.segments_of(cfg), caches["segments"]):
         x, _, nc = blocks.run_segment(
             seg_params, cfg, kind, x, positions, window=window, mode="decode",
             cache=cache, cache_index=cache_index, masked=masked)
         new_caches["segments"].append(nc)
+        count += n
+        if count in points:
+            x, _, sc = blocks.apply_block(
+                params["shared"], cfg, "attn", x, positions, window=window,
+                mode="decode", cache=caches["shared"][len(new_caches["shared"])],
+                cache_index=cache_index, masked=masked)
+            new_caches["shared"].append(sc)
     features = layers.apply_norm(cfg.norm_kind, params["final_norm"], x,
                                  cfg.norm_eps)
     return {"features": features, "logits": _head(params, cfg, features),
@@ -139,30 +168,69 @@ def decode_step(params, cfg, batch, caches, *, window: int = 0,
 def _cache_len(cfg, caches) -> int:
     for seg, (kind, _) in zip(caches["segments"], blocks.segments_of(cfg)):
         if kind == "attn":
-            return seg[0].shape[2]           # (L,B,S,G,hd)
+            return seg.shape[2] if cfg.is_mla else seg[0].shape[2]
+    if caches["shared"]:
+        sc = caches["shared"][0]
+        return sc.shape[1] if cfg.is_mla else sc[0].shape[1]
     return 1
 
 
 def init_cache(cfg, batch_size: int, ctx_len: int, *, window: int = 0,
                device=None):
-    """Zero caches shaped for decode at context length ctx_len."""
+    """Zero caches shaped for decode at context length ctx_len (the
+    sLSTM's m at -30.0, as its scan starts)."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    dt = _dtype(cfg)
     S = min(ctx_len, window) if window else ctx_len
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def attn_cache(n):
+        if cfg.is_mla:
+            return zeros(n, batch_size, S, cfg.kv_lora_rank + cfg.qk_rope_dim)
+        return (zeros(n, batch_size, S, cfg.num_kv_heads, cfg.head_dim),
+                zeros(n, batch_size, S, cfg.num_kv_heads, cfg.v_head_dim))
+
+    f32 = torch.float32
     caches: Dict[str, Any] = {"segments": [], "shared": []}
     for kind, n in blocks.segments_of(cfg):
-        blocks.check_servable(cfg, kind)
-        shape = (n, batch_size, S, cfg.num_kv_heads, cfg.head_dim)
-        caches["segments"].append(
-            (torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-             torch.zeros(shape[:-1] + (cfg.v_head_dim,), dtype=_dtype(cfg),
-                         device=dev)))
+        if kind == "attn":
+            caches["segments"].append(attn_cache(n))
+        elif kind == "mamba":
+            C = cfg.d_inner + 2 * cfg.ssm_state
+            caches["segments"].append(
+                (zeros(n, batch_size, cfg.ssm_conv - 1, C),
+                 zeros(n, batch_size, cfg.mamba_heads, cfg.mamba_head_dim,
+                       cfg.ssm_state, dtype=f32)))
+        elif kind == "mlstm":
+            di = 2 * cfg.d_model
+            P = di // cfg.num_heads
+            caches["segments"].append(
+                (zeros(n, batch_size, cfg.ssm_conv - 1, di),
+                 zeros(n, batch_size, cfg.num_heads, P + 1, P, dtype=f32)))
+        elif kind == "slstm":
+            z = zeros(n, batch_size, cfg.d_model, dtype=f32)
+            caches["segments"].append(
+                (z, z.clone(), torch.full_like(z, -30.0), z.clone()))
+        else:
+            raise ValueError(kind)
+    for _ in shared_points(cfg):           # the shared block is unstacked
+        caches["shared"].append(tree_map(lambda a: a[0], attn_cache(1)))
     return caches
+
+
+def _pad_seq(a, axis: int, extra: int):
+    """a with `extra` zero slots appended on `axis` (a new tensor)."""
+    return F.pad(a, [0, 0] * (a.dim() - 1 - axis) + [0, extra])
 
 
 def pad_cache_for_decode(cfg, caches, extra: int = 1):
     """Append `extra` empty slots (new tensors) to every attention cache's
-    sequence axis.
+    sequence axis: axis 2 of a segment's stacked cache, axis 1 of a shared
+    block's. Recurrent states need no padding and are passed on as they
+    are.
 
     decode_step writes the new token at the LAST cache slot; padding a
     prefill(S-1)-cache to length S makes the decode an exact append:
@@ -172,6 +240,8 @@ def pad_cache_for_decode(cfg, caches, extra: int = 1):
     out = {"segments": [], "shared": []}
     for (kind, _), cache in zip(blocks.segments_of(cfg), caches["segments"]):
         out["segments"].append(
-            tuple(F.pad(a, (0, 0, 0, 0, 0, extra)) for a in cache)
+            tree_map(lambda a: _pad_seq(a, 2, extra), cache)
             if kind == "attn" else cache)
+    for cache in caches["shared"]:
+        out["shared"].append(tree_map(lambda a: _pad_seq(a, 1, extra), cache))
     return out

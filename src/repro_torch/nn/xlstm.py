@@ -1,5 +1,6 @@
-"""xLSTM blocks, the port of `repro/nn/xlstm.py` in train mode: mLSTM
-(matrix memory, chunk-parallel) and sLSTM (scalar memory, sequential).
+"""xLSTM blocks, the port of `repro/nn/xlstm.py`: mLSTM (matrix memory,
+chunk-parallel) and sLSTM (scalar memory, sequential), in train mode and
+serving (prefill with `return_cache`, one-token `decode` against a cache).
 
 mLSTM recurrence (per head, state C: (P_v, P_k), normalizer n: (P_k,)):
     C_t = f_t C_{t-1} + i_t v_t k_t^T
@@ -10,8 +11,9 @@ recurrence across chunks, the normalizer as an appended ones column of v.
 The reference's `lax.scan`s become Python loops: the inter-chunk scan of
 `mlstm_chunked` and `slstm_scan` over time. The sLSTM keeps the
 reference's stabiliser (m_t = max(f_pre + m_{t-1}, i_pre)), its -30.0
-initial m and its float32 state. Prefill and decode of these blocks are
-not ported (`models/blocks.py` raises for them).
+initial m and its float32 state. The mLSTM's cache is (conv_state (B,
+cw-1, 2d), C (B, H, P+1, P) float32), the sLSTM's its (c, n, m, h) state;
+decode returns new tensors.
 """
 from __future__ import annotations
 
@@ -52,6 +54,15 @@ def _conv_silu(w, b, x):
     out = sum(pad[:, i:i + x.shape[1], :] * w[i][None, None, :]
               for i in range(cw))
     return F.silu(out + b[None, None, :])
+
+
+def _conv_step(w, b, conv_state, x_new):
+    """One decode step of `_conv_silu`: conv_state (B, cw-1, C) holds the
+    last cw - 1 pre-conv inputs, x_new (B, 1, C) -> (conv (B, 1, C), the new
+    conv_state)."""
+    window = torch.cat([conv_state, x_new], dim=1)            # (B,cw,C)
+    conv = F.silu(torch.einsum("bwc,wc->bc", window, w) + b)[:, None, :]
+    return conv, window[:, 1:, :]
 
 
 def mlstm_chunked(q, k, v, logf, logi, Q: int, state=None):
@@ -100,24 +111,47 @@ def mlstm_chunked(q, k, v, logf, logi, Q: int, state=None):
     return y, C
 
 
-def mlstm_block(p, cfg, x):
+def mlstm_block(p, cfg, x, *, return_cache: bool = False, cache=None,
+                decode: bool = False):
+    """x (B,S,d) -> y, or (y, cache) with `return_cache` (prefill) or
+    `decode` (one token against `cache`)."""
     B, S, d = x.shape
     H = cfg.num_heads
     di = 2 * d
     P = di // H
     up = x @ p["w_up"]
     xm, z = up[..., :di], up[..., di:]
-    conv = _conv_silu(p["conv_w"], p["conv_b"], xm)
+    if decode:
+        conv_state, C = cache
+        conv, new_conv_state = _conv_step(p["conv_w"], p["conv_b"],
+                                          conv_state, xm)
+    else:
+        conv = _conv_silu(p["conv_w"], p["conv_b"], xm)
     q = (conv @ p["wq"]).reshape(B, S, H, P)
     k = (conv @ p["wk"]).reshape(B, S, H, P)
     v = (xm @ p["wv"]).reshape(B, S, H, P)
     gates = (conv @ p["w_gates"]).float()
     logi, fpre = gates[..., :H], gates[..., H:]
     logf = F.logsigmoid(fpre)
-    y, _ = mlstm_chunked(q, k, v, logf, logi, cfg.ssm_chunk)
+    new_cache = None
+    if decode:                             # the O(1) recurrent update
+        ones = torch.ones(B, H, 1, dtype=torch.float32, device=x.device)
+        va = torch.cat([v[:, 0].float(), ones], dim=-1)       # (B,H,P+1)
+        C_new = (torch.exp(logf[:, 0])[:, :, None, None] * C
+                 + torch.exp(logi[:, 0])[:, :, None, None]
+                 * torch.einsum("bhp,bhn->bhpn", va, k[:, 0].float()))
+        ya = torch.einsum("bhn,bhpn->bhp", q[:, 0].float() * P ** -0.5, C_new)
+        y = (ya[..., :P] / torch.clamp(torch.abs(ya[..., P:]), min=1.0))[:, None]
+        new_cache = (new_conv_state, C_new)
+    else:
+        y, C_final = mlstm_chunked(q, k, v, logf, logi, cfg.ssm_chunk)
+        if return_cache:
+            new_cache = (xm[:, -(cfg.ssm_conv - 1):, :], C_final)
     y = y.reshape(B, S, di).to(x.dtype) * F.silu(z)
-    y = layers.rmsnorm(p["out_norm"], y, cfg.norm_eps)
-    return y @ p["w_down"]
+    y = layers.rmsnorm(p["out_norm"], y, cfg.norm_eps) @ p["w_down"]
+    if return_cache or decode:
+        return y, new_cache
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -164,13 +198,21 @@ def slstm_scan(gx, r, state):
     return torch.stack(hs, dim=1), (c, n, m, h)
 
 
-def slstm_block(p, cfg, x):
+def slstm_block(p, cfg, x, *, return_cache: bool = False, cache=None,
+                decode: bool = False):
+    """x (B,S,d) -> y, or (y, state) with `return_cache` or `decode`; the
+    scan starts from `cache` when one is given, else from zeros with m at
+    -30."""
     B, S, d = x.shape
     gx = (x @ p["w_gates"]).reshape(B, S, 4, d)
-    z = torch.zeros(B, d, dtype=torch.float32, device=x.device)
-    state = (z, z, torch.full((B, d), -30.0, device=x.device), z)
-    hs, _ = slstm_scan(gx, p["r_gates"], state)
+    if cache is None:
+        z = torch.zeros(B, d, dtype=torch.float32, device=x.device)
+        cache = (z, z, torch.full((B, d), -30.0, device=x.device), z)
+    hs, state = slstm_scan(gx, p["r_gates"], cache)
     hs = layers.rmsnorm(p["out_norm"], hs.to(x.dtype), cfg.norm_eps)
     up = hs @ p["w_up"]
     g, u = up[..., :d], up[..., d:]
-    return (F.silu(g) * u) @ p["w_down"]
+    y = (F.silu(g) * u) @ p["w_down"]
+    if return_cache or decode:
+        return y, state
+    return y

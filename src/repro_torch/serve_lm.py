@@ -1,14 +1,20 @@
 """End-to-end serving of the port (the twin of examples/serve_lm.py):
-prefill a batch of prompts, then decode greedily into a fixed-size KV cache.
-Every layer's prefill attention runs in the flash kernel on the card.
+prefill a batch of prompts, then decode greedily into a fixed-size cache.
+Every attention prefill (GQA, MLA, zamba2's shared block) runs in the
+flash kernel on the card.
 
   PYTHONPATH=src python -m repro_torch.serve_lm [--arch tinyllama-1.1b]
       [--reduced | --no-reduced] [--batch 4] [--prompt-len 32] [--tokens 16]
       [--seed 0] [--device cuda|cpu]
 
-`--reduced` (the default) serves the 2-layer, d_model 256, vocabulary 512
-variant, as the reference example does; `--no-reduced` serves the full
-width. Weights are random, drawn from `--seed`.
+`--arch` takes every token model of `configs.ARCHS`. Qwen2-VL takes
+embeddings (its vision frontend is a stub), which a token loop cannot feed
+back: the command line raises for it, as the reference example fails on
+it; `serve` takes its batch of `serve_batch_specs` and a `next_batch` of
+new embeddings. `--reduced` (the default) serves the 2-layer, d_model
+256, vocabulary 512 variant, as the reference example does; `--no-reduced`
+serves the full width. Weights are random, drawn from `--seed`. A prompt length must be a multiple of the
+SSD chunk (`ssm_chunk`) where it exceeds it, for mamba and mLSTM layers.
 """
 from __future__ import annotations
 
@@ -27,8 +33,19 @@ from repro_torch.models import lm
 PROMPT_STRIDE = 100            # prompt i starts at token i * 100 of the stream
 
 
-# the reference example's name for extending every cache's seq axis
+# the reference example's name for extending every attention cache's seq
+# axis (the shared block's too)
 _grow_caches = lm.pad_cache_for_decode
+
+
+def check_token_model(cfg) -> None:
+    if cfg.input_kind != "tokens":
+        raise ValueError(
+            f"{cfg.name} takes {cfg.input_kind} input, not tokens: the "
+            f"serving loop feeds generated tokens back; call "
+            f"repro_torch.serve_lm.serve with the batch of serve_batch_specs "
+            f"(embeddings and M-RoPE positions) and a next_batch of new "
+            f"embeddings")
 
 
 def make_prompts(cfg, batch: int, prompt_len: int) -> np.ndarray:
@@ -45,23 +62,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(params, cfg, prompts, tokens: int):
-    """Prefill `prompts` (B, S) and decode `tokens` greedy steps into a
-    cache of S + tokens slots (written at cache_index, attention masked to
-    the slots written so far).
+def greedy_tokens(step: int, logits):
+    """The token loop's decode batch: each row's greedy next token."""
+    return {"tokens": logits[:, -1].argmax(-1)[:, None]}
 
-    -> dict(ids (B, tokens) int64 on the CPU: the generated tokens;
-    logits (tokens + 1, B, V) float32: the prefill's last-position logits,
-    then each decode step's; prefill_s, decode_s: host seconds, each ending
-    in a device synchronise)."""
+
+def serve(params, cfg, prompts, tokens: int, next_batch=greedy_tokens):
+    """Prefill `prompts` and decode `tokens` steps into a cache of S + tokens
+    slots (written at cache_index, attention masked to the slots written so
+    far). `prompts` is (B, S) token ids, or a batch dict as
+    `serve_batch_specs` shapes it (an embeddings model's embeddings and
+    M-RoPE positions). Step i decodes `next_batch(i, logits)`, `logits` the
+    last step's: by default the greedy tokens fed back.
+
+    -> dict(ids (B, tokens) int64 on the CPU: the tokens decoded, none for
+    embeddings batches; logits (tokens + 1, B, V) float32: the prefill's
+    last-position logits, then each decode step's; prefill_s, decode_s:
+    host seconds, each ending in a device synchronise)."""
     dev = params["final_norm"]["scale"].device
+    if isinstance(prompts, dict):
+        batch = prompts
+    else:
+        check_token_model(cfg)
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev)}
     prefill = serve_lib.make_prefill_step(cfg)
     decode = serve_lib.make_decode_step(cfg)
-    toks = torch.as_tensor(np.asarray(prompts), device=dev)
-    S = toks.shape[1]
+    B, S = next(iter(batch.values())).shape[:2]
 
     t0 = time.perf_counter()
-    out = prefill(params, {"tokens": toks})
+    out = prefill(params, batch)
     caches = _grow_caches(cfg, out["caches"], tokens)
     logits = out["logits"]
     _sync(dev)
@@ -70,16 +99,16 @@ def serve(params, cfg, prompts, tokens: int):
     all_logits, generated = [logits[:, -1].float()], []
     t0 = time.perf_counter()
     for i in range(tokens):
-        nxt = logits[:, -1].argmax(-1)[:, None]
-        generated.append(nxt[:, 0])
-        out = decode(params, {"tokens": nxt}, caches, cache_index=S + i,
-                     masked=True)
+        step = next_batch(i, logits)
+        if "tokens" in step:
+            generated.append(step["tokens"][:, 0])
+        out = decode(params, step, caches, cache_index=S + i, masked=True)
         logits, caches = out["logits"], out["caches"]
         all_logits.append(logits[:, -1].float())
     _sync(dev)
     t_decode = time.perf_counter() - t0
     ids = (torch.stack(generated, 1) if generated
-           else torch.zeros(toks.shape[0], 0, dtype=torch.long, device=dev))
+           else torch.zeros(B, 0, dtype=torch.long, device=dev))
     return {"ids": ids.cpu(), "logits": torch.stack(all_logits),
             "prefill_s": t_prefill, "decode_s": t_decode}
 
@@ -100,8 +129,9 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = parser().parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
+    check_token_model(cfg)
+    dev = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced(num_layers=2, d_model=256, vocab_size=512)
     print(f"serving {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "

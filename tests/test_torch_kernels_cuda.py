@@ -529,8 +529,10 @@ def test_trainer_on_the_card_matches_the_cpu(cuda):
 
 
 # -- flash_attention: the test shapes of tests/test_kernels.py, a ragged one,
-# the serving prefill's (at hd 64, and at 32 and 128), and the edges of the
-# bf16 kernel's 128-row query tiles and 64-row warpgroups. Both sides do the
+# the serving prefill's (at hd 64, and at 32 and 128), the edges of the
+# bf16 kernel's 128-row query tiles and 64-row warpgroups, and the LM
+# families' prefills at 4 x 256 (Qwen2-VL, ChatGLM3, DeepSeek-67B, Granite,
+# Zamba2's shared block). Both sides do the
 # same float32 math, summed in another order (the bf16 kernel splits P into
 # two bf16 halves to keep it). float32: 2e-5 x max(1, max|plain|), as
 # tests/test_kernels.py. bf16: both round that float32 result to bf16, so
@@ -544,7 +546,10 @@ FLASH_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 8, 128),
                 (2, 1, 1, 4, 2, 64), (1, 63, 63, 4, 2, 64),
                 (1, 65, 65, 8, 2, 128), (1, 127, 127, 4, 1, 32),
                 (1, 129, 129, 8, 2, 64), (1, 1000, 1000, 8, 2, 64),
-                (4, 1024, 1024, 32, 4, 32), (4, 1024, 1024, 32, 4, 128)]
+                (4, 1024, 1024, 32, 4, 32), (4, 1024, 1024, 32, 4, 128),
+                (4, 256, 256, 28, 4, 128), (4, 256, 256, 32, 2, 128),
+                (4, 256, 256, 64, 8, 128), (4, 256, 256, 16, 8, 64),
+                (4, 256, 256, 32, 32, 64)]
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,G,hd", FLASH_SHAPES)
@@ -709,3 +714,91 @@ def test_train_mode_attention_is_plain_and_keeps_its_gradient(cuda):
                for t in p.values())
     with pytest.raises(NotImplementedError, match="prefill"):
         attention.gqa_block(p, x, pos, **kw)
+
+
+# -- flash_attention at MLA's split head dims (query/key hd, value hv):
+# DeepSeek-V2-Lite's (192, 128) at the card's serving shape, MiniCPM3's
+# (96, 64), a ragged one, and the reduced configs' (80, 64). The CUDA-core
+# kernel in both types: the same bounds as the equal-dim rows above.
+MLA_FLASH_SHAPES = [(4, 256, 256, 16, 16, 192, 128),
+                    (4, 256, 256, 40, 40, 96, 64),
+                    (1, 77, 130, 8, 8, 192, 128), (2, 100, 100, 4, 4, 80, 64)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,hd,hv", MLA_FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_mla_dims_matches_plain(cuda, B, Sq, Sk, H, G, hd,
+                                                   hv, causal, dtype):
+    g = torch.Generator().manual_seed(B + Sq + hd + hv)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(dtype).to(cuda)
+    k = torch.randn(B, Sk, G, hd, generator=g).to(dtype).to(cuda)
+    v = torch.randn(B, Sk, G, hv, generator=g).to(dtype).to(cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == want.shape == (B, Sq, H, hv)
+    diff = (out.float() - want.float()).abs()
+    if dtype == torch.float32:
+        limit = 2e-5 * max(1.0, float(want.abs().max()))
+    else:
+        limit = BF16_ATOL + BF16_RTOL * want.float().abs()
+    assert bool((diff <= limit).all()), float(diff.max())
+
+
+def test_flash_attention_at_mla_dims_launches_the_cuda_core_kernel(cuda):
+    """bf16 at (192, 128) takes the CUDA-core kernel (the tensor-core one
+    takes equal dims only), once a call, by the profiler's names."""
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(4, 256, 16, 192, generator=g).bfloat16().to(cuda)
+    v = torch.randn(4, 256, 16, 128, generator=g).bfloat16().to(cuda)
+    names = [(n, c) for n, c in _device_kernels(
+        lambda: ops.flash_attention(q, q, v, causal=True))
+        if "flash_attention" in n]
+    assert len(names) == 1 and names[0][1] == 1, names
+    assert re.search(r"\bflash_attention_kernel\b", names[0][0]), names
+
+
+@pytest.mark.parametrize("arch,launches", [
+    ("deepseek-v2-lite-16b", 2), ("minicpm3-4b", 2),
+    ("granite-moe-1b-a400m", 2), ("zamba2-1.2b", 2), ("xlstm-125m", 0)])
+def test_reduced_family_serving_on_the_card_matches_the_cpu(cuda, arch,
+                                                            launches):
+    """The reduced float32 model's prefill and two masked decode steps on
+    the card against the CPU from the same weights: logits within 1e-4 x
+    max(1, |logit|) (float32 products summed in another order), one flash
+    launch an attention prefill (zamba2 at 4 layers: its shared block
+    twice), none in decode."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg = get_arch(arch).reduced(num_layers=4 if arch == "zamba2-1.2b" else 2)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    p = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for dev in ("cpu", cuda):
+        pd = tree_map(lambda a: a.to(dev), p)
+        ops.reset_launches()
+        with torch.inference_mode():
+            out = lm.forward(pd, cfg, {"tokens": toks[:, :14].to(dev)},
+                             mode="prefill")
+            n_prefill = ops.LAUNCHES["flash_attention"]
+            c = lm.pad_cache_for_decode(cfg, out["caches"], 2)
+            got = [out["logits"][:, -1]]
+            for i in range(2):
+                d = lm.decode_step(pd, cfg, {"tokens": toks[:, 14 + i:15 + i]
+                                             .to(dev)}, c, cache_index=14 + i,
+                                   masked=True)
+                c = d["caches"]
+                got.append(d["logits"][:, 0])
+        assert ops.LAUNCHES["flash_attention"] == n_prefill
+        logits[str(dev)] = torch.stack(got).cpu()
+    assert n_prefill == launches
+    want = logits["cpu"]
+    err = float((logits["cuda"] - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err

@@ -214,19 +214,53 @@ def test_remat_policies_give_the_same_gradients(model, monkeypatch):
 
 
 def test_serving_an_xlstm_raises(model, monkeypatch):
-    """Prefill and decode of the xLSTM kinds wait for the other-families
-    slice; a plain forward without remat still trains."""
+    """Serving an xLSTM no longer raises (it did until the port had the
+    serving half of the blocks): prefill gives each segment its recurrent
+    cache, `init_cache` the same layout, and a window, which no xLSTM block
+    reads, changes nothing. A plain forward without remat still trains."""
     cfg, _, _, tp = model
     toks = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="other LM families"):
-        lm.forward(tp, cfg, {"tokens": toks}, mode="prefill")
-    with pytest.raises(NotImplementedError, match="other LM families"):
-        lm.init_cache(cfg, 1, 8, device="cpu")
+    with torch.no_grad():
+        out = lm.forward(tp, cfg, {"tokens": toks}, mode="prefill")
+        again = lm.forward(tp, cfg, {"tokens": toks}, mode="prefill",
+                           window=4)
+    assert torch.equal(out["logits"], again["logits"])
+    empty = lm.init_cache(cfg, 1, 8, device="cpu")
+    for a, b in zip(leaves(out["caches"]), leaves(empty)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    assert float(empty["segments"][1][2].max()) == -30.0    # sLSTM's m
     monkeypatch.setattr(blocks, "REMAT_POLICY", "none")
     x = torch.zeros(1, 8, cfg.d_model)
     y, _, _ = blocks.run_segment(tp["segments"][0], cfg, "mlstm", x, None,
                                  window=0, mode="train")
     assert y.shape == x.shape
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_block_prefill_and_decode_match_reference(kind):
+    """Each block's prefill (`return_cache`) and three one-token decode
+    steps from that cache, output and cache against the reference's."""
+    cfg, jcfg = _cfgs(d_model=64)
+    jp, tp = _block_params(kind, jcfg, 7)
+    tp = tree_map(lambda a: a.detach(), tp)
+    jfn = jx.mlstm_block if kind == "mlstm" else jx.slstm_block
+    tfn = xlstm.mlstm_block if kind == "mlstm" else xlstm.slstm_block
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32)
+    jy, jc = jfn(jp, jcfg, jnp.asarray(x), return_cache=True)
+    ty, tc = tfn(tp, cfg, _t(x), return_cache=True)
+    _close(ty, jy)
+    assert len(tc) == len(jc)
+    for a, b in zip(tc, jc):
+        assert tuple(a.shape) == b.shape
+        _close(a, b)
+    for _ in range(3):
+        x1 = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+        jy, jc = jfn(jp, jcfg, jnp.asarray(x1), cache=jc, decode=True)
+        ty, tc = tfn(tp, cfg, _t(x1), cache=tc, decode=True)
+        _close(ty, jy)
+        for a, b in zip(tc, jc):
+            _close(a, b)
 
 
 def test_init_matches_the_reference_layout():
