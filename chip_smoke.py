@@ -11,8 +11,10 @@ Phases (each failure raises, so the process exits non-zero):
   3. precision: TF32 off for cuDNN convolutions and matmuls;
   4. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes and larger ones (flash_attention also at MLA's
-     split head dims, 192/128 and 96/64, and in bf16 at phase 11's GQA
-     prefill shapes), with times, the bound from
+     split head dims, 192/128 and 96/64, in bf16 at phase 11's GQA
+     prefill shapes, and at phase 12's four Whisper shapes in bf16 and
+     float32, Sq != Sk for cross-attention; proto_accum also at phase
+     13's Whisper shape, (2, 896, 768, 51865)), with times, the bound from
      bytes and operations, and a library call's time where one PyTorch call
      computes the same function;
   5. slice: 3 synchronous CoRS rounds of 5 LeNet clients (the example's data
@@ -117,7 +119,8 @@ Phases (each failure raises, so the process exits non-zero):
      (device busy share, flash_attention's device time per launch and its
      share of the prefill's device time);
   10. train (`repro_torch.launch.train`): 10a, the reduced float32
-     TinyLlama and xLSTM, 3 cors steps of 2 clients and a round sync over
+     TinyLlama, xLSTM, Whisper, Granite, Zamba2, MiniCPM3 and
+     DeepSeek-V2-Lite, 3 cors steps of 2 clients and a round sync over
      stats from prototypes.accumulate, on the card and on the CPU from the
      same weights, batches and negative ids (metrics, parameters, Adam
      moments, ProtoState and steps within PARITY_* of each other); 10b,
@@ -148,7 +151,32 @@ Phases (each failure raises, so the process exits non-zero):
      layers, 6 for zamba2), MoE at a capacity factor of num_experts: the
      kernel path against plain attention and decode against prefill within
      CHECK_TOL x max(1, |logit|), attention in bf16 failing it where the
-     family has attention.
+     family has attention;
+  12. whisper: Whisper-small at its published widths (12 + 12 layers, d
+     768, vocabulary 51865, bf16, random weights from seed 0) serves 4
+     clips of 1,500 seeded random frames (the stubbed audio frontend)
+     with 32-token prompts and decodes 64 greedy tokens through
+     `serve_lm.serve`: exactly 36 flash launches a prefill (12 encoder,
+     12 self, 12 cross) and 12 a decode step (cross-attention at Sq = 1),
+     logits finite, ids (4, 64); prefill ms, decode ms a step, peak
+     memory, one profiled prefill and 4 decode steps (flash's share of the
+     device time, busy share, device ops); then float32 at published
+     widths and 2 + 2 layers: the kernel path against plain attention and
+     decode against prefill within CHECK_TOL x max(1, |logit|), bf16
+     attention failing it;
+  13. train kinds: Whisper-small at full width (2 clients x 2 clips x 448
+     tokens over 1,500 frames, cors, 3 steps) and, at published widths on
+     2 clients x 1 x 2048 tokens for 2 steps, Granite-MoE-1B (MoE),
+     Zamba2-1.2B (mamba2 and the shared block), MiniCPM3-4B (MLA) and
+     DeepSeek-V2-Lite (MLA with MoE), each cut in depth only as far as the
+     70 GB gate forces (FAMILY_TRAIN; the cut printed, and one step one
+     layer shallower must put one layer deeper within LM_MEM_MARGIN of
+     the gate): metrics finite,
+     parameters moved, proto counts, exactly one proto_accum launch a
+     step with the client axis and no flash launch, peak under 70 GB,
+     MoE's balance loss finite; s/step, tokens/s, and one profiled step
+     (busy share, device ops, proto_accum's device time). Phase 10a holds
+     Whisper and the four kinds, reduced, on the card against the CPU.
 Phase 4 also holds three faulty flash results at the serving shape against
 the bf16 check, which must reject each: a bf16 accumulator, the last 16 keys
 dropped, and P rounded to bf16 once before P V.
@@ -161,7 +189,7 @@ also on a (k, ...) block gathered by `index_select` from an N-client stack
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c, 5d, 5e, 5f, 5g and 10b) before the last line,
+phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12 and 13) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -345,7 +373,11 @@ CHECK_TOL = 5e-5
 # steps; 10c runs the collab_lm twin on the card.
 LM_CLIENTS, LM_STEPS = 2, 3
 LM_BATCH, LM_SEQ, LM_DISC_TOKENS = 2, 2048, 8192
-LM_MEM_LIMIT = 70e9            # the peak 10b must stay under
+LM_MEM_LIMIT = 70e9            # the peak 10b and 13 must stay under
+# Phase 13's cuts keep no less room than this under the gate: one layer
+# more must come within it (the peak varied by 0.02 GB between two runs
+# of one depth, and one layer more is a linear estimate)
+LM_MEM_MARGIN = 0.5e9
 PARITY_BATCH, PARITY_SEQ, PARITY_DISC = 4, 64, 128
 # 10a's tolerances, card against CPU (the same weights, batches and
 # negative ids; TF32 off): metrics |d| <= 1e-4 x max(1, |m|) (float32
@@ -381,6 +413,37 @@ FLASH_MLA_SHAPES = ((4, 256, 16, 16, 192, 128), (4, 256, 40, 40, 96, 64))
 FLASH_FAMILY_SHAPES = ((4, 256, 28, 4, 128), (4, 256, 32, 2, 128),
                        (4, 256, 64, 8, 128), (4, 256, 16, 8, 64),
                        (4, 256, 32, 32, 64))
+# Phase 12: Whisper-small serves at its published widths (bf16, random
+# weights from seed 0): WHISPER_BATCH clips of 1,500 seeded random frames
+# (the reference's stubbed audio frontend) with WHISPER_PROMPT-token
+# prompts, then WHISPER_TOKENS greedy tokens (within its 448 decoder
+# positions). Its flash shapes (B, Sq, Sk, H, G, hd, causal), benched in
+# phase 4 in bf16 and float32: the encoder over the frames, the decoder's
+# self-attention over the prompt, its cross-attention from the prompt and,
+# in decode, from one token over the frames.
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_TOKENS = 4, 32, 64
+WHISPER_FLASH_SHAPES = ((4, 1500, 1500, 12, 12, 64, False),
+                        (4, 32, 32, 12, 12, 64, True),
+                        (4, 32, 1500, 12, 12, 64, False),
+                        (4, 1, 1500, 12, 12, 64, False))
+# Phase 13: training at published widths (bf16, random weights from seed
+# 0), cors, 2 clients, L_disc on the first LM_DISC_TOKENS tokens: Whisper
+# on 2 clips of 448 tokens (its decoder's positions) over 1,500 frames a
+# client, LM_STEPS steps; the four kinds of the families on one sequence
+# of 2048 tokens a client, FAMILY_TRAIN_STEPS steps, each at the depth the
+# 70 GB gate allows, every width kept: (arch, layers kept or None for
+# all). The step holds both clients' parameters, gradients and Adam
+# moments, old and new, about 44 bytes a parameter of one client. Phase
+# 13 checks each cut: from the peak one layer less, one layer more must
+# come within LM_MEM_MARGIN of the gate (MiniCPM3: 70.01 GB expected at
+# 16 layers on an H100 80GB HBM3 at 700 W).
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 2, 448
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS = 1, 2048, 2
+FAMILY_TRAIN = (("granite-moe-1b-a400m", None), ("zamba2-1.2b", None),
+                ("minicpm3-4b", 15), ("deepseek-v2-lite-16b", 1))
+# proto_accum at Whisper's train shape: (N, B*S, d', V)
+WHISPER_PROTO_SHAPE = (LM_CLIENTS, WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ,
+                       768, 51865)
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -750,17 +813,20 @@ def flash_controls(B, S, H, G, hd, dev, gen):
     return out
 
 
-def check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv=None):
+def check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv=None, Sk=None):
     """The kernel against its plain version at (B, S, H, G, hd), values hv
-    wide (hd when None; MLA's prefill has hv < hd)."""
+    wide (hd when None; MLA's prefill has hv < hd), over Sk keys (S when
+    None; Whisper's cross-attention has Sk != S)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     hv = hd if hv is None else hv
+    Sk = S if Sk is None else Sk
     q = torch.randn(B, S, H, hd, generator=gen).to(dtype).to(dev)
-    k = torch.randn(B, S, G, hd, generator=gen).to(dtype).to(dev)
-    v = torch.randn(B, S, G, hv, generator=gen).to(dtype).to(dev)
+    k = torch.randn(B, Sk, G, hd, generator=gen).to(dtype).to(dev)
+    v = torch.randn(B, Sk, G, hv, generator=gen).to(dtype).to(dev)
     dims = f"{hd}" if hv == hd else f"{hd}/{hv}"
-    tag = (f"flash_attention ({B}, {S}, {H}, {G}, {dims}) "
+    seq = f"{S}" if Sk == S else f"{S}x{Sk}"
+    tag = (f"flash_attention ({B}, {seq}, {H}, {G}, {dims}) "
            f"{str(dtype).split('.')[-1]} {'causal' if causal else 'full'}")
     out = ops.flash_attention(q, k, v, causal=causal)
     want = ref.flash_attention(q, k, v, causal=causal)
@@ -771,7 +837,7 @@ def check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv=None):
         raise AssertionError(f"{tag}: max error {err:.3e}, {excess:.3f} x the "
                              f"limit")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    reps = 20 if S >= 1024 else 50
+    reps = 20 if max(S, Sk) >= 1024 else 50
     r = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
                         reps),
              plain_ms=time_ms(lambda: ref.flash_attention(q, k, v,
@@ -779,11 +845,11 @@ def check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv=None):
              library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=causal, enable_gqa=True), reps),
              max_abs_err=err, limit_used=excess)
-    # q, k and v read once, the output written once; 2 B H S S (hd + hv)
-    # operations (two products), half of them unmasked when causal
-    flops = 2 * B * H * S * S * (hd + hv) / (2 if causal else 1)
+    # q, k and v read once, the output written once; 2 B H S Sk (hd + hv)
+    # operations (two products), half of them unmasked when causal (S = Sk)
+    flops = 2 * B * H * S * Sk * (hd + hv) / (2 if causal else 1)
     r["bound_ms"], r["bound_by"] = bound_ms(
-        (B * S * H + B * S * G) * (hd + hv) * q.element_size(), flops,
+        (B * S * H + B * Sk * G) * (hd + hv) * q.element_size(), flops,
         BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
     r["share_of_bound"] = r["bound_ms"] / r["ms"]
     lim = ("1e-4 + 2^-7 |plain|" if dtype == torch.bfloat16
@@ -862,6 +928,17 @@ def phase_kernels(dev):
         r = check_flash(B, S, H, G, hd, torch.bfloat16, True, dev, gen)
         res["flash_attention"].append(dict(
             r, shape=[B, S, H, G, hd, "bfloat16", "causal"]))
+    for B, Sq, Sk, H, G, hd, causal in WHISPER_FLASH_SHAPES:   # phase 12's
+        for dtype in (torch.bfloat16, torch.float32):
+            r = check_flash(B, Sq, H, G, hd, dtype, causal, dev, gen, Sk=Sk)
+            res["flash_attention"].append(dict(
+                r, shape=[B, Sq, Sk, H, G, hd, str(dtype).split(".")[-1],
+                          "causal" if causal else "full"]))
+    # Whisper's upload stats in phase 13: 51865 classes leave a partial
+    # last class block
+    r = check_proto_batched(*WHISPER_PROTO_SHAPE, torch.float32, dev, gen)
+    res["proto_accum_batched"].append(dict(r, shape=[*WHISPER_PROTO_SHAPE,
+                                                     "float32"]))
     res["flash_controls"] = flash_controls(*FLASH_SHAPES[0], dev, gen)
     return res
 
@@ -1971,13 +2048,14 @@ def lm_stats(cfg, params, batch, n_clients):
     """The round's upload stats of the clients' current models on `batch`,
     through prototypes.accumulate with the client axis (one launch)."""
     from repro_torch.core import prototypes
-    from repro_torch.models import lm
+    from repro_torch.launch import train
     from repro_torch.tree import tree_map
     feats = []
     with torch.no_grad():
         for i in range(n_clients):
             p = tree_map(lambda a: a[i], params)
-            f = lm.forward(p, cfg, {"tokens": batch["tokens"][i]})["features"]
+            f = train._lm_outputs(cfg, p, {k: v[i] for k, v in batch.items()
+                                           if k != "labels"})["features"]
             feats.append(f.reshape(-1, f.shape[-1]))
     dev = feats[0].device
     return prototypes.accumulate(
@@ -1986,24 +2064,40 @@ def lm_stats(cfg, params, batch, n_clients):
         torch.stack(feats), batch["labels"].reshape(n_clients, -1).to(dev))
 
 
+def add_frames(cfg, batches, batch, gen):
+    """An encoder-decoder's train batches get seeded random frames (N,
+    batch, encoder_seq, d) in the model's dtype, on `gen`'s device."""
+    if cfg.is_encoder_decoder:
+        for b in batches:
+            b["frames"] = torch.randn(
+                LM_CLIENTS, batch, cfg.encoder_seq, cfg.d_model,
+                generator=gen, device=gen.device).to(getattr(torch,
+                                                             cfg.dtype))
+    return batches
+
+
 def phase_lm_parity(dev):
     """10a: make_train_step (2 clients, cors, 3 steps), then make_round_sync
     over stats from prototypes.accumulate, on the card and on the CPU from
-    the same weights, batches and negative ids."""
+    the same weights, batches and negative ids: the reduced TinyLlama and
+    xLSTM, Whisper (8 frames a clip) and the four kinds of phase 13 (Zamba2
+    at 2 layers: its shared block once)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
     from repro_torch.tree import leaves
     from repro_torch.types import CollabConfig
     worst = {}
-    for arch in ("tinyllama-1.1b", "xlstm-125m"):
+    for arch in ("tinyllama-1.1b", "xlstm-125m", "whisper-small",
+                 *(a for a, _ in FAMILY_TRAIN)):
         cfg = get_arch(arch).reduced()
         ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
                             d_feature=cfg.d_feature)
         cpu = train.init_state(cfg, torch.Generator().manual_seed(0),
                                LM_CLIENTS, device="cpu")
         gpu = _to(cpu, dev)
-        batches = lm_train_batches(cfg.vocab_size, LM_CLIENTS, PARITY_BATCH,
-                             PARITY_SEQ, LM_STEPS, seed=3)
+        batches = add_frames(cfg, lm_train_batches(
+            cfg.vocab_size, LM_CLIENTS, PARITY_BATCH, PARITY_SEQ, LM_STEPS,
+            seed=3), PARITY_BATCH, torch.Generator().manual_seed(4))
         gen = torch.Generator().manual_seed(5)
         negs = [train.draw_negatives(gen, cfg, ccfg, LM_CLIENTS)
                 for _ in range(LM_STEPS)]
@@ -2372,6 +2466,339 @@ def phase_families(dev):
     return serve_rows, checks
 
 
+def whisper_inputs(cfg, B, S, dev, gen):
+    """Whisper's prefill batch: B prompts of S tokens cut from
+    `token_stream` as the serving twin cuts them, and B x encoder_seq
+    seeded random frames in the model's dtype (the reference's stubbed
+    audio frontend), shaped by `serve.serve_batch_specs`."""
+    from repro_torch import serve_lm
+    from repro_torch.launch import serve
+    from repro_torch.types import ShapeConfig
+    frames = serve.serve_batch_specs(cfg, ShapeConfig("phase 12", S, B,
+                                                      "prefill"))["frames"]
+    return {"tokens": torch.as_tensor(serve_lm.make_prompts(cfg, B, S),
+                                      device=dev),
+            "frames": torch.randn(frames.shape, generator=gen, device=dev
+                                  ).to(frames.dtype)}
+
+
+def phase_whisper_serve(dev):
+    """Phase 12: Whisper-small at its published widths in bf16 through
+    `serve_lm.serve` on a frames batch (after a warm-up of 2 tokens), then
+    one prefill and one decode step counted alone, one prefill and 4 decode
+    steps under torch.profiler."""
+    from repro_torch import serve_lm
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    cfg = get_arch("whisper-small")
+    L, S = cfg.num_layers, WHISPER_PROMPT
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = encdec.init_encdec(gen, cfg, device=dev)
+    batch = whisper_inputs(cfg, WHISPER_BATCH, S, dev, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in _leaves(params))
+    prefill, decode = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    with torch.inference_mode():
+        serve_lm.serve(params, cfg, batch, 2)            # warm-up
+        ops.reset_launches()
+        r = serve_lm.serve(params, cfg, batch, WHISPER_TOKENS)
+        launches = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        out = prefill(params, batch)
+        n_prefill = ops.LAUNCHES["flash_attention"]
+        caches = encdec.pad_cache_for_decode(out["caches"], 4)
+        first = out["logits"][:, -1].argmax(-1)[:, None]
+        ops.reset_launches()
+        decode(params, {"tokens": first}, caches, cache_index=S, masked=True)
+        n_decode = ops.LAUNCHES["flash_attention"]
+        wall, ev, launched, dropped = profile(lambda: prefill(params, batch))
+
+        def run_decode():
+            nxt = first
+            for i in range(4):
+                o = decode(params, {"tokens": nxt}, caches, cache_index=S + i,
+                           masked=True)
+                nxt = o["logits"][:, -1].argmax(-1)[:, None]
+        wall_d, ev_d, launched_d, dropped_d = profile(run_decode)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": 0,
+            "flash_attention": 3 * L + L * WHISPER_TOKENS}
+    if launches != want:
+        raise AssertionError(f"[whisper] launch counts {launches} != {want}")
+    if (n_prefill, n_decode) != (3 * L, L):
+        raise AssertionError(f"[whisper] flash launches: {n_prefill} a "
+                             f"prefill, {n_decode} a decode step; not "
+                             f"{3 * L} and {L}")
+    if not bool(torch.isfinite(r["logits"]).all()):
+        raise AssertionError("[whisper] non-finite serving logits")
+    if tuple(r["ids"].shape) != (WHISPER_BATCH, WHISPER_TOKENS):
+        raise AssertionError(f"[whisper] generated ids of shape "
+                             f"{tuple(r['ids'].shape)}")
+    busy, port = report_profile("whisper prefill profile", wall, ev,
+                                launched, dropped, top=8)
+    busy_d, port_d = report_profile("whisper decode x4 profile", wall_d,
+                                    ev_d, launched_d, dropped_d, top=8)
+    n_f, us_f = port.get("flash_attention", (0, 0.0))
+    n_fd, us_fd = port_d.get("flash_attention", (0, 0.0))
+    if (n_f, n_fd) != (3 * L, 4 * L):
+        raise AssertionError(f"[whisper] flash kernels in the profiles: "
+                             f"{n_f} and {n_fd}, not {3 * L} and {4 * L}")
+    n_tok = WHISPER_BATCH * WHISPER_TOKENS
+    res = {"layers": f"{cfg.num_encoder_layers}+{L}", "params": n_par,
+           "setup_s": setup_s, "prefill_ms": r["prefill_s"] * 1e3,
+           "decode_ms_per_step": r["decode_s"] * 1e3 / WHISPER_TOKENS,
+           "decode_tokens_per_s": n_tok / r["decode_s"],
+           "peak_gb": peak / 1e9, "flash_launches": launches[
+               "flash_attention"], "flash_per_prefill": n_prefill,
+           "flash_per_decode_step": n_decode,
+           "flash_us_per_prefill_launch": us_f / n_f,
+           "flash_share_of_prefill_device_time": us_f / busy,
+           "prefill_busy_share": busy / 1e6 / wall,
+           "prefill_device_ops": launched,
+           "flash_us_per_decode_launch": us_fd / n_fd,
+           "flash_share_of_decode_device_time": us_fd / busy_d,
+           "decode_busy_share": busy_d / 1e6 / wall_d,
+           "decode_device_ops_per_step": launched_d / 4}
+    print(f"[whisper] {cfg.name}: {res['layers']}L d={cfg.d_model} "
+          f"V={cfg.vocab_size} {cfg.dtype}, {n_par / 1e9:.3f} B parameters, "
+          f"set up in {setup_s:.2f} s; prefill {WHISPER_BATCH} x "
+          f"({cfg.encoder_seq} frames + {S} tokens): {res['prefill_ms']:.2f}"
+          f" ms; decode {WHISPER_TOKENS} steps: "
+          f"{res['decode_ms_per_step']:.3f} ms/step "
+          f"({res['decode_tokens_per_s']:.1f} tok/s); peak {res['peak_gb']:.2f}"
+          f" GB; flash {n_prefill} launches a prefill, {n_decode} a decode "
+          f"step ({launches['flash_attention']} in the run), "
+          f"{100 * res['flash_share_of_prefill_device_time']:.1f}% of the "
+          f"prefill's device time, busy {100 * res['prefill_busy_share']:.1f}"
+          f"%, {launched} device ops; decode {100 * res['decode_busy_share']:.1f}"
+          f"% busy, {launched_d / 4:.0f} device ops a step; ids[0][:8] "
+          f"{r['ids'][0][:8].tolist()}")
+    del params, caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_whisper_check(dev):
+    """Phase 12's float32 check: Whisper-small at its published widths and
+    2 + 2 layers, the kernel path against plain attention and one decode
+    step against the prefill, within CHECK_TOL x max(1, |logit|);
+    attention in bf16 must fail it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.nn import attention
+    cfg = dataclasses.replace(family_depth(get_arch("whisper-small"), 2),
+                              num_encoder_layers=2, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = encdec.init_encdec(gen, cfg, device=dev)
+    batch = whisper_inputs(cfg, WHISPER_BATCH, WHISPER_PROMPT, dev, gen)
+    prefill, decode = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    with torch.inference_mode():
+        kern = prefill(params, batch)["logits"][:, -1]
+        with attention.prefill_attention(ref.flash_attention):
+            plain = prefill(params, batch)["logits"][:, -1]
+        with attention.prefill_attention(bf16_attention):     # must fail
+            ctrl = prefill(params, batch)["logits"][:, -1]
+        head = dict(batch, tokens=batch["tokens"][:, :-1])
+        caches = encdec.pad_cache_for_decode(prefill(params, head)["caches"])
+        dec = decode(params, {"tokens": batch["tokens"][:, -1:]},
+                     caches)["logits"][:, 0]
+    scale = max(1.0, float(plain.abs().max()))
+    e_k = float((kern - plain).abs().max())
+    e_d = float((dec - kern).abs().max())
+    e_c = float((ctrl - plain).abs().max())
+    print(f"[whisper check] float32 2+2L d={cfg.d_model}, {WHISPER_BATCH} x "
+          f"({cfg.encoder_seq} frames + {WHISPER_PROMPT} tokens): max |kernel "
+          f"path - plain| {e_k:.3e}, max |decode - prefill| {e_d:.3e}, max "
+          f"|logit| {scale:.3e} (tol {CHECK_TOL * scale:.3e}); control, "
+          f"attention in bf16: {e_c:.3e}")
+    if not e_c > CHECK_TOL * scale:
+        raise AssertionError(f"[whisper check] the float32 check passes bf16 "
+                             f"attention: {e_c:.3e} <= {CHECK_TOL} x {scale:.3e}")
+    for what, e in (("kernel path vs plain", e_k), ("decode vs prefill", e_d)):
+        if not e <= CHECK_TOL * scale:
+            raise AssertionError(f"[whisper check] {what}: {e:.3e} > "
+                                 f"{CHECK_TOL} x {scale:.3e}")
+    if not bool(torch.isfinite(kern).all()):
+        raise AssertionError("[whisper check] non-finite float32 logits")
+    del params
+    torch.cuda.empty_cache()
+    return {"kernel_vs_plain": e_k, "decode_vs_prefill": e_d,
+            "bf16_attention_control": e_c, "max_logit": scale}
+
+
+def phase_model_train(dev, arch, layers, batch, seq, steps):
+    """Phase 13: `arch` at its published widths (cut to `layers` if given)
+    trains `steps` cors steps of LM_CLIENTS clients x batch x seq tokens
+    (with 1,500 frames a clip for Whisper) on the card: metrics finite,
+    parameters moved and finite, proto counts, exactly one proto_accum
+    launch a step with the client axis and no flash launch, peak memory
+    under LM_MEM_LIMIT, MoE's balance loss finite; then one more step
+    under torch.profiler (busy share, device ops, proto_accum's device
+    time)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves, tree_map
+    from repro_torch.types import CollabConfig
+    cfg = get_arch(arch)
+    full = cfg.num_layers
+    if layers:
+        cfg = family_depth(cfg, layers)
+    ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
+                        d_feature=cfg.d_feature)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             LM_CLIENTS, device=dev)
+    n_par = sum(t.numel() for t in leaves(state.params)) // LM_CLIENTS
+    head0 = state.params["lm_head"].clone()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = add_frames(cfg, [_to(b, dev) for b in lm_train_batches(
+        cfg.vocab_size, LM_CLIENTS, batch, seq, steps, seed=0)], batch, gen)
+    negs = [train.draw_negatives(gen, cfg, ccfg, LM_CLIENTS)
+            for _ in range(steps)]
+    step = train.make_train_step(cfg, ccfg, n_clients=LM_CLIENTS,
+                                 disc_tokens=LM_DISC_TOKENS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cut = (f"{cfg.num_layers} of its {full} layers (cut to fit the "
+           f"{LM_MEM_LIMIT / 1e9:.0f} GB gate)" if cfg.num_layers < full
+           else f"all {full} layers")
+    print(f"[family train] {arch}: {cut}, d={cfg.d_model} V={cfg.vocab_size}"
+          f" {cfg.dtype}, {n_par / 1e9:.3f} B parameters a client, "
+          f"{LM_CLIENTS} clients x {batch} x {seq} tokens, set up in "
+          f"{setup_s:.2f} s")
+    ops.reset_launches()
+    secs, mets = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s], negs[s])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+    launches, batched = dict(ops.LAUNCHES), dict(ops.LAUNCHES_BATCHED)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": steps,
+            "flash_attention": 0}
+    if launches != want or batched["proto_accum"] != steps:
+        raise AssertionError(f"[family train] {arch}: launch counts "
+                             f"{launches}, with a client axis {batched}; "
+                             f"want {want}, all with the client axis")
+    if not all(math.isfinite(v) for m in mets for v in m.values()):
+        raise AssertionError(f"[family train] {arch}: non-finite metrics "
+                             f"{mets}")
+    tokens = LM_CLIENTS * batch * seq
+    if int(state.proto.count.sum()) != steps * tokens:
+        raise AssertionError(f"[family train] {arch}: proto count "
+                             f"{int(state.proto.count.sum())} != "
+                             f"{steps * tokens}")
+    moved = float((state.params["lm_head"] - head0).float().abs().max())
+    if not (moved > 0 and all(bool(torch.isfinite(t).all())
+                              for t in leaves(state.params))):
+        raise AssertionError(f"[family train] {arch}: parameters did not "
+                             f"move or are not finite (lm_head moved {moved})")
+    if peak > LM_MEM_LIMIT:
+        raise AssertionError(f"[family train] {arch}: peak memory "
+                             f"{peak / 1e9:.2f} GB > "
+                             f"{LM_MEM_LIMIT / 1e9:.0f} GB")
+    aux = None
+    if cfg.num_experts:              # client 0's balance loss, last batch
+        with torch.no_grad():
+            aux = float(train._lm_outputs(
+                cfg, tree_map(lambda a: a[0], state.params),
+                {k: v[0] for k, v in batches[-1].items()})["aux"])
+        if not (math.isfinite(aux) and aux > 0):
+            raise AssertionError(f"[family train] {arch}: MoE aux {aux}")
+    s_step = statistics.median(secs[1:] or secs)
+    print(f"[family train] {arch}: launches {launches}, proto count "
+          f"{steps} x {tokens}, lm_head moved {moved:.3e}, s/step "
+          f"{s_step:.4f} (median of steps 2-{steps}), "
+          f"{tokens / s_step:.1f} tokens/s, peak memory {peak / 1e9:.2f} GB"
+          + ("" if aux is None else f", MoE aux {aux:.4f}")
+          + f"; last metrics {mets[-1]}")
+    wall, ev, launched, dropped = profile(
+        lambda: step(state, batches[-1], negs[-1]))
+    busy, port = report_profile(f"train {arch} profile", wall, ev, launched,
+                                dropped, top=8)
+    n_pa, us_pa = port.get("proto_accum", (0, 0.0))
+    if n_pa != 1 or "flash_attention" in port:
+        raise AssertionError(f"[train {arch} profile] port kernels {port}")
+    res = {"arch": arch, "layers": cfg.num_layers, "of_layers": full,
+           "params": n_par, "setup_s": setup_s, "s_per_step": s_step,
+           "tokens_per_s": tokens / s_step, "peak_gb": peak / 1e9,
+           "steps_s": secs, "moe_aux": aux, "busy_share": busy / 1e6 / wall,
+           "device_ops": launched, "proto_accum_us": us_pa,
+           "proto_accum_share": us_pa / busy, "launches": launches,
+           "launches_batched": batched, "metrics": mets[-1]}
+    print(f"[train {arch} profile] proto_accum {us_pa:.2f} us a launch, "
+          f"{100 * us_pa / busy:.3f}% of the step's device time")
+    del state, batches
+    torch.cuda.empty_cache()
+    if cfg.num_layers < full:
+        # the cut goes no deeper than the gate forces: one layer more
+        # would come within LM_MEM_MARGIN of it, by the peak one layer
+        # less gives
+        less = one_step_peak(dev, family_depth(get_arch(arch),
+                                               cfg.num_layers - 1),
+                             ccfg, batch, seq)
+        more = 2 * peak - less
+        print(f"[family train] {arch}: peak {less / 1e9:.2f} GB at "
+              f"{cfg.num_layers - 1} layers, {peak / 1e9:.2f} GB at "
+              f"{cfg.num_layers}: {more / 1e9:.2f} GB expected at "
+              f"{cfg.num_layers + 1}, within {LM_MEM_MARGIN / 1e9:.1f} GB "
+              f"of the {LM_MEM_LIMIT / 1e9:.0f} GB gate or past it")
+        if not more > LM_MEM_LIMIT - LM_MEM_MARGIN:
+            raise AssertionError(f"[family train] {arch}: "
+                                 f"{cfg.num_layers + 1} layers would fit "
+                                 f"({more / 1e9:.2f} GB expected)")
+        res.update(peak_gb_one_layer_less=less / 1e9,
+                   peak_gb_one_layer_more_expected=more / 1e9)
+    return res
+
+
+def one_step_peak(dev, cfg, ccfg, batch, seq):
+    """Peak device memory of one cors step of LM_CLIENTS clients x batch x
+    seq tokens on `cfg` (seed-0 weights), everything freed after."""
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             LM_CLIENTS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b = add_frames(cfg, [_to(lm_train_batches(
+        cfg.vocab_size, LM_CLIENTS, batch, seq, 1, seed=0)[0], dev)],
+        batch, gen)[0]
+    step = train.make_train_step(cfg, ccfg, n_clients=LM_CLIENTS,
+                                 disc_tokens=LM_DISC_TOKENS)
+    state, _ = step(state, b, train.draw_negatives(gen, cfg, ccfg,
+                                                   LM_CLIENTS))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del state, b
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_train_kinds(dev):
+    """Phase 13: Whisper-small, then the four kinds of FAMILY_TRAIN."""
+    rows = [phase_model_train(dev, "whisper-small", None,
+                              WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ,
+                              LM_STEPS)]
+    for arch, layers in FAMILY_TRAIN:
+        rows.append(phase_model_train(dev, arch, layers, FAMILY_TRAIN_BATCH,
+                                      FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS))
+    return rows
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -2422,6 +2849,9 @@ def main():
     lm_twin_s = phase_lm_twin(dev)
     torch.cuda.empty_cache()
     families, family_checks = phase_families(dev)
+    whisper = phase_whisper_serve(dev)
+    whisper_check = phase_whisper_check(dev)
+    trains = phase_train_kinds(dev)
     launches["flash_attention"] = serve_launches["flash_attention"]
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         launches[name + "_batched"] = launches_vec[name]
@@ -2436,6 +2866,8 @@ def main():
             "disc_loss_fwd_batched": disc, "disc_loss_bwd_batched": disc,
             "proto_accum_batched": proto}
     controls = res.pop("flash_controls")
+    train_rows = [{k: v for k, v in t.items() if "launches" not in k}
+                  for t in trains]
     kernels = []
     for name, rows in res.items():
         main_row = rows[0]                 # the main path's shape, first
@@ -2459,12 +2891,21 @@ def main():
         k.setdefault("launches_by_path", {})["lm_train"] = (
             n_b if name.endswith("_batched")
             else lm_train["launches"][base] - n_b)
+        for t in trains:                    # phase 13, split the same way
+            n_b = t["launches_batched"].get(base, 0)
+            k["launches_by_path"][f"train {t['arch']}"] = (
+                n_b if name.endswith("_batched")
+                else t["launches"][base] - n_b)
         if name == "proto_accum_batched":
             k["lm_train_device_us_per_launch"] = lm_train["proto_accum_us"]
+            k["train_device_us_per_launch"] = {
+                t["arch"]: t["proto_accum_us"] for t in trains}
         if name == "flash_attention":
             k["launches_by_path"]["serve tinyllama-1.1b"] = launches[name]
             k["launches_by_path"].update(
                 {f"serve {f['arch']}": f["flash_launches"] for f in families})
+            k["launches_by_path"]["serve whisper-small"] = whisper[
+                "flash_launches"]
             k["share_of_prefill_device_time"] = prof["flash_share"]
             k["controls_times_limit"] = {n: c[0] for n, c in controls.items()}
             k["bf16_kernel_resources"] = resources
@@ -2472,6 +2913,7 @@ def main():
                                     "decode_vs_prefill": e_d,
                                     "bf16_attention_control": e_c}
             k["family_checks_f32"] = family_checks
+            k["whisper_check_f32"] = whisper_check
         kernels.append(k)
     print(f"[card] {smi}; vec over seq s/round: N={CLIENTS} "
           f"{scale['n5']:.3f}x, N={SCALE_CLIENTS} {scale['n32']:.3f}x; device "
@@ -2484,7 +2926,8 @@ def main():
           f"{json.dumps(lm_parity)}; lm train "
           f"{json.dumps({k: v for k, v in lm_train.items() if 'launches' not in k})}"
           f"; lm twin 2 rounds {lm_twin_s:.2f} s; families "
-          f"{json.dumps(families)}")
+          f"{json.dumps(families)}; whisper serve {json.dumps(whisper)}; "
+          f"train kinds {json.dumps(train_rows)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

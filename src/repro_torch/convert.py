@@ -10,10 +10,12 @@ its pooled activation in NHWC order (`models/cnn.py`), so `fc1` is copied as
 is. A leading client axis (the vectorized engines' stacked parameters) is
 kept. An LM's stacked segments are split into per-layer dicts. A relay
 state of any policy converts field by field (`relay_state_to_numpy`). An
-LM `TrainState` converts both ways (`train_state_from_jax`,
-`train_state_to_numpy`): stacked clients, layer-stacked segments to
-per-layer lists and back, the stacked `AdamState`, the `ProtoState` and
-the step.
+encoder-decoder's `enc_layers` and `dec_layers` are split into per-layer
+lists the same way (`encdec_params_from_jax`, `encdec_params_to_numpy`).
+An LM `TrainState` of either kind converts both ways
+(`train_state_from_jax`, `train_state_to_numpy`): stacked clients,
+layer-stacked segments or layers to per-layer lists and back, the stacked
+`AdamState`, the `ProtoState` and the step.
 """
 from __future__ import annotations
 
@@ -115,13 +117,46 @@ def lm_params_from_jax(tree: Dict[str, Any], device=None,
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if k == "segments":
-            out[k] = [[_map(seg, lambda a, i=i: _tensor(_take(a, i, axis),
-                                                        dev))
-                       for i in range(seg["norm1"]["scale"].shape[axis])]
-                      for seg in v]
+            out[k] = [_unstack_layers(seg, axis, dev) for seg in v]
         else:
             out[k] = _map(v, lambda a: _tensor(a, dev))
     return out
+
+
+def _unstack_layers(stacked, axis: int, dev):
+    """A dict of leaves stacked on a layer axis (after `axis` client axes)
+    -> one dict a layer, on `dev`."""
+    return [_map(stacked, lambda a, i=i: _tensor(_take(a, i, axis), dev))
+            for i in range(stacked["norm1"]["scale"].shape[axis])]
+
+
+_ENCDEC_LAYERS = ("enc_layers", "dec_layers")
+
+
+def encdec_params_from_jax(tree: Dict[str, Any], device=None,
+                           clients: bool = False) -> Dict[str, Any]:
+    """The reference's `encdec.init_encdec` pytree, its leaves numpy arrays
+    (or CPU tensors) -> the port's encoder-decoder parameters
+    (`models/encdec.py`) on `device`, same dtypes: `enc_layers` and
+    `dec_layers`, stacked on a layer axis in the reference (after the
+    client axis, with `clients`), become lists of per-layer dicts; every
+    other leaf is copied as it is."""
+    dev = resolve_device(device)
+    axis = int(clients)
+    return {k: (_unstack_layers(v, axis, dev) if k in _ENCDEC_LAYERS
+                else _map(v, lambda a: _tensor(a, dev)))
+            for k, v in tree.items()}
+
+
+def encdec_params_to_numpy(params: Dict[str, Any],
+                           clients: bool = False) -> Dict[str, Any]:
+    """`encdec_params_from_jax` backwards: per-layer lists stacked on the
+    layer axis (after the client axis, with `clients`), leaves on the
+    host."""
+    axis = int(clients)
+    return {k: (_stack_layers(v, axis) if k in _ENCDEC_LAYERS
+                else _map(v, _host))
+            for k, v in params.items()}
 
 
 def _host(t: torch.Tensor):
@@ -158,13 +193,16 @@ def train_state_from_jax(state, device=None):
     """The reference's `TrainState` (its leaves numpy arrays, for example
     `jax.tree.map(np.asarray, state)`, or a checkpoint loaded onto
     `train_state_to_numpy`'s layout) -> the port's `launch.train.TrainState`
-    on `device`: client-stacked LM parameters and Adam moments, the (N,)
-    Adam step, the ProtoState and the step."""
+    on `device`: client-stacked LM (or encoder-decoder, told by its
+    `enc_layers`) parameters and Adam moments, the (N,) Adam step, the
+    ProtoState and the step."""
     from repro_torch.core.prototypes import ProtoState
     from repro_torch.launch.train import TrainState
     from repro_torch.optim import AdamState
     dev = resolve_device(device)
-    conv = lambda tree: lm_params_from_jax(tree, dev, clients=True)
+    from_jax = (encdec_params_from_jax if "enc_layers" in state.params
+                else lm_params_from_jax)
+    conv = lambda tree: from_jax(tree, dev, clients=True)
     opt = state.opt
     return TrainState(
         conv(state.params),
@@ -182,7 +220,9 @@ def train_state_to_numpy(state):
     from repro_torch.core.prototypes import ProtoState
     from repro_torch.launch.train import TrainState
     from repro_torch.optim import AdamState
-    conv = lambda tree: lm_params_to_numpy(tree, clients=True)
+    to_numpy = (encdec_params_to_numpy if "enc_layers" in state.params
+                else lm_params_to_numpy)
+    conv = lambda tree: to_numpy(tree, clients=True)
     return TrainState(conv(state.params),
                       AdamState(_host(state.opt.step), conv(state.opt.m),
                                 conv(state.opt.v)),

@@ -2,9 +2,11 @@
 prefill (build the caches and the first logits) and decode (one token
 against the cache), and the abstract inputs of each step as `meta` tensors
 (shapes and dtypes only). CoRS is a training-time technique; serving is
-the plain model, so these steps carry no prototype traffic. The
+the plain model, so these steps carry no prototype traffic. An
+encoder-decoder (Whisper) prefills from tokens and audio frames, encoding
+the frames once, and decodes against its self and cross caches. The
 reference's sharding helpers come with the multi-device slice (ROADMAP.md,
-queue 1, slice 9); its encoder-decoder branches with Whisper.
+queue 1, slice 9).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.types import ModelConfig, ShapeConfig
 
 META = torch.device("meta")
@@ -28,7 +30,12 @@ def decode_window(cfg: ModelConfig, shape: ShapeConfig) -> int:
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
-        out = lm.forward(params, cfg, batch, mode="prefill")
+        if cfg.is_encoder_decoder:
+            enc = encdec.encode(params, cfg, batch["frames"])
+            out = encdec.decode_forward(params, cfg, batch["tokens"], enc,
+                                        mode="prefill")
+        else:
+            out = lm.forward(params, cfg, batch, mode="prefill")
         return {"logits": out["logits"][:, -1:, :], "caches": out["caches"]}
     return prefill_step
 
@@ -36,8 +43,14 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig, *, window: int = 0):
     def decode_step(params, batch, caches, cache_index=None,
                     masked: bool = False):
-        out = lm.decode_step(params, cfg, batch, caches, window=window,
-                             cache_index=cache_index, masked=masked)
+        if cfg.is_encoder_decoder:
+            out = encdec.decode_forward(
+                params, cfg, batch["tokens"], None, mode="decode",
+                self_cache=caches["self"], cross_kv=caches["cross"],
+                cache_index=cache_index, masked=masked)
+        else:
+            out = lm.decode_step(params, cfg, batch, caches, window=window,
+                                 cache_index=cache_index, masked=masked)
         return {"logits": out["logits"], "caches": out["caches"]}
     return decode_step
 
@@ -46,30 +59,47 @@ def make_decode_step(cfg: ModelConfig, *, window: int = 0):
 # abstract inputs
 # ---------------------------------------------------------------------------
 def params_shapes(cfg: ModelConfig):
-    """The parameters of `lm.init_lm` as `meta` tensors."""
+    """The parameters of `lm.init_lm` (`encdec.init_encdec` for an
+    encoder-decoder) as `meta` tensors."""
+    if cfg.is_encoder_decoder:
+        return encdec.init_encdec(None, cfg)
     return lm.init_lm(None, cfg)
 
 
 def serve_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     """A step's batch as `meta` tensors: tokens (B, S) int32, or embeddings
     (B, S, d) with M-RoPE positions (B, S, 3) int32 where the rope is
-    M-RoPE; S is 1 but for a prefill shape."""
-    lm._check_supported(cfg)
+    M-RoPE; S is 1 but for a prefill shape. An encoder-decoder's prefill
+    also takes its frames (B, encoder_seq, d) in the model's dtype."""
     B = shape.global_batch
     S = shape.seq_len if shape.mode == "prefill" else 1
-    if cfg.input_kind == "tokens":
-        return {"tokens": torch.empty(B, S, dtype=torch.int32, device=META)}
-    batch = {"embeddings": torch.empty(B, S, cfg.d_model,
-                                       dtype=getattr(torch, cfg.dtype),
-                                       device=META)}
-    if cfg.rope_kind == "mrope":
-        batch["positions"] = torch.empty(B, S, 3, dtype=torch.int32,
-                                         device=META)
+    dt = getattr(torch, cfg.dtype)
+    batch: Dict[str, Any] = {}
+    if cfg.input_kind == "tokens" or cfg.is_encoder_decoder:
+        batch["tokens"] = torch.empty(B, S, dtype=torch.int32, device=META)
+    else:
+        batch["embeddings"] = torch.empty(B, S, cfg.d_model, dtype=dt,
+                                          device=META)
+        if cfg.rope_kind == "mrope":
+            batch["positions"] = torch.empty(B, S, 3, dtype=torch.int32,
+                                             device=META)
+    if cfg.is_encoder_decoder and shape.mode == "prefill":
+        batch["frames"] = torch.empty(B, cfg.encoder_seq, cfg.d_model,
+                                      dtype=dt, device=META)
     return batch
 
 
 def cache_shapes(cfg: ModelConfig, shape: ShapeConfig):
     """`lm.init_cache` at this shape (its window included) as `meta`
-    tensors."""
-    return lm.init_cache(cfg, shape.global_batch, shape.seq_len,
+    tensors; an encoder-decoder's self cache (L, B, seq_len, G, hd) and its
+    cross caches (L, B, encoder_seq, G, hd)."""
+    B = shape.global_batch
+    if cfg.is_encoder_decoder:
+        z = lambda hd: torch.empty(cfg.num_layers, B, cfg.encoder_seq,
+                                   cfg.num_kv_heads, hd,
+                                   dtype=getattr(torch, cfg.dtype),
+                                   device=META)
+        return {"self": encdec.init_self_cache(cfg, B, shape.seq_len, META),
+                "cross": (z(cfg.head_dim), z(cfg.v_head_dim))}
+    return lm.init_cache(cfg, B, shape.seq_len,
                          window=decode_window(cfg, shape), device=META)

@@ -6,8 +6,10 @@ reference `vmap`s one client's step over that axis (each client one pod);
 on one card the port runs the clients one after another inside the step:
 one client's activations are live at a time, the math is unchanged, and
 nothing is read back to the host per client. Each client's forward and
-backward go through `lm.forward(mode="train")`: plain attention by the
-reference's rule, each layer rematerialised.
+backward go through `lm.forward(mode="train")`, or for an encoder-decoder
+`encdec.encode` and `encdec.decode_forward(mode="train")`: plain attention
+by the reference's rule, each decoder-only layer rematerialised (the
+encoder-decoder's are not, as in the reference).
 
 The only cross-client exchange in cors and fd is the prototype merge of
 the per-class feature stats, computed by `prototypes.accumulate` (on the
@@ -31,12 +33,12 @@ import torch
 
 from repro_torch.core import losses, prototypes
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.optim import adam_init, adam_update
 from repro_torch.relay import history as relay_history
 from repro_torch.relay.participation import bcast_mask, freeze_absent
 from repro_torch.tree import leaves, tree_map
-from repro_torch.types import CollabConfig, ModelConfig
+from repro_torch.types import CollabConfig, ModelConfig, ShapeConfig
 
 
 class TrainState(NamedTuple):
@@ -51,9 +53,9 @@ class TrainState(NamedTuple):
 # ---------------------------------------------------------------------------
 def _lm_outputs(cfg: ModelConfig, params, batch):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder training is not ported yet (ROADMAP.md, queue "
-            "1: other LM families)")
+        enc = encdec.encode(params, cfg, batch["frames"], mode="train")
+        return encdec.decode_forward(params, cfg, batch["tokens"], enc,
+                                     mode="train")
     return lm.forward(params, cfg, batch, mode="train")
 
 
@@ -343,10 +345,12 @@ def _stack_clients(trees):
 
 def init_state(cfg: ModelConfig, gen: Optional[torch.Generator],
                n_clients: int = 1, device=None) -> TrainState:
-    """N clients' random LMs from `gen` (one after another), stacked, with
-    zero Adam moments (step (N,)), an empty ProtoState and step 0. With
+    """N clients' random models from `gen` (one after another: `lm.init_lm`,
+    or `encdec.init_encdec` for an encoder-decoder), stacked, with zero
+    Adam moments (step (N,)), an empty ProtoState and step 0. With
     `gen=None`, meta tensors: `init_state_shapes`."""
-    ps = [lm.init_lm(gen, cfg, device=device) for _ in range(n_clients)]
+    init = encdec.init_encdec if cfg.is_encoder_decoder else lm.init_lm
+    ps = [init(gen, cfg, device=device) for _ in range(n_clients)]
     p = _stack_clients(ps)
     del ps
     dev = leaves(p)[0].device
@@ -360,3 +364,30 @@ def init_state_shapes(cfg: ModelConfig, n_clients: int = 1) -> TrainState:
     """The TrainState's shapes and dtypes as `meta` tensors, nothing
     allocated: the counterpart of the reference's `jax.eval_shape`."""
     return init_state(cfg, None, n_clients)
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                      n_clients: int = 1) -> Dict[str, Any]:
+    """One global train batch as `meta` tensors, split over `n_clients`
+    clients (global_batch // n_clients rows each): labels (N, Bc, S) int32;
+    tokens (N, Bc, S) int32, or embeddings (N, Bc, S, d) with M-RoPE
+    positions (N, Bc, S, 3) int32 where the rope is M-RoPE; an
+    encoder-decoder's tokens and frames (N, Bc, encoder_seq, d) in the
+    model's dtype."""
+    N, S = n_clients, shape.seq_len
+    Bc = shape.global_batch // n_clients
+    dt = getattr(torch, cfg.dtype)
+    meta = torch.device("meta")
+    ints = lambda *s: torch.empty(*s, dtype=torch.int32, device=meta)
+    batch: Dict[str, Any] = {"labels": ints(N, Bc, S)}
+    if cfg.input_kind == "tokens" or cfg.is_encoder_decoder:
+        batch["tokens"] = ints(N, Bc, S)
+    else:
+        batch["embeddings"] = torch.empty(N, Bc, S, cfg.d_model, dtype=dt,
+                                          device=meta)
+        if cfg.rope_kind == "mrope":
+            batch["positions"] = ints(N, Bc, S, 3)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.empty(N, Bc, cfg.encoder_seq, cfg.d_model,
+                                      dtype=dt, device=meta)
+    return batch

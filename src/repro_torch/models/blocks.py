@@ -11,9 +11,9 @@ own (`lm.init_cache`): GQA (K, V) (L, B, S, G, hd); MLA one latent tensor
 mLSTM (conv, C); sLSTM (c, n, m, h). Each layer reads its slice. In
 decode, attention caches are written in place; the recurrent states come
 back as new tensors, which are written into the layer's slice. In train
-mode each layer is rematerialised by `REMAT_POLICY`, as the reference's
-`jax.checkpoint` does; MLA, MoE and mamba layers do not train yet (see
-`check_trainable`).
+mode each layer of every kind is rematerialised by `REMAT_POLICY`, as the
+reference's `jax.checkpoint` does, and the layer's MoE balance loss comes
+out of the remat beside x, as the reference carries `aux` through it.
 """
 from __future__ import annotations
 
@@ -25,9 +25,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.nn import attention, layers, mla, moe, ssm, xlstm
 from repro_torch.tree import tree_map
 
-_TRAIN_LATER = ("is not ported yet (ROADMAP.md, queue 1: training of MLA, "
-                "MoE, mamba and the shared block)")
-
 # Activation-checkpoint policy for the per-layer remat in train mode:
 #   "full" - recompute each layer in backward (the reference's default)
 #   "none" - no remat (more live memory, no recompute)
@@ -35,19 +32,9 @@ _TRAIN_LATER = ("is not ported yet (ROADMAP.md, queue 1: training of MLA, "
 # `launch/dryrun.py --remat`, which comes with slice 9 (multi-device).
 REMAT_POLICY = "full"
 
-def check_trainable(cfg, kind: str) -> None:
-    """Raise `NotImplementedError` for a layer that serves but does not
-    train yet: MLA, MoE (whose balance loss must flow through remat) and
-    mamba."""
-    if kind == "mamba":
-        raise NotImplementedError(f"training of mamba layers {_TRAIN_LATER}")
-    if kind == "attn" and cfg.is_mla:
-        raise NotImplementedError(f"training of MLA layers {_TRAIN_LATER}")
-    if kind == "attn" and cfg.num_experts:
-        raise NotImplementedError(f"training of MoE layers {_TRAIN_LATER}")
-
 
 def _wrap_remat(fn):
+    """fn(x) -> (x, aux), rematerialised by `REMAT_POLICY`."""
     if REMAT_POLICY == "full":
         return lambda x: checkpoint(fn, x, use_reentrant=False)
     if REMAT_POLICY == "none":
@@ -98,6 +85,9 @@ def _attn(p, cfg, h, positions, *, window, mode, cache, cache_index, masked):
         if mode == "decode":
             return mla.mla_decode(p, cfg, h, cache, positions,
                                   cache_index=cache_index, masked=masked)
+        if mode == "train":
+            return mla.mla_block(p, cfg, h, positions, window=window,
+                                 mode="train"), None
         return mla.mla_block(p, cfg, h, positions, window=window,
                              return_cache=True)
     kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -123,8 +113,6 @@ def apply_block(p, cfg, kind: str, x, positions, *, window: int = 0,
     the MoE balance loss (0.0 for other layers); in decode, `cache` is this
     layer's, an attention cache updated in place, a recurrent state
     returned anew."""
-    if mode == "train":
-        check_trainable(cfg, kind)
     h = layers.apply_norm(cfg.norm_kind, p["norm1"], x, cfg.norm_eps)
     decode = mode == "decode"
     aux, new_cache = 0.0, None
@@ -145,6 +133,8 @@ def apply_block(p, cfg, kind: str, x, positions, *, window: int = 0,
     if kind == "mamba":
         if decode:
             y, new_cache = ssm.mamba2_decode(p["mamba"], cfg, h, cache)
+        elif mode == "train":
+            y = ssm.mamba2_block(p["mamba"], cfg, h)
         else:
             y, new_cache = ssm.mamba2_block(p["mamba"], cfg, h,
                                             return_cache=True)
@@ -186,17 +176,19 @@ def init_segments(gen: torch.Generator, cfg, dtype) -> List[List[Dict[str, Any]]
 def run_segment(seg_params, cfg, kind: str, x, positions, *, window: int,
                 mode: str, cache=None, cache_index=None, masked: bool = False):
     """Run a segment's layers in order. In train mode each layer is
-    rematerialised by `REMAT_POLICY`. In prefill the layers' new caches are
-    stacked on a leading layer axis; in decode `cache` is that stacked
-    cache: layer i reads slice i of each leaf, and a recurrent state comes
-    back written into it. Returns (x, aux_sum, cache)."""
+    rematerialised by `REMAT_POLICY`, its aux with it. In prefill the
+    layers' new caches are stacked on a leading layer axis; in decode
+    `cache` is that stacked cache: layer i reads slice i of each leaf, and
+    a recurrent state comes back written into it. Returns (x, aux_sum,
+    cache)."""
     aux = 0.0
     new = []
     for i, lp in enumerate(seg_params):
         if mode == "train":
             fn = lambda xx, lp=lp: apply_block(lp, cfg, kind, xx, positions,
-                                               window=window)[0]
-            x = _wrap_remat(fn)(x)
+                                               window=window)[:2]
+            x, a = _wrap_remat(fn)(x)
+            aux = aux + a
             continue
         lc = None if cache is None else tree_map(lambda a: a[i], cache)
         x, a, nc = apply_block(lp, cfg, kind, x, positions, window=window,

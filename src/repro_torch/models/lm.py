@@ -34,9 +34,9 @@ def _dtype(cfg) -> torch.dtype:
 
 def _check_supported(cfg) -> None:
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP.md, queue 1: "
-            "Whisper and models/encdec.py)")
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: models.lm holds the "
+            f"decoder-only models, models.encdec this one")
 
 
 def shared_points(cfg) -> List[int]:

@@ -1,18 +1,20 @@
 """GQA attention, the port of `repro/nn/attention.py`: prefill through the
 hand-written flash kernel, training and decode as plain PyTorch ops.
 
-`gqa_block` takes the mode. In prefill its self-attention (`kv is None`,
-`window == 0`) goes to `kernels.ops.flash_attention`: the CUDA kernel for
-tensors on the card, its plain version for tensors on the CPU. On the
-causal, `q_offset = 0` serving path that is the function the reference
-computes with `full_attention` or `chunked_attention`
+`gqa_block` takes the mode. Outside train mode its attention goes to
+`kernels.ops.flash_attention`: the CUDA kernel for tensors on the card, its
+plain version for tensors on the CPU. That holds for self-attention
+(causal, `q_offset = 0`) and for cross-attention (`kv=(k, v)` given, no
+rope, `causal=False`, Sq != Sk: Whisper's decoder over the encoder's
+frames, in prefill and, at Sq = 1, in decode), which are the functions the
+reference computes with `full_attention` or `chunked_attention`
 (`attention.py:134-137`). In train mode it calls those plain functions by
 the reference's own rule (`full_attention` when `Sk <= 2 * chunk` or
 `Sk % chunk != 0`, else `chunked_attention`), under autograd, as the
 reference trains: the choice is fixed by the mode, never by whether a
-kernel builds. Cross-attention and sliding-window prefill raise
-`NotImplementedError`; nothing is routed quietly to a plain path on the
-card. Decode uses `full_attention`.
+kernel builds. Sliding-window prefill raises `NotImplementedError`;
+nothing is routed quietly to a plain path on the card. `gqa_decode` uses
+`full_attention` against the self-attention cache.
 
 Layouts: x (B, S, D); q (B, S, H, hd); k/v (B, S, G, hd) with G = KV heads.
 """
@@ -129,21 +131,26 @@ def gqa_block(params, x, positions, *, num_heads, num_kv_heads, head_dim,
               rope_kind, rope_theta, causal=True, window=0,
               return_kv=False, kv=None, mode: str = "prefill",
               chunk: int = 512):
-    """Self-attention on a full sequence -> y (B,S,D) [, (k, v)]; `mode`
+    """Self- or cross-attention on a full sequence -> y (B,S,D) [, (k, v)].
+    `kv`: the (k, v) (B, Sk, G, hd) to attend to (cross-attention; no rope
+    is applied, as in the reference), else the sequence's own. `mode`
     "train" computes it with the plain functions (see the module's
     docstring), any other mode with the prefill kernel."""
-    if kv is not None:
-        raise NotImplementedError(
-            "cross-attention (kv=...) is not ported yet: it comes with "
-            "models/encdec.py (ROADMAP.md, queue 1: other LM families)")
     if window and mode != "train":
         raise NotImplementedError(
             "sliding-window prefill is not ported yet: the flash kernel has "
-            "no window (ROADMAP.md, queue 1: other LM families)")
-    q, k, v = qkv(params, x, num_heads, num_kv_heads, head_dim)
-    if rope_kind != "none":
-        q = rope_lib.apply_rope(q, positions, theta=rope_theta, kind=rope_kind)
-        k = rope_lib.apply_rope(k, positions, theta=rope_theta, kind=rope_kind)
+            "no window (ROADMAP.md, queue 1: sliding-window prefill)")
+    if kv is None:
+        q, k, v = qkv(params, x, num_heads, num_kv_heads, head_dim)
+        if rope_kind != "none":
+            q = rope_lib.apply_rope(q, positions, theta=rope_theta,
+                                    kind=rope_kind)
+            k = rope_lib.apply_rope(k, positions, theta=rope_theta,
+                                    kind=rope_kind)
+    else:
+        B, S = x.shape[:2]
+        q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
+        k, v = kv
     if mode != "train":
         o = _prefill_attention(q, k, v, causal=causal)
     elif k.shape[1] <= 2 * chunk or k.shape[1] % chunk != 0:

@@ -8,9 +8,10 @@
     output, so attention runs in float32 directly against the compressed
     latent cache (B, S, kv_lora + qk_rope).
 `k_rope` is one rotated head, (B, S, 1, dr), with kind "rope" whatever
-`cfg.rope_kind` says, broadcast to every head before attention.
-Training of MLA layers comes with a later slice (`models/blocks.py`
-raises for it).
+`cfg.rope_kind` says, broadcast to every head before attention. In train
+mode the expanded form attends with the plain functions under autograd by
+the reference's own rule (`mla.py:78-82`): `full_attention` when S <= 2 *
+chunk, else `chunked_attention`.
 """
 from __future__ import annotations
 
@@ -61,11 +62,12 @@ def _latent_kv(p, cfg, x, positions):
     return c_kv, k_rope
 
 
-def mla_block(p, cfg, x, positions, *, window: int = 0,
-              return_cache: bool = False):
-    """Expanded-form MLA prefill over a full sequence -> y (B,S,d) [, cache
-    (B,S,r_kv+dr)]."""
-    if window:
+def mla_block(p, cfg, x, positions, *, window: int = 0, chunk: int = 512,
+              return_cache: bool = False, mode: str = "prefill"):
+    """Expanded-form MLA over a full sequence -> y (B,S,d) [, cache
+    (B,S,r_kv+dr)]; `mode` "train" attends with the plain functions, any
+    other mode with the prefill kernel."""
+    if window and mode != "train":
         raise NotImplementedError(
             "sliding-window prefill is not ported yet: the flash kernel has "
             "no window (ROADMAP.md, queue 1: sliding-window prefill)")
@@ -79,7 +81,14 @@ def mla_block(p, cfg, x, positions, *, window: int = 0,
     kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, dn + dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([kv[..., :dn], k_rope.expand(B, S, H, dr)], dim=-1)
-    o = attention._prefill_attention(q, k, kv[..., dn:], causal=True)
+    v = kv[..., dn:]
+    if mode != "train":
+        o = attention._prefill_attention(q, k, v, causal=True)
+    elif S <= 2 * chunk:
+        o = attention.full_attention(q, k, v, causal=True, window=window)
+    else:
+        o = attention.chunked_attention(q, k, v, causal=True, window=window,
+                                        chunk=chunk)
     y = o.reshape(B, S, H * dv) @ p["wo"]
     if return_cache:
         return y, torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)

@@ -11,7 +11,11 @@ batch rows becomes a batch axis written out, its `.at[slot].add` a
 `scatter_add_` (every kept slot receives exactly one value, so the add is
 exact). The expert products are batched matrix products over the stacked
 (E, d, f) weights, as the reference's `jnp.einsum`s outside any Pallas
-kernel. The reference's sharding hints come with the multi-device slice.
+kernel. Train mode runs the same code under autograd: the router's
+softmax and top-k, the `scatter_add_` into a fresh buffer (gathered back in
+the backward) and the aux, whose gradient reaches the router through the
+mean probabilities, as in the reference. The reference's sharding hints
+come with the multi-device slice.
 
 Stacked expert weight names end in `_e`, as in the reference.
 """

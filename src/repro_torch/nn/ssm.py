@@ -9,8 +9,10 @@ each chunk. Recurrence (per head h, scalar A):
     y_t = C_t . h_t + D * x_t
 
 Decode keeps (conv_state, ssm_state) in the cache and does the O(1)
-update; the conv state is the last cw - 1 *pre-conv* inputs. Training of
-mamba layers comes with a later slice (`models/blocks.py` raises for it).
+update; the conv state is the last cw - 1 *pre-conv* inputs. Train mode
+runs `mamba2_block` under autograd; nothing here writes in place into a
+tensor autograd saved, and the intra-chunk decay is masked before its exp
+so that its gradient stays finite at full width (`ssd_chunked`).
 """
 from __future__ import annotations
 
@@ -73,8 +75,12 @@ def ssd_chunked(xh, Bm, Cm, dt, A, Q: int, h0=None):
     Gm = torch.einsum("bcin,bcjn->bcij", Cc, Bc)              # (B,nc,Q,Q)
     Ld = cums[:, :, :, None, :] - cums[:, :, None, :, :]      # (B,nc,Q,Q,H) i,j
     causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(Ld),
-                    torch.zeros((), device=xh.device))
+    # masked before the exp (the reference masks after it): the upper
+    # triangle's Ld is positive, up to Q dt |A|, and overflows at full width
+    # (Zamba2: Q 128, dt about 0.7), where a mask after the exp passes a
+    # gradient of 0 x inf = NaN; the forward values are the same
+    L = torch.exp(Ld.masked_fill(~causal[None, None, :, :, None],
+                                 float("-inf")))
     W = Gm[..., None] * L * dtc[:, :, None, :, :]             # weight (i,j,h)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", W, xh)
 

@@ -1,19 +1,24 @@
 """End-to-end serving of the port (the twin of examples/serve_lm.py):
 prefill a batch of prompts, then decode greedily into a fixed-size cache.
-Every attention prefill (GQA, MLA, zamba2's shared block) runs in the
-flash kernel on the card.
+Every attention prefill (GQA, MLA, zamba2's shared block, Whisper's
+encoder, self- and cross-attention) runs in the flash kernel on the card,
+and so does Whisper's cross-attention in decode.
 
   PYTHONPATH=src python -m repro_torch.serve_lm [--arch tinyllama-1.1b]
       [--reduced | --no-reduced] [--batch 4] [--prompt-len 32] [--tokens 16]
       [--seed 0] [--device cuda|cpu]
 
-`--arch` takes every token model of `configs.ARCHS`. Qwen2-VL takes
-embeddings (its vision frontend is a stub), which a token loop cannot feed
-back: the command line raises for it, as the reference example fails on
-it; `serve` takes its batch of `serve_batch_specs` and a `next_batch` of
-new embeddings. `--reduced` (the default) serves the 2-layer, d_model
-256, vocabulary 512 variant, as the reference example does; `--no-reduced`
-serves the full width. Weights are random, drawn from `--seed`. A prompt length must be a multiple of the
+`--arch` takes every decoder-only token model of `configs.ARCHS`.
+Qwen2-VL takes embeddings (its vision frontend is a stub), which a token
+loop cannot feed back, and Whisper-small's prefill takes audio frames
+beside its tokens: the command line raises for both, as the reference
+example fails on them. `serve` takes Qwen2-VL's batch of
+`serve_batch_specs` and a `next_batch` of new embeddings, and Whisper's
+`{"tokens", "frames"}` batch of `serve_batch_specs` (frames (B, 1500, d)),
+then feeds its greedy tokens back; only its self cache grows. `--reduced`
+(the default) serves the 2-layer, d_model 256, vocabulary 512 variant, as
+the reference example does; `--no-reduced` serves the full width. Weights
+are random, drawn from `--seed`. A prompt length must be a multiple of the
 SSD chunk (`ssm_chunk`) where it exceeds it, for mamba and mLSTM layers.
 """
 from __future__ import annotations
@@ -28,17 +33,28 @@ from repro_torch.configs import get_arch
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as serve_lib
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
+from repro_torch.tree import leaves
 
 PROMPT_STRIDE = 100            # prompt i starts at token i * 100 of the stream
 
 
-# the reference example's name for extending every attention cache's seq
-# axis (the shared block's too)
-_grow_caches = lm.pad_cache_for_decode
+def _grow_caches(cfg, caches, extra: int):
+    """Every attention cache's seq axis (the shared block's too) extended
+    by `extra` empty slots; an encoder-decoder's self cache only."""
+    if cfg.is_encoder_decoder:
+        return encdec.pad_cache_for_decode(caches, extra)
+    return lm.pad_cache_for_decode(cfg, caches, extra)
 
 
 def check_token_model(cfg) -> None:
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its prefill takes audio "
+            f"frames beside the tokens; call repro_torch.serve_lm.serve with "
+            f"a batch dict {{'tokens': (B, S), 'frames': (B, "
+            f"{cfg.encoder_seq}, {cfg.d_model})}} as serve_batch_specs "
+            f"shapes it")
     if cfg.input_kind != "tokens":
         raise ValueError(
             f"{cfg.name} takes {cfg.input_kind} input, not tokens: the "
@@ -72,14 +88,15 @@ def serve(params, cfg, prompts, tokens: int, next_batch=greedy_tokens):
     slots (written at cache_index, attention masked to the slots written so
     far). `prompts` is (B, S) token ids, or a batch dict as
     `serve_batch_specs` shapes it (an embeddings model's embeddings and
-    M-RoPE positions). Step i decodes `next_batch(i, logits)`, `logits` the
-    last step's: by default the greedy tokens fed back.
+    M-RoPE positions; an encoder-decoder's tokens and frames). Step i
+    decodes `next_batch(i, logits)`, `logits` the last step's: by default
+    the greedy tokens fed back.
 
     -> dict(ids (B, tokens) int64 on the CPU: the tokens decoded, none for
     embeddings batches; logits (tokens + 1, B, V) float32: the prefill's
     last-position logits, then each decode step's; prefill_s, decode_s:
     host seconds, each ending in a device synchronise)."""
-    dev = params["final_norm"]["scale"].device
+    dev = leaves(params)[0].device
     if isinstance(prompts, dict):
         batch = prompts
     else:
@@ -87,7 +104,7 @@ def serve(params, cfg, prompts, tokens: int, next_batch=greedy_tokens):
         batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev)}
     prefill = serve_lib.make_prefill_step(cfg)
     decode = serve_lib.make_decode_step(cfg)
-    B, S = next(iter(batch.values())).shape[:2]
+    B, S = batch["tokens" if "tokens" in batch else "embeddings"].shape[:2]
 
     t0 = time.perf_counter()
     out = prefill(params, batch)

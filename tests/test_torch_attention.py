@@ -215,14 +215,38 @@ def test_gqa_block_matches_reference(S):
 
 
 def test_gqa_block_raises_outside_the_kernel_path():
-    p = {n: torch.from_numpy(a) for n, a in _gqa_params(64, 4, 2, 32).items()}
+    """Sliding-window prefill raises; cross-attention (kv given, Sq != Sk,
+    no rope) goes to the kernel's path with causal=False outside train
+    mode and equals the reference's in both modes."""
+    jp = _gqa_params(64, 4, 2, 32)
+    p = {n: torch.from_numpy(a) for n, a in jp.items()}
     x = torch.zeros(1, 8, 64)
     pos = rope.default_positions(1, 8, "rope")
     with pytest.raises(NotImplementedError):
         attention.gqa_block(p, x, pos, window=4, **KW)
-    with pytest.raises(NotImplementedError):
-        attention.gqa_block(p, x, pos, kv=(torch.zeros(1, 8, 2, 32),) * 2,
-                            **KW)
+    rng = np.random.default_rng(5)
+    xq = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 11, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(KW, rope_kind="none")
+    want = jatt.gqa_block(jp, xq, None, causal=False, kv=(k, v), **kw)
+    calls = []
+
+    def spy(q, kk, vv, causal=True):
+        calls.append((tuple(q.shape), tuple(kk.shape), causal))
+        return ref.flash_attention(q, kk, vv, causal=causal)
+
+    tkv = (torch.from_numpy(k), torch.from_numpy(v))
+    with attention.prefill_attention(spy):
+        got = attention.gqa_block(p, torch.from_numpy(xq), None, causal=False,
+                                  kv=tkv, **kw)
+        trained = attention.gqa_block(p, torch.from_numpy(xq), None,
+                                      causal=False, kv=tkv, mode="train",
+                                      **kw)
+    assert calls == [((2, 3, 4, 32), (2, 11, 2, 32), False)]
+    for y in (got, trained):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=ATT_TOL,
+                                   rtol=ATT_TOL)
 
 
 def test_gqa_block_gradient_on_cpu_matches_reference():

@@ -532,7 +532,10 @@ def test_trainer_on_the_card_matches_the_cpu(cuda):
 # the serving prefill's (at hd 64, and at 32 and 128), the edges of the
 # bf16 kernel's 128-row query tiles and 64-row warpgroups, and the LM
 # families' prefills at 4 x 256 (Qwen2-VL, ChatGLM3, DeepSeek-67B, Granite,
-# Zamba2's shared block). Both sides do the
+# Zamba2's shared block), and Whisper-small's four (H = G = 12: the encoder
+# over 1,500 frames, the decoder's self-attention over 32 tokens, its
+# cross-attention from 32 tokens and, in decode, from one, over the 1,500
+# frames: Sk = 1500 leaves a partial last key tile). Both sides do the
 # same float32 math, summed in another order (the bf16 kernel splits P into
 # two bf16 halves to keep it). float32: 2e-5 x max(1, max|plain|), as
 # tests/test_kernels.py. bf16: both round that float32 result to bf16, so
@@ -549,7 +552,9 @@ FLASH_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 8, 128),
                 (4, 1024, 1024, 32, 4, 32), (4, 1024, 1024, 32, 4, 128),
                 (4, 256, 256, 28, 4, 128), (4, 256, 256, 32, 2, 128),
                 (4, 256, 256, 64, 8, 128), (4, 256, 256, 16, 8, 64),
-                (4, 256, 256, 32, 32, 64)]
+                (4, 256, 256, 32, 32, 64),
+                (4, 1500, 1500, 12, 12, 64), (4, 32, 32, 12, 12, 64),
+                (4, 32, 1500, 12, 12, 64), (4, 1, 1500, 12, 12, 64)]
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,G,hd", FLASH_SHAPES)
@@ -629,12 +634,14 @@ def test_flash_attention_raises_where_a_gradient_would_be_dropped(cuda):
         ops.flash_attention(q.detach(), k, k)
 
 
-def test_proto_accum_at_the_lm_train_shape(cuda):
+@pytest.mark.parametrize("N,n,d,C", [(2, 4096, 2048, 32000),
+                                     (2, 896, 768, 51865)])
+def test_proto_accum_at_the_lm_train_shape(cuda, N, n, d, C):
     """The LM train step's upload stats, (N, B*S, d', V) = (2, 4096, 2048,
-    32000) for TinyLlama-1.1B: counts equal, sums within the file's
-    tolerance, two launches bit-equal."""
+    32000) for TinyLlama-1.1B and (2, 896, 768, 51865) for Whisper-small
+    (51865 = 32 x 1620 + 25 leaves a partial last class block): counts
+    equal, sums within the file's tolerance, two launches bit-equal."""
     g = torch.Generator().manual_seed(21)
-    N, n, d, C = 2, 4096, 2048, 32000
     f = torch.randn(N, n, d, generator=g).to(cuda)
     lab = torch.randint(0, C, (N, n), generator=g).to(cuda)
     sums, counts = ops.proto_accum(f, lab, C)
@@ -645,7 +652,10 @@ def test_proto_accum_at_the_lm_train_shape(cuda):
     assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "xlstm-125m"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "xlstm-125m",
+                                  "whisper-small", "granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "minicpm3-4b",
+                                  "zamba2-1.2b"])
 def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
     """Two cors steps of the reduced LM (2 clients, float32) on the card
     and on the CPU from the same weights, batches and negative ids: metrics
@@ -657,7 +667,8 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
     from repro_torch.launch import train
     from repro_torch.tree import leaves, tree_map
     from repro_torch.types import CollabConfig
-    cfg = get_arch(arch).reduced()
+    cfg = get_arch(arch).reduced(num_layers=4 if arch == "zamba2-1.2b"
+                                 else 2)
     ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
                         d_feature=cfg.d_feature)
     cpu = train.init_state(cfg, torch.Generator().manual_seed(0), 2,
@@ -669,6 +680,9 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
     for _ in range(2):
         toks = torch.randint(0, cfg.vocab_size, (2, 2, 33), generator=g)
         batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.randn(2, 2, cfg.encoder_seq, cfg.d_model,
+                                          generator=g)
         neg = train.draw_negatives(g, cfg, ccfg, 2)
         cpu, mc = step(cpu, batch, neg)
         gpu, mg = step(gpu, tree_map(lambda a: a.to(cuda), batch),
@@ -802,3 +816,35 @@ def test_reduced_family_serving_on_the_card_matches_the_cpu(cuda, arch,
     want = logits["cpu"]
     err = float((logits["cuda"] - want).abs().max())
     assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+def test_reduced_whisper_serving_on_the_card_matches_the_cpu(cuda):
+    """The reduced float32 Whisper (2 + 2 layers, 20 frames) through
+    serve_lm.serve on the card and on the CPU from the same weights: logits
+    within 1e-4 x max(1, |logit|), the same ids; flash launches 3 a layer
+    in prefill (encoder, self, cross) and one a decoder layer a decode step
+    (cross-attention at Sq = 1)."""
+    import dataclasses
+    from repro_torch import serve_lm
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_arch("whisper-small").reduced(),
+                              encoder_seq=20)
+    p = encdec.init_encdec(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 8), generator=g),
+             "frames": torch.randn(2, 20, cfg.d_model, generator=g)}
+    out = {}
+    for dev in ("cpu", cuda):
+        ops.reset_launches()
+        with torch.inference_mode():
+            out[str(dev)] = serve_lm.serve(
+                tree_map(lambda a: a.to(dev), p), cfg,
+                tree_map(lambda a: a.to(dev), batch), 3)
+    assert ops.LAUNCHES["flash_attention"] == 3 * 2 + 3 * 2
+    want = out["cpu"]["logits"]
+    err = float((out["cuda"]["logits"].cpu() - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+    assert torch.equal(out["cuda"]["ids"], out["cpu"]["ids"])

@@ -32,6 +32,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import blocks, lm
 from repro_torch.nn import layers, rope
+from repro_torch.tree import tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
@@ -118,17 +119,17 @@ def test_token_stream_is_bit_identical():
 
 # -- configs and conversion ---------------------------------------------------
 def test_configs_match_reference_and_unported_archs_raise():
-    """Every decoder-only arch equals the reference's field for field; the
-    encoder-decoder Whisper-small is the arch that still raises."""
+    """Every arch of the reference's registry, the encoder-decoder
+    Whisper-small too, equals the reference's field for field; an unknown
+    name raises."""
     from repro.configs import ARCHS as JARCHS
     from repro_torch.configs import ARCHS
     full = get_arch("tinyllama-1.1b")
     assert full.head_dim == 64 and full.num_layers == 22
-    assert sorted(ARCHS) == sorted(set(JARCHS) - {"whisper-small"})
+    assert sorted(ARCHS) == sorted(JARCHS)
     for name in ARCHS:
         assert get_arch(name).__dict__ == jget_arch(name).__dict__, name
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("whisper-small")
+    assert get_arch("whisper-small").is_encoder_decoder
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
@@ -150,9 +151,10 @@ def test_lm_params_from_jax_unstacks_layers(model):
 
 
 def test_unported_layers_raise():
-    """mamba, MLA and MoE layers build and serve (tests/test_torch_lm_families.py)
-    but do not train yet: train mode raises naming the training slice; the
-    xLSTM kinds train and serve (tests/test_torch_xlstm.py)."""
+    """mamba, MLA and MoE layers train as they serve (parity in
+    tests/test_torch_family_train.py): train mode gives x's shape, MoE its
+    balance loss as a tensor with a gradient, the others 0.0; the xLSTM
+    kinds train and serve (tests/test_torch_xlstm.py)."""
     import dataclasses
     base = get_arch("tinyllama-1.1b").reduced()
     gen = torch.Generator().manual_seed(0)
@@ -166,8 +168,13 @@ def test_unported_layers_raise():
                                            experts_per_token=2,
                                            moe_d_ff=64), "attn")):
         p = blocks.init_block(gen, cfg, kind, torch.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocks.apply_block(p, cfg, kind, x, pos, mode="train")
+        p = tree_map(lambda a: a.requires_grad_(True), p)
+        y, aux, cache = blocks.apply_block(p, cfg, kind, x, pos, mode="train")
+        assert y.shape == x.shape and y.requires_grad and cache is None
+        if cfg.num_experts:
+            assert aux.requires_grad and float(aux.detach()) > 0
+        else:
+            assert aux == 0.0
         y, _, _ = blocks.apply_block(p, cfg, kind, x, pos, mode="prefill")
         assert y.shape == x.shape
     for kind in ("mlstm", "slstm"):

@@ -180,18 +180,29 @@ def test_params_convert_both_ways(arch):
                                   "deepseek-v2-lite-16b", "minicpm3-4b",
                                   "zamba2-1.2b"])
 def test_train_mode_raises_for_the_new_kinds(arch):
-    """MLA, MoE and mamba serve but do not train yet: train mode names the
-    training slice rather than dropping MoE's balance loss in remat."""
-    cfg, _, _, tp = _model(arch)
-    b = _tb(_batch(cfg, S, 5))
-    with pytest.raises(NotImplementedError, match="training of"):
-        lm.forward(tp, cfg, b, mode="train")
+    """MLA, MoE and mamba train: train mode's features, logits and MoE
+    balance loss equal the reference's `forward(mode="train")` (gradients
+    and train steps in tests/test_torch_family_train.py)."""
+    cfg, jcfg, jp, tp = _model(arch)
+    b = _batch(cfg, S, 5)
+    want = jlm.forward(jp, jcfg, _jb(b), mode="train")
+    got = lm.forward(tp, cfg, _tb(b), mode="train")
+    _close(got["logits"], want["logits"], "logits")
+    _close(got["features"], want["features"], "features")
+    assert np.isclose(float(got["aux"]), float(want["aux"]), rtol=TOL,
+                      atol=TOL)
+    assert got["caches"] is None
 
 
 def test_registry_holds_every_decoder_only_arch():
-    assert sorted(ARCHS) == sorted(FAMILIES + ["tinyllama-1.1b"])
-    with pytest.raises(KeyError, match="encdec"):
-        get_arch("whisper-small")
+    """The registry holds every arch of the reference's, the
+    encoder-decoder Whisper-small among them (tests/test_torch_encdec.py)."""
+    from repro.configs import ARCHS as JARCHS
+    assert sorted(ARCHS) == sorted(FAMILIES + ["tinyllama-1.1b",
+                                               "whisper-small"])
+    assert sorted(ARCHS) == sorted(JARCHS)
+    assert get_arch("whisper-small").__dict__ == \
+        jget_arch("whisper-small").__dict__
 
 
 def test_serving_twin_serves_the_token_models(capsys):

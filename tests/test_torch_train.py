@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from repro.checkpoint import io as jio
-from repro.configs import get_arch as jget_arch
+from repro.configs import ARCHS as JARCHS, get_arch as jget_arch
 from repro.core import losses as jlosses, prototypes as jproto
 from repro.data import synthetic as jsyn
 from repro.launch import train as jtrain
@@ -81,9 +81,11 @@ def _negatives(key, n=N, k=K, c=V):
 
 
 def _close_adam(got, want, steps=STEPS, what=""):
-    """A client-stacked LM tree of the port against the reference's, leaf
-    by leaf under the checkpoint keys."""
-    g = tio._paths(convert.lm_params_to_numpy(got, clients=True))
+    """A client-stacked LM (or encoder-decoder) tree of the port against the
+    reference's, leaf by leaf under the checkpoint keys."""
+    conv = (convert.encdec_params_to_numpy if "enc_layers" in got
+            else convert.lm_params_to_numpy)
+    g = tio._paths(conv(got, clients=True))
     w = jio._paths(want)
     assert sorted(g) == sorted(w), what
     far = total = 0
@@ -519,17 +521,28 @@ def _ref_layout(tree, path=""):
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if k != "segments":
+            if k == "segments":
+                for i, seg in enumerate(v):
+                    out.update(_stacked_layout(seg, join(f"{k}/{i}")))
+            elif k in ("enc_layers", "dec_layers"):
+                out.update(_stacked_layout(v, join(k)))
+            else:
                 out.update(_ref_layout(v, join(k)))
-                continue
-            for i, seg in enumerate(v):
-                for p, (s, dt) in _ref_layout(seg[0], join(f"{k}/{i}")).items():
-                    out[p] = ((s[0], len(seg)) + s[1:], dt)
         return out
     return {path: (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "xlstm-125m"])
+def _stacked_layout(layers, path):
+    """A per-layer list under `path`, stacked on a layer axis after the
+    clients'."""
+    return {p: ((s[0], len(layers)) + s[1:], dt)
+            for p, (s, dt) in _ref_layout(layers[0], path).items()}
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "xlstm-125m",
+                                  "whisper-small", "granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "minicpm3-4b",
+                                  "zamba2-1.2b"])
 def test_full_width_state_shapes_equal_eval_shape(arch):
     """The full-width TrainState of 2 clients as meta tensors (nothing
     allocated) against `jax.eval_shape` of `init_state_shapes(cfg, 2)`,
@@ -539,6 +552,21 @@ def test_full_width_state_shapes_equal_eval_shape(arch):
     got = train.init_state_shapes(get_arch(arch), 2)
     assert all(t.device.type == "meta" for t in leaves(got))
     assert _ref_layout(got) == want
+
+
+@pytest.mark.parametrize("arch", sorted(JARCHS))
+def test_train_batch_specs_match_reference(arch):
+    """train_batch_specs of every arch at train_4k over 4 clients, as meta
+    tensors, against the reference's ShapeDtypeStructs."""
+    from repro.configs import get_shape as jget_shape
+    from repro_torch.configs import get_shape
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    got = train.train_batch_specs(cfg, get_shape("train_4k"), 4)
+    want = jtrain.train_batch_specs(jcfg, jget_shape("train_4k"), 4)
+    assert list(got) == list(want)
+    for k, v in got.items():
+        assert v.is_meta and tuple(v.shape) == want[k].shape, k
+        assert str(v.dtype).split(".")[-1] == str(want[k].dtype), k
 
 
 def test_init_state_stacks_clients():
