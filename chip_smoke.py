@@ -6,12 +6,16 @@
 Phases (each failure raises, so the process exits non-zero):
   1. device: a CUDA device must be present; prints its name and power limit;
   2. build: compiles the hand-written kernels (`kernels/csrc/*.cu`) and
-     prints the registers, shared memory and spills of the bf16 (tensor-core)
-     flash_attention kernel;
+     prints the registers, shared memory and spills of the ten bf16
+     (tensor-core) flash_attention kernels (hd 32, 64, 128 and MLA's
+     192/128 and 96/64, causal and full), each within a block's shared
+     memory;
   3. precision: TF32 off for cuDNN convolutions and matmuls;
   4. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes and larger ones (flash_attention also at MLA's
-     split head dims, 192/128 and 96/64, in bf16 at phase 11's GQA
+     split head dims, 192/128 and 96/64 at phase 11's shapes, ragged and
+     over several tiles, and 80/64, in both dtypes, each row's device kernel
+     named by the profiler in phase 6, in bf16 at phase 11's GQA
      prefill shapes, and at phase 12's four Whisper shapes in bf16 and
      float32, Sq != Sk for cross-attention; proto_accum also at phase
      13's Whisper shape, (2, 896, 768, 51865)), with times, the bound from
@@ -105,7 +109,11 @@ Phases (each failure raises, so the process exits non-zero):
      (device ops, busy time), the N = 5 telemetry-off ops equal to phase
      6's vec count;
   6. profile: one more round of each engine under torch.profiler (device
-     busy share, device ops, time by kernel), then 2 rounds of each engine
+     busy share, device ops, time by kernel), then one call at each of
+     phase 4's MLA rows under the profiler: bf16 at 192/128 and 96/64 must
+     launch the tensor-core kernel once, the rest the CUDA-core one (after
+     phase 5's timings, which a profiler session would slow); then 2 rounds
+     of each engine
      at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
      s/round at N = 5 and N = 32;
   7. serve: full-width TinyLlama-1.1B (22 layers, bf16, random weights from
@@ -144,9 +152,11 @@ Phases (each failure raises, so the process exits non-zero):
      xlstm-125m and deepseek-67b, one after another, each freed before
      the next: 4 prompts of 256 tokens, 8 greedy tokens, after a warm-up;
      flash launches asserted (24 / 27 / 62 / 28 / 28 / 6 / 0 / 16, MLA's
-     at its split head dims), logits finite, ids (4, 8) for the token
-     models; parameters, set-up s, prefill ms, decode ms a step, peak
-     memory, and one profiled prefill (flash's share of its device time);
+     at its split head dims), every one in the profiled prefill the
+     tensor-core kernel by the profiler's names, logits finite, ids (4, 8)
+     for the token models; parameters, set-up s, prefill ms, decode ms a
+     step, peak memory, and one profiled prefill (flash's share of its
+     device time);
      then each family in float32 at full width and its least depth (2
      layers, 6 for zamba2), MoE at a capacity factor of num_experts: the
      kernel path against plain attention and decode against prefill within
@@ -177,9 +187,10 @@ Phases (each failure raises, so the process exits non-zero):
      MoE's balance loss finite; s/step, tokens/s, and one profiled step
      (busy share, device ops, proto_accum's device time). Phase 10a holds
      Whisper and the four kinds, reduced, on the card against the CPU.
-Phase 4 also holds three faulty flash results at the serving shape against
-the bf16 check, which must reject each: a bf16 accumulator, the last 16 keys
-dropped, and P rounded to bf16 once before P V.
+Phase 4 also holds three faulty flash results at the serving shape and at
+DeepSeek-V2-Lite's split shape against the bf16 check, which must reject
+each: a bf16 accumulator, the last 16 keys dropped, and P rounded to bf16
+once before P V.
 Phase 4 also runs every disc_loss and proto_accum shape twice and requires
 equal bits (proto_accum also at 10b's shape, (2, 4096, 2048, 32000)), and
 runs the kernels with a leading client axis (the vectorized engine's
@@ -213,6 +224,7 @@ sys.path.insert(0, str(ROOT / "src"))
 MEM_BPS = 3.35e12          # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor cores
+SMEM_PER_BLOCK = 232448    # H100: dynamic shared memory a block may use
 TOL = 1e-5                 # max |kernel - plain| <= TOL * max(1, max |plain|)
 ROUNDS, CLIENTS = 3, 5
 STEPS = 7                  # 240 samples a client / batch 32, remainder dropped
@@ -404,9 +416,24 @@ FAMILIES = (("granite-moe-1b-a400m", None, 24),
             ("chatglm3-6b", None, 28), ("qwen2-vl-7b", None, 28),
             ("zamba2-1.2b", None, 6), ("xlstm-125m", None, 0),
             ("deepseek-67b", 16, 16))
-# flash_attention at MLA's split head dims (B, S, H, G, hd, hv), benched in
-# phase 4: phase 11's DeepSeek-V2-Lite and MiniCPM3 prefill shapes
-FLASH_MLA_SHAPES = ((4, 256, 16, 16, 192, 128), (4, 256, 40, 40, 96, 64))
+# flash_attention at MLA's split head dims (B, Sq, Sk, H, G, hd, hv), benched
+# in phase 4 in both dtypes, the kernel that ran named by the profiler in
+# phase 6:
+# phase 11's DeepSeek-V2-Lite and MiniCPM3 prefill shapes first, then a
+# partial query tile and key tile at both pairs and several tiles of each
+# at 192/128 (the tensor-core kernel in bf16), and the reduced configs'
+# 80/64 (the CUDA-core kernel in both dtypes)
+FLASH_MLA_SHAPES = ((4, 256, 256, 16, 16, 192, 128),
+                    (4, 256, 256, 40, 40, 96, 64),
+                    (1, 77, 130, 8, 8, 192, 128), (1, 77, 130, 8, 8, 96, 64),
+                    (1, 300, 300, 16, 16, 192, 128),
+                    (2, 100, 100, 4, 4, 80, 64))
+# (hd, hv) pairs that the tensor-core kernel takes in bf16 (ops.py)
+FLASH_TC_MLA_DIMS = ((192, 128), (96, 64))
+# the bf16 kernel instances that ptxas may report spilling: hd 64 causal's
+# 12 bytes stored and 36 loaded, since the kernel's first version; phase 2
+# fails on any other
+FLASH_KNOWN_SPILLS = {"hd64 causal"}
 # ... and at the other families' equal head dims (B, S, H, G, hd), bf16 and
 # causal as phase 11 serves them, on the tensor-core kernel: Qwen2-VL,
 # ChatGLM3, DeepSeek-67B, Granite, Zamba2's shared block
@@ -512,15 +539,17 @@ def phase_build():
 
 def flash_resources(log, lib):
     """ptxas -v's registers and spills of each bf16 flash kernel, and its
-    dynamic shared memory -> {"hd64 causal": {...}, ...}."""
+    dynamic shared memory -> {"hd64 causal": {...}, "hd192/128 full": ...}:
+    the three equal head dims and MLA's two pairs, causal and full."""
     res, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*flash_attention_bf16_kernel"
-                      r"ILi(\d+)ELb(\d)", line)
+                      r"ILi(\d+)ELi(\d+)ELb(\d)", line)
         if m:
-            hd = int(m.group(1))
-            cur = f"hd{hd} {'causal' if m.group(2) == '1' else 'full'}"
-            res[cur] = {"smem_bytes": lib.flash_attention_bf16_smem(hd)}
+            hd, hv = int(m.group(1)), int(m.group(2))
+            dims = f"{hd}" if hd == hv else f"{hd}/{hv}"
+            cur = f"hd{dims} {'causal' if m.group(3) == '1' else 'full'}"
+            res[cur] = {"smem_bytes": lib.flash_attention_bf16_smem(hd, hv)}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -531,9 +560,16 @@ def flash_resources(log, lib):
         if m and cur:
             res[cur]["registers"] = int(m.group(1))
             cur = None
-    if len(res) != 6 or any(len(r) != 4 for r in res.values()):
-        raise AssertionError(f"ptxas -v did not report the six bf16 flash "
+    if len(res) != 10 or any(len(r) != 4 for r in res.values()):
+        raise AssertionError(f"ptxas -v did not report the ten bf16 flash "
                              f"kernels: {res}")
+    if any(r["smem_bytes"] > SMEM_PER_BLOCK for r in res.values()):
+        raise AssertionError(f"a bf16 flash kernel needs more shared memory "
+                             f"than a block may use: {res}")
+    spilled = {t for t, r in res.items() if r["spill_stores"] or r["spill_loads"]}
+    if spilled - FLASH_KNOWN_SPILLS:
+        raise AssertionError(f"bf16 flash kernels that spill: {sorted(spilled)}"
+                             f" (known: {sorted(FLASH_KNOWN_SPILLS)})")
     return res
 
 
@@ -756,13 +792,13 @@ def flash_faulty(q, k, v, causal, fault, bk):
     rounds the running sum and accumulator to bf16 after every tile; "P
     rounded to bf16 once" rounds P to bf16 before P V, as FlashAttention-2/3
     do where the kernel splits P into two bf16 halves. The bf16 check must
-    reject both."""
+    reject both. v's width hv may differ from q's hd (MLA)."""
     B, Sq, H, hd = q.shape
-    G = k.shape[2]
+    G, hv = k.shape[2], v.shape[3]
     qf = q.reshape(B, Sq, G, H // G, hd).float() * hd ** -0.5
     m = torch.full((B, G, Sq, H // G, 1), -1e30, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros(B, G, Sq, H // G, hd, device=q.device)
+    acc = torch.zeros(B, G, Sq, H // G, hv, device=q.device)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     for k0 in range(0, k.shape[1], bk):
         kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
@@ -780,18 +816,22 @@ def flash_faulty(q, k, v, causal, fault, bk):
             l, acc = l.bfloat16().float(), acc.bfloat16().float()
         m = m_new
     o = acc / l.clamp_min(1e-30)
-    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hv).to(q.dtype)
 
 
-def flash_controls(B, S, H, G, hd, dev, gen):
-    """Three faulty results at the serving shape, bf16 causal, that the bf16
-    check must reject: the bf16-accumulating emulation, attention that drops
-    the last 16 keys, and P rounded to bf16 once. -> {name: (excess, old
-    excess)}, the old being against 2e-2 x max(1, max|plain|)."""
+def flash_controls(B, S, H, G, hd, dev, gen, hv=None):
+    """Three faulty results at a shape, bf16 causal, that the bf16 check
+    must reject: the bf16-accumulating emulation, attention that drops the
+    last 16 keys, and P rounded to bf16 once over the tensor-core kernel's
+    key tiles (128 at hd 32 and 64, else 64). Values hv wide (hd when
+    None). -> {name: (excess, old excess)}, the old being against 2e-2 x
+    max(1, max|plain|)."""
     from repro_torch.kernels import ref
-    q, k, v = (torch.randn(B, S, n, hd, generator=gen).bfloat16().to(dev)
-               for n in (H, G, G))
+    hv = hd if hv is None else hv
+    q, k, v = (torch.randn(B, S, n, d, generator=gen).bfloat16().to(dev)
+               for n, d in ((H, hd), (G, hd), (G, hv)))
     want = ref.flash_attention(q, k, v, causal=True)
+    dims = f"{hd}" if hv == hd else f"{hd}/{hv}"
     old_lim = 2e-2 * max(1.0, float(want.float().abs().max()))
     out = {}
     for name, bad in (
@@ -800,10 +840,11 @@ def flash_controls(B, S, H, G, hd, dev, gen):
             ("last 16 keys dropped",
              ref.flash_attention(q, k[:, :-16], v[:, :-16], causal=True)),
             ("P rounded to bf16 once",
-             flash_faulty(q, k, v, True, "P rounded to bf16 once", bk=128))):
+             flash_faulty(q, k, v, True, "P rounded to bf16 once",
+                          bk=128 if hd == hv and hd <= 64 else 64))):
         ex = flash_excess(bad, want)
         old = float((bad.float() - want.float()).abs().max()) / old_lim
-        print(f"[kernels] control ({B}, {S}, {H}, {G}, {hd}) bf16 causal, "
+        print(f"[kernels] control ({B}, {S}, {H}, {G}, {dims}) bf16 causal, "
               f"{name}: {ex:.2f} x the limit (the old 2e-2 x max|plain| limit:"
               f" {old:.2f} x)")
         if not ex > 1:
@@ -811,6 +852,50 @@ def flash_controls(B, S, H, G, hd, dev, gen):
                                  f"({name}): {ex:.3f} x the limit")
         out[name] = (ex, old)
     return out
+
+
+def flash_name(key):
+    """A profiler key's flash kernel with its template arguments, e.g.
+    "flash_attention_bf16_kernel<192, 128, true>", or None."""
+    m = re.search(r"flash_attention\w*(<[^>]*>)?", key)
+    return m.group(0) if m else None
+
+
+def flash_kernel_names(fn):
+    """[(name, count)] of the flash kernels fn() launched, by the profiler's
+    names (`flash_name`)."""
+    _, ev, _, _ = profile(fn)
+    return [(flash_name(e.key), e.count) for e in ev if flash_name(e.key)]
+
+
+def phase_flash_symbols(dev, rows):
+    """The device kernel of each of phase 4's MLA rows (`rows`, its flash
+    results), by the profiler's names: bf16 at FLASH_TC_MLA_DIMS the
+    tensor-core kernel, the rest the CUDA-core one, once a call. Run after
+    phase 6: a profiler session leaves the process's later launches slower
+    (phase 4's small flash and SDPA calls read up to twice their times once
+    one had run), which would skew phases 4 and 5. Each row gains its
+    "symbol"."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(0)
+    for r in rows:
+        if len(r["shape"]) != 9:              # (B, Sq, Sk, H, G, hd, hv, ...)
+            continue
+        B, Sq, Sk, H, G, hd, hv, dtype, mode = r["shape"]
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(*s, generator=gen).to(dt).to(dev)
+                   for s in ((B, Sq, H, hd), (B, Sk, G, hd), (B, Sk, G, hv)))
+        tc = dt == torch.bfloat16 and (hd, hv) in FLASH_TC_MLA_DIMS
+        want = "flash_attention_bf16_kernel" if tc else "flash_attention_kernel"
+        names = flash_kernel_names(
+            lambda: ops.flash_attention(q, k, v, causal=mode == "causal"))
+        if (len(names) != 1 or names[0][1] != 1
+                or not re.search(rf"\b{want}\b", names[0][0])):
+            raise AssertionError(f"flash_attention {r['shape']}: launched "
+                                 f"{names}, not one {want}")
+        r["symbol"] = names[0][0]
+        print(f"[flash symbols] ({B}, {Sq}x{Sk}, {H}, {G}, {hd}/{hv}) {dtype} "
+              f"{mode}: ran {names[0][0]}")
 
 
 def check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv=None, Sk=None):
@@ -917,12 +1002,14 @@ def phase_kernels(dev):
                 res["flash_attention"].append(dict(
                     r, shape=[B, S, H, G, hd, str(dtype).split(".")[-1],
                               "causal" if causal else "full"]))
-    for B, S, H, G, hd, hv in FLASH_MLA_SHAPES:     # MLA's split head dims
+    for B, Sq, Sk, H, G, hd, hv in FLASH_MLA_SHAPES:   # MLA's split dims
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
-                r = check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv)
+                r = check_flash(B, Sq, H, G, hd, dtype, causal, dev, gen, hv,
+                                Sk=Sk)
                 res["flash_attention"].append(dict(
-                    r, shape=[B, S, H, G, hd, hv, str(dtype).split(".")[-1],
+                    r, shape=[B, Sq, Sk, H, G, hd, hv,
+                              str(dtype).split(".")[-1],
                               "causal" if causal else "full"]))
     for B, S, H, G, hd in FLASH_FAMILY_SHAPES:     # phase 11's GQA prefills
         r = check_flash(B, S, H, G, hd, torch.bfloat16, True, dev, gen)
@@ -939,7 +1026,10 @@ def phase_kernels(dev):
     r = check_proto_batched(*WHISPER_PROTO_SHAPE, torch.float32, dev, gen)
     res["proto_accum_batched"].append(dict(r, shape=[*WHISPER_PROTO_SHAPE,
                                                      "float32"]))
-    res["flash_controls"] = flash_controls(*FLASH_SHAPES[0], dev, gen)
+    B, Sq, _, H, G, hd, hv = FLASH_MLA_SHAPES[0]
+    res["flash_controls"] = {
+        "serving": flash_controls(*FLASH_SHAPES[0], dev, gen),
+        "mla 192/128": flash_controls(B, Sq, H, G, hd, dev, gen, hv)}
     return res
 
 
@@ -2376,11 +2466,19 @@ def phase_family_serve(dev, arch, layers, want_flash):
     if n_f != want_flash:
         raise AssertionError(f"{arch}: {n_f} flash kernels in the profiled "
                              f"prefill, not {want_flash}")
+    # bf16 at every family's head dims, MLA's split ones too, takes the
+    # tensor-core kernel
+    flash_names = sorted({flash_name(e.key) for e in ev if flash_name(e.key)})
+    if not all(re.search(r"\bflash_attention_bf16_kernel\b", n)
+               for n in flash_names):
+        raise AssertionError(f"{arch}: the bf16 prefill launched "
+                             f"{flash_names}, not the tensor-core kernel only")
     out = {"arch": arch, "layers": cfg.num_layers, "params": n_par,
            "setup_s": setup_s, "prefill_ms": r["prefill_s"] * 1e3,
            "decode_ms_per_step": r["decode_s"] * 1e3 / FAMILY_TOKENS,
            "peak_gb": peak / 1e9, "flash_launches": launches["flash_attention"],
            "flash_us_per_launch": us_f / n_f if n_f else None,
+           "flash_kernels": flash_names,
            "flash_share_of_prefill_device_time": us_f / busy,
            "prefill_busy_share": busy / 1e6 / wall}
     print(f"[family] {arch}: {cfg.num_layers}L d={cfg.d_model} {cfg.dtype}, "
@@ -2389,7 +2487,7 @@ def phase_family_serve(dev, arch, layers, want_flash):
           f"decode {out['decode_ms_per_step']:.2f} ms/step; peak "
           f"{out['peak_gb']:.2f} GB; flash {launches['flash_attention']} "
           f"launches, {100 * out['flash_share_of_prefill_device_time']:.1f}% "
-          f"of the prefill's device time"
+          f"of the prefill's device time ({', '.join(flash_names) or 'none'})"
           + (f"; ids[0] {r['ids'][0].tolist()}" if tokens else ""))
     del params
     torch.cuda.empty_cache()
@@ -2830,6 +2928,7 @@ def main():
                              f"ops, not phase 6's {ops_vec}")
     dev_us, ops_seq, busy_seq, _ = phase_profile(gpu, "profile seq", False)
     dev_us.update(dev_us_vec)
+    phase_flash_symbols(dev, res["flash_attention"])
     print(f"[profile] device ops a round: vec {ops_vec} (= 5g's telemetry-off "
           f"count), seq {ops_seq} ({ops_vec / ops_seq:.3f}"
           f" of seq); device busy vec {100 * busy_vec:.1f}%, seq "
@@ -2907,7 +3006,9 @@ def main():
             k["launches_by_path"]["serve whisper-small"] = whisper[
                 "flash_launches"]
             k["share_of_prefill_device_time"] = prof["flash_share"]
-            k["controls_times_limit"] = {n: c[0] for n, c in controls.items()}
+            k["controls_times_limit"] = {
+                where: {n: c[0] for n, c in cs.items()}
+                for where, cs in controls.items()}
             k["bf16_kernel_resources"] = resources
             k["serve_check_f32"] = {"kernel_vs_plain": e_k,
                                     "decode_vs_prefill": e_d,

@@ -49,7 +49,7 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_f32": [_P] * 4 + [_I] * 8 + [_P],
         "flash_attention_bf16": [_P] * 4 + [_I] * 8 + [_P],
-        "flash_attention_bf16_smem": [_I],
+        "flash_attention_bf16_smem": [_I] * 2,
     },
 }
 

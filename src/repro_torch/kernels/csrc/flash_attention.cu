@@ -18,57 +18,67 @@
 // serving prefill shape (B 4, S 1024, H 32, G 4, hd 64) it is bound by
 // operations: 17.2 GFLOP, 0.0174 ms at the bf16 tensor cores' 989 TFLOP/s.
 //
-// Two kernels: the tensor-core kernel for bf16 at equal head dims, and the
-// CUDA-core kernel for float32 and for MLA's split dims in both types.
+// Two kernels: the tensor-core kernel for bf16 at equal head dims and at
+// MLA's published split dims, and the CUDA-core kernel for float32 at every
+// pair and for bf16 at the reduced configs' (80, 64). Which takes which:
 //
-// bf16: `flash_attention_bf16_kernel`, on the tensor cores (wgmma). One
-// block owns BQ = 128 query rows of one (batch, head): two consumer
-// warpgroups of 64 rows each, and a producer warpgroup that hands its
-// registers to them (setmaxnreg) and of which one thread issues the copies.
-// (With a lone producer warp, 288 threads, the consumers stalled in their
-// first tile on the H100.) The producer fills a 2-stage ring of K and V tiles
-// (BK keys, all hd dims) in shared memory by TMA, with a full and an empty
-// mbarrier per stage; the Q tile is loaded once. Tiles are stored with the
-// 128-byte swizzle (64-byte at hd 32) in chunks of 64 dims, the layout wgmma
-// reads. TMA's zero fill covers rows past Sq and keys past Sk. Per tile a
-// consumer warpgroup
-//   - computes S = Q K^T by wgmma m64nBKk16, both operands in shared memory:
-//     bf16 x bf16 products are exact in float32, so this is the plain
-//     version's arithmetic up to summation order. Q is not pre-scaled (a
-//     bf16 q * hd^-0.5 would round at hd 32 and 128); the float32 scores
-//     are scaled by hd^-0.5 * log2(e) and exponentiated with exp2;
+//   (hd, hv)                      bf16                  float32
+//   (32, 32) (64, 64) (128, 128)  tensor cores (wgmma)  CUDA cores
+//   (192, 128) (96, 64)           tensor cores (wgmma)  CUDA cores
+//   (80, 64)                      CUDA cores            CUDA cores
+//   anything else                 cudaErrorInvalidValue
+//
+// bf16: `flash_attention_bf16_kernel<HD, HV, CAUSAL>`, on the tensor cores
+// (wgmma). One block owns BQ = 128 query rows of one (batch, head): two
+// consumer warpgroups of 64 rows each, and a producer warpgroup that hands
+// its registers to them (setmaxnreg) and of which one thread issues the
+// copies. (With a lone producer warp, 288 threads, the consumers stalled in
+// their first tile on the H100.) The producer fills a 2-stage ring of K and
+// V tiles (BK keys, all dims) in shared memory by TMA, with a full and an
+// empty mbarrier per stage; the Q tile is loaded once. Q and K rows (hd
+// dims) and V rows (hv dims) each have a tensor map and a chunk width of
+// their own: chunks of 64 dims with the 128-byte swizzle, or of 32 with the
+// 64-byte swizzle where the width is no multiple of 64 (hd 32, and MLA's
+// 96 = 3 x 32), the layouts wgmma reads. TMA's zero fill covers rows past
+// Sq and keys past Sk. Per tile a consumer warpgroup
+//   - computes S = Q K^T by wgmma m64nBKk16 over hd / 16 slices, both
+//     operands in shared memory: bf16 x bf16 products are exact in float32,
+//     so this is the plain version's arithmetic up to summation order. Q is
+//     not pre-scaled (a bf16 q * hd^-0.5 would round at hd 32 and 128); the
+//     float32 scores are scaled by hd^-0.5 * log2(e) and exponentiated with
+//     exp2;
 //   - keeps the running max and sum of its two rows a thread in float32,
 //     masking (-1e30) only on tiles that cross the diagonal or Sk;
-//   - adds P V into a float32 accumulator in registers, with P split in two
-//     bf16 halves, P_hi = bf16(p) and P_lo = bf16(p - P_hi), and two wgmmas
-//     per 16 keys (A from registers: the m64nN accumulator layout is the
-//     m64k16 A-operand layout, so P never goes through shared memory; V is
-//     the B operand, MN-major). The plain version multiplies float32 P by
-//     V; rounding P to bf16 once, as FlashAttention-2/3 do, reads 17x the
-//     one-bf16-step limit the port holds the kernel to (chip_smoke.py, at
-//     the serving prefill shape), while the split keeps 16 bits of P's
-//     mantissa and reads under 1x. It costs one more
-//     product: 1.5x the attention's tensor-core work.
+//   - adds P V into a float32 accumulator in registers (m64nHVk16, hv / 2
+//     floats a thread), with P split in two bf16 halves, P_hi = bf16(p) and
+//     P_lo = bf16(p - P_hi), and two wgmmas per 16 keys (A from registers:
+//     the m64nN accumulator layout is the m64k16 A-operand layout, so P
+//     never goes through shared memory; V is the B operand, MN-major). The
+//     plain version multiplies float32 P by V; rounding P to bf16 once, as
+//     FlashAttention-2/3 do, reads 17x the one-bf16-step limit the port
+//     holds the kernel to (chip_smoke.py, at the serving prefill shape),
+//     while the split keeps 16 bits of P's mantissa and reads under 1x. It
+//     costs one more product: 1.5x the attention's tensor-core work.
 // Causal tiles wholly above the diagonal are skipped, and the grid starts
 // the last (heaviest) query tiles first. Tiles: BK = 128 keys at hd 32 and
-// 64, 64 at hd 128; 384 threads a block, one block an SM. ptxas -v (CUDA
-// 12.9, sm_90a) reports 168 registers a thread at entry for every
-// instantiation (setmaxnreg then leaves the producer 40 and gives the
-// consumers 232), no spills but for 12 bytes stored and 36 loaded at hd 64
-// causal; dynamic shared memory is 42,048 / 83,008 / 99,392 bytes at hd 32 /
-// 64 / 128 (`flash_attention_bf16_smem`).
+// 64, else 64 (hd 128, 192 / 128, 96 / 64), so that a consumer thread holds
+// at most 64 + 64 + 32 or 32 + 32 + 64 floats of S, P_hi / P_lo and O;
+// 384 threads a block, one block an SM. ptxas -v (CUDA 12.9, sm_90a)
+// reports 168 registers a thread at entry for all ten instantiations
+// (setmaxnreg then leaves the producer 40 and gives the consumers 232), no
+// spills but for 12 bytes stored and 36 loaded at hd 64 causal; dynamic
+// shared memory is 42,048 / 83,008 / 99,392 bytes at hd 32 / 64 / 128, and
+// 132,160 / 66,624 at 192 / 128 and 96 / 64 (`flash_attention_bf16_smem`).
 //
-// float32, and MLA's split head dims: `flash_attention_kernel`, on the CUDA
-// cores in float32, kept deliberately for float32: TF32 tensor cores would
-// miss the float32 checks, and this kernel already beats
-// scaled_dot_product_attention in float32. Its value dim HV is a template
-// parameter of its own: MLA's prefill attends with query/key dim
-// hd = qk_nope + qk_rope and value dim hv = v_head_dim (DeepSeek-V2-Lite
-// 192 / 128, MiniCPM3 96 / 64, the reduced CPU configs 80 / 64), and there
-// it serves bf16 too (load through `to_f32`, round once in `store`), since
-// the wgmma kernel takes equal dims only. One block owns 64 query rows of
-// one (batch, head) and walks the key tiles itself, the running state in
-// registers:
+// float32: `flash_attention_kernel`, on the CUDA cores in float32, kept
+// deliberately: TF32 tensor cores would miss the float32 checks, and this
+// kernel already beats scaled_dot_product_attention in float32. Its value
+// dim HV is a template parameter of its own: MLA's prefill attends with
+// query/key dim hd = qk_nope + qk_rope and value dim hv = v_head_dim
+// (DeepSeek-V2-Lite 192 / 128, MiniCPM3 96 / 64, the reduced CPU configs
+// 80 / 64, which it also serves in bf16: load through `to_f32`, round once
+// in `store`). One block owns 64 query rows of one (batch, head) and walks
+// the key tiles itself, the running state in registers:
 //   - a query row is split over TPR = hv / 32 neighbouring threads, each
 //     holding hd / TPR of its q dims (pre-scaled) and 32 of its acc dims in
 //     registers (48 and 32 at 192 / 128 and at 96 / 64); dims are
@@ -243,19 +253,18 @@ int launch_hd(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
   return (int)cudaGetLastError();
 }
 
-// float32 at every pair; bf16 at MLA's pairs only (equal dims in bf16 take
-// the tensor-core kernel below)
-template <typename T, bool CAUSAL>
-int launch_causal(const T* q, const T* k, const T* v, T* o, int B, int Sq,
-                  int Sk, int H, int G, int hd, int hv, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 4) {
-    if (hd == hv) {
-      switch (hd) {
-        case 32: return launch_hd<T, 32, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-        case 64: return launch_hd<T, 64, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-        case 128: return launch_hd<T, 128, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-        default: return (int)cudaErrorInvalidValue;
-      }
+// float32 at every pair (bf16 takes this kernel at (80, 64) only)
+template <bool CAUSAL>
+int launch_causal(const float* q, const float* k, const float* v, float* o,
+                  int B, int Sq, int Sk, int H, int G, int hd, int hv,
+                  cudaStream_t stream) {
+  using T = float;
+  if (hd == hv) {
+    switch (hd) {
+      case 32: return launch_hd<T, 32, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+      case 64: return launch_hd<T, 64, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+      case 128: return launch_hd<T, 128, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+      default: return (int)cudaErrorInvalidValue;
     }
   }
   if (hd == 192 && hv == 128)
@@ -278,17 +287,30 @@ constexpr int CONSUMERS = 256;         // threads of the two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 128; // and one producer warpgroup
 constexpr float NEG_INF = -1e30f;
 
-template <int HD>
+// Tiles of a (HD, HV) instance: Q and K rows HD dims wide, V rows HV wide,
+// each cut in chunks of 64 dims with the 128-byte swizzle, or of 32 with the
+// 64-byte swizzle where the width is no multiple of 64 (hd 32, and MLA's 96:
+// one chunk of 64 would drop a third of it).
+template <int HD, int HV>
 struct Tile {
-  static constexpr int CW = HD < 64 ? HD : 64;        // dims of one swizzled chunk
-  static constexpr int NCH = HD / CW;                 // chunks a row
-  static constexpr int RB = 2 * CW;                   // bytes of a chunk row
-  static constexpr int BK = HD == 128 ? 64 : 128;     // keys a tile
+  static constexpr int CW = HD % 64 == 0 ? 64 : 32;   // Q/K dims of one chunk
+  static constexpr int NCH = HD / CW;                 // Q/K chunks a row
+  static constexpr int RB = 2 * CW;                   // bytes of a Q/K chunk row
+  static constexpr int CWV = HV % 64 == 0 ? 64 : 32;  // the same for V
+  static constexpr int NCHV = HV / CWV;
+  static constexpr int RBV = 2 * CWV;
+  // keys a tile: 128 at hd 32 and 64, else 64, which keeps a thread's S and
+  // P_hi / P_lo at 32 registers each beside HV / 2 of O (at 96 / 64, 128
+  // keys spill in the causal instance, as at hd 64)
+  static constexpr int BK = HD == HV && HD <= 64 ? 128 : 64;
   static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;        // K or V, one stage
-  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int K_BYTES = BK * HD * 2;         // one stage's K, then V
+  static constexpr int STAGE_BYTES = K_BYTES + BK * HV * 2;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   // + the mbarriers, + slack to align the base to 1024 bytes (the swizzle atom)
   static constexpr int SMEM = BAR_OFF + 64 + 1024;
+  static_assert(HD % CW == 0 && HV % CWV == 0, "chunks must tile the rows");
+  static_assert(SMEM <= 232448, "one block an SM: 227 KB of shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -384,7 +406,7 @@ __device__ __forceinline__ void wgmma_wait() {
 // D (+)= A B, m64nNk16, bf16 in, float32 out. wgmma_ss: A and B from shared
 // memory, both K-major; scale_d 0 overwrites D (N = BK). wgmma_rs_tb: A from
 // registers (the m64k16 fragment: 4 registers of 2 bf16), B MN-major
-// ("transposed"); N = hd.
+// ("transposed"); N = hv.
 __device__ __forceinline__ void wgmma_rs_tb(Acc<32>& acc, const uint32_t (&a)[4],
                                             uint64_t b) {
   float* d = acc.d;
@@ -492,19 +514,20 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD, bool CAUSAL>
+template <int HD, int HV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             __nv_bfloat16* __restrict__ o, int Sq, int Sk,
                             int H, int G, float scale_log2) {
-  using T = Tile<HD>;
-  constexpr int BK = T::BK, RB = T::RB, CW = T::CW;
+  using T = Tile<HD, HV>;
+  constexpr int BK = T::BK, RB = T::RB, CW = T::CW, RBV = T::RBV, CWV = T::CWV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sq = base;                           // Q: NCH chunks of (BQ, CW)
-  uint8_t* skv = base + T::Q_BYTES;             // stage s: K then V, NCH chunks
+  // stage s: K in NCH chunks of (BK, CW), then V in NCHV chunks of (BK, CWV)
+  uint8_t* skv = base + T::Q_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(base + T::BAR_OFF);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
@@ -538,12 +561,14 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES;
         mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);   // round 0 passes
-        mbar_expect_tx(&full[s], 2 * T::KV_BYTES);
-        uint8_t* kt = skv + s * 2 * T::KV_BYTES;
-        for (int c = 0; c < T::NCH; ++c) {
-          tma_load(kt + c * BK * RB, &tm_k, &full[s], c * CW, g, t * BK, b);
-          tma_load(kt + T::KV_BYTES + c * BK * RB, &tm_v, &full[s], c * CW, g,
-                   t * BK, b);
+        mbar_expect_tx(&full[s], T::STAGE_BYTES);
+        uint8_t* kt = skv + s * T::STAGE_BYTES;
+        for (int c = 0; c < (T::NCH > T::NCHV ? T::NCH : T::NCHV); ++c) {
+          if (c < T::NCH)
+            tma_load(kt + c * BK * RB, &tm_k, &full[s], c * CW, g, t * BK, b);
+          if (c < T::NCHV)
+            tma_load(kt + T::K_BYTES + c * BK * RBV, &tm_v, &full[s], c * CWV,
+                     g, t * BK, b);
         }
       }
     }
@@ -556,17 +581,17 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int cq = 2 * (lane % 4);
     const uint8_t* qw = sq + 64 * wg * RB;
 
-    Acc<HD> acc;
+    Acc<HV> acc;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc.d[i] = 0.f;
+    for (int i = 0; i < HV / 2; ++i) acc.d[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
     mbar_wait(qbar, 0);
 
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % STAGES, k0 = t * BK;
       mbar_wait(&full[s], (t / STAGES) & 1);
-      const uint8_t* kt = skv + s * 2 * T::KV_BYTES;
-      const uint8_t* vt = kt + T::KV_BYTES;
+      const uint8_t* kt = skv + s * T::STAGE_BYTES;
+      const uint8_t* vt = kt + T::K_BYTES;
       if (!CAUSAL || k0 <= first + 63) {      // else wholly masked for this wg
         // S = Q K^T over hd / 16 slices of 16 dims
         Acc<BK> sc;
@@ -629,7 +654,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
         }
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < HV / 8; ++j) {
           acc.d[4 * j] *= alpha[0];
           acc.d[4 * j + 1] *= alpha[0];
           acc.d[4 * j + 2] *= alpha[1];
@@ -641,7 +666,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t vd = desc<RB>(vt + kk * 16 * RB, BK * RB);
+          const uint64_t vd = desc<RBV>(vt + kk * 16 * RBV, BK * RBV);
           wgmma_rs_tb(acc, p_hi[kk], vd);
           wgmma_rs_tb(acc, p_lo[kk], vd);
         }
@@ -665,9 +690,9 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = r0 + 8 * i;
       if (row >= Sq) continue;
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      __nv_bfloat16* orow = o + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD;
+      __nv_bfloat16* orow = o + ((static_cast<size_t>(b) * Sq + row) * H + h) * HV;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < HV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
             __floats2bfloat162_rn(acc.d[4 * j + 2 * i] * inv,
                                   acc.d[4 * j + 2 * i + 1] * inv);
@@ -700,15 +725,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a (B, S, heads, hd) bf16 tensor whose box is `rows`
+// A tensor map over a (B, S, heads, ROW) bf16 tensor whose box is `rows`
 // positions of one head: CW dims at a time, swizzled as wgmma reads them.
-template <int HD>
+template <int ROW, int CW>
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S,
             int heads, int rows) {
-  constexpr int CW = Tile<HD>::CW;
-  const cuuint64_t dims[4] = {HD, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {HD * 2ull, (cuuint64_t)heads * HD * 2,
-                                 (cuuint64_t)S * heads * HD * 2};
+  const cuuint64_t dims[4] = {ROW, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {ROW * 2ull, (cuuint64_t)heads * ROW * 2,
+                                 (cuuint64_t)S * heads * ROW * 2};
   const cuuint32_t box[4] = {CW, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
@@ -718,18 +742,18 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, bool CAUSAL>
+template <int HD, int HV, bool CAUSAL>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
               int Sq, int Sk, int H, int G, cudaStream_t stream) {
-  using T = Tile<HD>;
+  using T = Tile<HD, HV>;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!encode<HD>(enc, &mq, q, B, Sq, H, BQ) ||
-      !encode<HD>(enc, &mk, k, B, Sk, G, T::BK) ||
-      !encode<HD>(enc, &mv, v, B, Sk, G, T::BK))
+  if (!encode<HD, T::CW>(enc, &mq, q, B, Sq, H, BQ) ||
+      !encode<HD, T::CW>(enc, &mk, k, B, Sk, G, T::BK) ||
+      !encode<HV, T::CWV>(enc, &mv, v, B, Sk, G, T::BK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_attention_bf16_kernel<HD, CAUSAL>;
+  auto kernel = flash_attention_bf16_kernel<HD, HV, CAUSAL>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -740,15 +764,24 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// equal dims, and MLA's published pairs
 template <bool CAUSAL>
 int launch_causal(const void* q, const void* k, const void* v, void* o, int B,
-                  int Sq, int Sk, int H, int G, int hd, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch_hd<32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-    case 64: return launch_hd<64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-    case 128: return launch_hd<128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-    default: return (int)cudaErrorInvalidValue;
+                  int Sq, int Sk, int H, int G, int hd, int hv,
+                  cudaStream_t stream) {
+  if (hd == hv) {
+    switch (hd) {
+      case 32: return launch_hd<32, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+      case 64: return launch_hd<64, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+      case 128: return launch_hd<128, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (hd == 192 && hv == 128)
+    return launch_hd<192, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+  if (hd == 96 && hv == 64)
+    return launch_hd<96, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tc
@@ -763,33 +796,40 @@ extern "C" int flash_attention_f32(const float* q, const float* k, const float* 
                                    float* o, int B, int Sq, int Sk, int H, int G,
                                    int hd, int hv, int causal, cudaStream_t stream) {
   if (bad_shape(B, Sq, Sk, H, G)) return (int)cudaErrorInvalidValue;
-  return causal ? f32::launch_causal<float, true>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream)
-                : f32::launch_causal<float, false>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream);
+  return causal ? f32::launch_causal<true>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream)
+                : f32::launch_causal<false>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream);
 }
 
-// bf16: equal dims on the tensor cores, MLA's pairs on the CUDA cores
+// bf16: equal dims and MLA's published pairs on the tensor cores; the
+// reduced configs' (80, 64) on the CUDA cores
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* o, int B, int Sq, int Sk, int H, int G,
                                     int hd, int hv, int causal, cudaStream_t stream) {
   if (bad_shape(B, Sq, Sk, H, G)) return (int)cudaErrorInvalidValue;
-  if (hd != hv) {
+  if (hd == 80 && hv == 64) {
     using T = __nv_bfloat16;
     const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
             *tv = static_cast<const T*>(v);
     T* to = static_cast<T*>(o);
-    return causal ? f32::launch_causal<T, true>(tq, tk, tv, to, B, Sq, Sk, H, G, hd, hv, stream)
-                  : f32::launch_causal<T, false>(tq, tk, tv, to, B, Sq, Sk, H, G, hd, hv, stream);
+    return causal ? f32::launch_hd<T, 80, 64, true>(tq, tk, tv, to, B, Sq, Sk, H, G, stream)
+                  : f32::launch_hd<T, 80, 64, false>(tq, tk, tv, to, B, Sq, Sk, H, G, stream);
   }
-  return causal ? tc::launch_causal<true>(q, k, v, o, B, Sq, Sk, H, G, hd, stream)
-                : tc::launch_causal<false>(q, k, v, o, B, Sq, Sk, H, G, hd, stream);
+  return causal ? tc::launch_causal<true>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream)
+                : tc::launch_causal<false>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream);
 }
 
-// Dynamic shared memory of the bf16 kernel at head_dim hd, in bytes.
-extern "C" int flash_attention_bf16_smem(int hd) {
-  switch (hd) {
-    case 32: return tc::Tile<32>::SMEM;
-    case 64: return tc::Tile<64>::SMEM;
-    case 128: return tc::Tile<128>::SMEM;
-    default: return -1;
+// Dynamic shared memory of the bf16 kernel at (hd, hv), in bytes; -1 for a
+// pair it does not take.
+extern "C" int flash_attention_bf16_smem(int hd, int hv) {
+  if (hd == hv) {
+    switch (hd) {
+      case 32: return tc::Tile<32, 32>::SMEM;
+      case 64: return tc::Tile<64, 64>::SMEM;
+      case 128: return tc::Tile<128, 128>::SMEM;
+      default: return -1;
+    }
   }
+  if (hd == 192 && hv == 128) return tc::Tile<192, 128>::SMEM;
+  if (hd == 96 && hv == 64) return tc::Tile<96, 64>::SMEM;
+  return -1;
 }

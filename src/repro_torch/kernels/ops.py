@@ -30,12 +30,13 @@ KERNEL_SYMBOLS: Dict[str, tuple] = {
     "disc_loss_bwd": ("disc_bwd",),
     "proto_accum": ("proto_accum_kernel",),
     "flash_attention": ("flash_attention_bf16_kernel",      # tensor cores
-                        "flash_attention_kernel"),          # float32
+                        "flash_attention_kernel"),          # CUDA cores
 }
 FLASH_HEAD_DIMS = (32, 64, 128)
 # (query/key dim, value dim) pairs of MLA's prefill (qk_nope + qk_rope,
-# v_head_dim): DeepSeek-V2-Lite, MiniCPM3 and the reduced configs. The
-# CUDA-core kernel takes them in float32 and bf16.
+# v_head_dim): DeepSeek-V2-Lite, MiniCPM3 and the reduced configs. bf16 at
+# the first two takes the tensor-core kernel, at (80, 64) the CUDA-core one;
+# float32 takes the CUDA-core kernel at every pair.
 FLASH_MLA_DIMS = ((192, 128), (96, 64), (80, 64))
 FLASH_DIMS = tuple((d, d) for d in FLASH_HEAD_DIMS) + FLASH_MLA_DIMS
 
@@ -297,8 +298,10 @@ def proto_accum(features, labels, num_classes: int):
 def flash_attention(q, k, v, causal: bool = True):
     """q (B, Sq, H, hd); k (B, Sk, G, hd); v (B, Sk, G, hv), H % G == 0,
     float32 or bf16, (hd, hv) in FLASH_DIMS -> (B, Sq, H, hv) in q's dtype;
-    see `ref.flash_attention`. Equal dims in bf16 run on the tensor cores,
-    everything else on the CUDA cores."""
+    see `ref.flash_attention`. bf16 at equal dims and at MLA's (192, 128)
+    and (96, 64) runs on the tensor cores (`flash_attention_bf16_kernel`);
+    float32 at every pair, and bf16 at the reduced configs' (80, 64), on the
+    CUDA cores (`flash_attention_kernel`)."""
     if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
             or v.shape[:3] != k.shape[:3]
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]):

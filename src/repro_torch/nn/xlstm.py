@@ -90,8 +90,13 @@ def mlstm_chunked(q, k, v, logf, logi, Q: int, state=None):
     Gm = torch.einsum("bcihp,bcjhp->bcijh", qc, kc)           # (B,nc,Q,Q,H)
     Ld = cums[:, :, :, None, :] - cums[:, :, None, :, :] + ic[:, :, None, :, :]
     causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=q.device))
-    W = torch.where(causal[None, None, :, :, None], Gm * torch.exp(Ld),
-                    torch.zeros((), device=q.device))
+    # masked before the exp (the reference masks after it): the upper
+    # triangle's Ld grows with the forget gate's decay between i and j and
+    # overflows under a strongly forgetting gate (logf about -5 over a chunk
+    # of 64), where a mask after the exp passes a gradient of 0 x inf = NaN;
+    # the forward values are the same
+    W = Gm * torch.exp(Ld.masked_fill(~causal[None, None, :, :, None],
+                                      float("-inf")))
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", W, vc)
 
     decay_to_end = torch.exp(total[:, :, None, :] - cums + ic)  # (B,nc,Q,H)

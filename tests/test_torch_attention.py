@@ -10,7 +10,8 @@
   emulated here tile by tile: within one bf16 step of the plain version and
   of the jnp oracle, element by element (|got - want| <= 1e-4 + 2^-7 |want|,
   the card's check), and the same walk with P rounded to bf16 once outside
-  that limit.
+  that limit; at MLA's split dims (192/128, 96/64) against the plain
+  version only, as the jnp oracle takes equal dims.
 - `full_attention`, `chunked_attention`, `gqa_block` and `gqa_decode`
   (masked with a cache_index, and unmasked) against `repro.nn.attention` on
   the same numpy inputs and weights, f32, within 1e-5: the same float32
@@ -96,22 +97,27 @@ LOG2E = 1.4426950408889634
 BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7
 WALK_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 100, 100, 8, 2, 128),
                (2, 77, 130, 4, 1, 32)]
+# MLA's split head dims (B, Sq, Sk, H, G, hd, hv) that the kernel takes in
+# bf16: DeepSeek-V2-Lite's 192/128 and MiniCPM3's 96/64 (key tiles of 64),
+# with several tiles and a partial last one
+MLA_WALK_SHAPES = [(1, 150, 150, 4, 4, 192, 128), (1, 77, 200, 4, 4, 96, 64)]
 
 
 def _tile_walk(q, k, v, causal, split):
-    """The bf16 kernel's arithmetic in plain torch: key tiles of BK (64 at
-    hd 128, else 128), scores q.k in float32 scaled by float32(hd^-0.5 log2 e)
+    """The bf16 kernel's arithmetic in plain torch: key tiles of BK (128 at
+    hd 32 and 64, else 64: hd 128, 192/128, 96/64), values hv = v's width
+    wide, scores q.k in float32 scaled by float32(hd^-0.5 log2 e)
     and exponentiated with exp2, float32 running max, sum and accumulator,
     P V from P_hi = bf16(p) and P_lo = bf16(p - P_hi) (`split`), or from
     P_hi alone (P rounded to bf16 once, as FlashAttention-2/3)."""
     B, Sq, H, hd = q.shape
-    Sk, G = k.shape[1], k.shape[2]
-    bk = 64 if hd == 128 else 128
+    Sk, G, hv = k.shape[1], k.shape[2], v.shape[3]
+    bk = 128 if hd == hv and hd <= 64 else 64
     c = torch.tensor(LOG2E / np.sqrt(hd), dtype=torch.float32)
     qf = q.float().reshape(B, Sq, G, H // G, hd)
     m = torch.full((B, G, Sq, H // G, 1), -1e30)
     l = torch.zeros_like(m)
-    o = torch.zeros(B, G, Sq, H // G, hd)
+    o = torch.zeros(B, G, Sq, H // G, hv)
     q_pos = torch.arange(Sq)[:, None]
     for k0 in range(0, Sk, bk):
         kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
@@ -129,7 +135,7 @@ def _tile_walk(q, k, v, causal, split):
             pv = pv + torch.einsum("bgqhk,bkgd->bgqhd", p_lo, vt)
         o, m = o * alpha + pv, m_new
     o = o / l.clamp_min(1e-30)
-    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).bfloat16()
+    return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hv).bfloat16()
 
 
 def _bf16_excess(got, want):
@@ -169,6 +175,34 @@ def test_p_rounded_to_bf16_once_breaks_the_limit(B, Sq, Sk, H, G, hd,
     got = _tile_walk(*qkv, causal, split=False)
     assert _bf16_excess(got, plain) > 1
     assert _bf16_excess(got, oracle) > 1
+
+
+def _mla_walk_case(B, Sq, Sk, H, G, hd, hv, causal):
+    """bf16 inputs from numpy (seed 9), v hv wide, and the plain version's
+    output (the jnp oracle takes equal dims only)."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .bfloat16()
+               for s in ((B, Sq, H, hd), (B, Sk, G, hd), (B, Sk, G, hv)))
+    return (q, k, v), ref.flash_attention(q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,hd,hv", MLA_WALK_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_walk_at_mla_dims_is_within_one_bf16_step(
+        B, Sq, Sk, H, G, hd, hv, causal):
+    qkv, plain = _mla_walk_case(B, Sq, Sk, H, G, hd, hv, causal)
+    got = _tile_walk(*qkv, causal, split=True)
+    assert got.shape == plain.shape == (B, Sq, H, hv)
+    assert _bf16_excess(got, plain) <= 1
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,hd,hv", MLA_WALK_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_p_rounded_to_bf16_once_breaks_the_limit_at_mla_dims(
+        B, Sq, Sk, H, G, hd, hv, causal):
+    qkv, plain = _mla_walk_case(B, Sq, Sk, H, G, hd, hv, causal)
+    assert _bf16_excess(_tile_walk(*qkv, causal, split=False), plain) > 1
 
 
 @pytest.mark.parametrize("causal,window,q_offset", [(True, 0, 0),

@@ -732,11 +732,15 @@ def test_train_mode_attention_is_plain_and_keeps_its_gradient(cuda):
 
 # -- flash_attention at MLA's split head dims (query/key hd, value hv):
 # DeepSeek-V2-Lite's (192, 128) at the card's serving shape, MiniCPM3's
-# (96, 64), a ragged one, and the reduced configs' (80, 64). The CUDA-core
-# kernel in both types: the same bounds as the equal-dim rows above.
+# (96, 64), ragged ones (a partial query tile and a partial key tile) and a
+# multi-tile one at both pairs, and the reduced configs' (80, 64). bf16 at
+# the two published pairs runs on the tensor cores, the rest on the CUDA
+# cores: the same bounds as the equal-dim rows above.
 MLA_FLASH_SHAPES = [(4, 256, 256, 16, 16, 192, 128),
                     (4, 256, 256, 40, 40, 96, 64),
-                    (1, 77, 130, 8, 8, 192, 128), (2, 100, 100, 4, 4, 80, 64)]
+                    (1, 77, 130, 8, 8, 192, 128), (2, 100, 100, 4, 4, 80, 64),
+                    (1, 77, 130, 8, 8, 96, 64),
+                    (1, 300, 300, 16, 16, 192, 128)]
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,G,hd,hv", MLA_FLASH_SHAPES)
@@ -761,17 +765,51 @@ def test_flash_attention_at_mla_dims_matches_plain(cuda, B, Sq, Sk, H, G, hd,
     assert bool((diff <= limit).all()), float(diff.max())
 
 
-def test_flash_attention_at_mla_dims_launches_the_cuda_core_kernel(cuda):
-    """bf16 at (192, 128) takes the CUDA-core kernel (the tensor-core one
-    takes equal dims only), once a call, by the profiler's names."""
+@pytest.mark.parametrize("hd,hv,dtype,symbol", [
+    (192, 128, torch.bfloat16, "flash_attention_bf16_kernel"),
+    (96, 64, torch.bfloat16, "flash_attention_bf16_kernel"),
+    (80, 64, torch.bfloat16, "flash_attention_kernel"),
+    (192, 128, torch.float32, "flash_attention_kernel"),
+    (96, 64, torch.float32, "flash_attention_kernel"),
+    (80, 64, torch.float32, "flash_attention_kernel")])
+def test_flash_attention_at_mla_dims_launches_the_cuda_core_kernel(
+        cuda, hd, hv, dtype, symbol):
+    """Which kernel each MLA pair takes, once a call, by the profiler's
+    names: bf16 at the published (192, 128) and (96, 64) the tensor-core
+    kernel, bf16 at the reduced configs' (80, 64) and float32 at every pair
+    the CUDA-core kernel."""
     g = torch.Generator().manual_seed(1)
-    q = torch.randn(4, 256, 16, 192, generator=g).bfloat16().to(cuda)
-    v = torch.randn(4, 256, 16, 128, generator=g).bfloat16().to(cuda)
+    q = torch.randn(4, 256, 16, hd, generator=g).to(dtype).to(cuda)
+    v = torch.randn(4, 256, 16, hv, generator=g).to(dtype).to(cuda)
     names = [(n, c) for n, c in _device_kernels(
         lambda: ops.flash_attention(q, q, v, causal=True))
         if "flash_attention" in n]
     assert len(names) == 1 and names[0][1] == 1, names
-    assert re.search(r"\bflash_attention_kernel\b", names[0][0]), names
+    assert re.search(rf"\b{symbol}\b", names[0][0]), names
+
+
+def test_flash_attention_library_refuses_a_pair_it_has_no_kernel_for(cuda):
+    """Below the wrapper's own check: the library returns an error for a
+    bf16 or float32 pair it has no instantiation of, launches nothing, and
+    its shared-memory query answers -1; the wrapper turns a nonzero return
+    into an error, so no pair falls back to another kernel."""
+    from repro_torch.kernels import build
+    L = build.lib("flash_attention")
+    q = torch.zeros(1, 8, 2, 160, dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16, device=cuda)
+    o = torch.empty(1, 8, 2, 128, dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for fn, t in (("flash_attention_bf16", torch.bfloat16),
+                  ("flash_attention_f32", torch.float32)):
+        qt, vt, ot = q.to(t), v.to(t), o.to(t)
+        for hd, hv in ((160, 128), (96, 96), (64, 32)):
+            rc = getattr(L, fn)(qt.data_ptr(), qt.data_ptr(), vt.data_ptr(),
+                                ot.data_ptr(), 1, 8, 8, 2, 2, hd, hv, 1, stream)
+            assert rc != 0, (fn, hd, hv)
+    assert L.flash_attention_bf16_smem(80, 64) == -1
+    assert L.flash_attention_bf16_smem(192, 128) > L.flash_attention_bf16_smem(
+        128, 128)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("arch,launches", [

@@ -93,6 +93,36 @@ def test_mlstm_chunked_matches_reference(S, Q):
     assert tuple(tC.shape) == (B, H, P + 1, P)
 
 
+@pytest.mark.parametrize("logf,logi", [(-0.1, 0.5), (-5.0, 10.0)])
+def test_mlstm_gradient_stays_finite_where_the_reference_overflows(logf, logi):
+    """The chunked mLSTM at a chunk of 64, with every gate at one value:
+    forward equal to the reference's at the module's tolerance. At logf
+    -0.1 its gradient equals jax.grad's (the gradient tolerance above); at
+    logf -5, logi 10 the upper triangle's exp overflows, the reference's
+    gradient (mask after the exp) is not finite, and the port's (mask
+    before it) is."""
+    rng = np.random.default_rng(64)
+    B, S, H, P, Q = 1, 64, 2, 8, 64
+    q, k, v = (rng.standard_normal((B, S, H, P)).astype(np.float32)
+               for _ in range(3))
+    lf = np.full((B, S, H), logf, np.float32)
+    li = np.full((B, S, H), logi, np.float32)
+    ins = [_t(a, True) for a in (q, k, v, lf, li)]
+    y, C = xlstm.mlstm_chunked(*ins, Q)
+    jy, jC = jx.mlstm_chunked(q, k, v, lf, li, Q)
+    _close(y, jy)
+    _close(C, jC)
+    (y.sum() + C.sum()).backward()
+    jloss = lambda *a: sum(o.sum() for o in jx.mlstm_chunked(*a, Q))
+    jg = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(q, k, v, lf, li)
+    for name, a, g in zip("q k v logf logi".split(), ins, jg):
+        assert bool(torch.isfinite(a.grad).all()), name
+        if logf > -1:
+            _close_grad(a.grad, g, name)
+    if logf <= -1:
+        assert not all(np.isfinite(np.asarray(g)).all() for g in jg)
+
+
 def _block_params(kind, jcfg, seed):
     init = jx.init_mlstm if kind == "mlstm" else jx.init_slstm
     jp = init(jax.random.PRNGKey(seed), jcfg, jnp.float32)
