@@ -116,6 +116,26 @@ Phases (each failure raises, so the process exits non-zero):
      of each engine
      at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
      s/round at N = 5 and N = 32;
+  5h. the fleet on a client mesh (after phase 6, so that its profiles do
+     not slow the earlier timings): 5h-a one rank over NCCL on the card,
+     each MESH_PATHS fleet (the reference's mesh compositions at N = 8 on
+     the MLP) for 3 rounds with the mesh and without, every device step
+     under sync-debug "error": records, relay state, history, pending
+     buffer and weights bit-equal, launches exact, one exchange a round;
+     then the N = 32 LeNet fleet with and without the mesh in turns
+     (bit-equal, s/round, one profiled round each), the sequential
+     engine on it (the vec-against-seq spread), the unsharded LeNet fleet
+     with cuDNN off, and the grouped-convolution check (clients 0-7's
+     LeNet features and gradients within the 32-client stack against an
+     8-client stack, cuDNN on and off); 5h-b four gloo ranks sharing the
+     card (`ranks.spawn`): N = 6 refused, each MESH_PATHS fleet and the
+     LeNet fleet with cuDNN on and off, every rank's records equal to the
+     others' and held against 5h-a's unsharded runs (integers exactly,
+     the floats of the MLP fleets and of LeNet with cuDNN off at
+     tests/test_torch_vec_collab.py's MLP bounds, those of LeNet on cuDNN
+     within MESH_SPREAD times its vec-against-seq spread), each rank's
+     launches for its own stacks, one exchange a round, s/round printed
+     as a correctness run;
   7. serve: full-width TinyLlama-1.1B (22 layers, bf16, random weights from
      seed 0) prefills 4 prompts of 1024 tokens and decodes 32 greedy tokens
      through `repro_torch.serve_lm.serve`; 22 flash_attention launches
@@ -208,6 +228,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -356,6 +377,45 @@ STREAM_SCALE, STREAM_SCALE_ROUNDS, SCALE_SHARDS = (
     "stream:8,8.0,0.3,1000000,0", 12, 4)
 RING_INTS = ("ptr", "owner", "valid", "stamp", "clock", "valid_g")
 SCALE_CLIENTS, SCALE_ROUNDS = 32, 2   # class_images(7680): 240 samples a client
+# Phase 5h: the fleet on a client mesh (relay/placement.py, FleetConfig.mesh).
+# The reference's mesh compositions (tests/test_multidevice.py) at N = 8 on
+# the MLP, 24 samples a client and batch 16, so one local step a round:
+# (name, fleet, mixed 5 + 3 fleet, telemetry). A rank launches disc_loss
+# once a local step each way and proto_accum once a round for each stack it
+# runs: its block of a client-sharded stack, or a whole bucket that the
+# ranks do not divide (5 + 3 on 4 ranks: both buckets, on every rank).
+MESH_CLIENTS, MESH_RANKS, MESH_SAMPLES = 8, 4, 24
+MESH_PATHS = (
+    ("synchronous", {}, False, False),
+    ("staleness lognormal:2", dict(policy="staleness", clock="lognormal:2"),
+     False, False),
+    ("per_class lag lognormal:2",
+     dict(policy="per_class", download_clock="lognormal:2"), False, False),
+    ("uniform_k:3", dict(participation="uniform_k:3"), False, False),
+    ("mixed 5+3", {}, True, False),
+    ("telemetry staleness lognormal:2",
+     dict(policy="staleness", clock="lognormal:2"), False, True),
+    ("lognormal:2 lag lognormal:2",
+     dict(clock="lognormal:2", download_clock="lognormal:2"), False, False))
+MESH_LENET = "LeNet N=32 cors flat"
+MESH_PINNED = "LeNet N=32 cors flat, cuDNN off"
+# 4 ranks against the unsharded engine: integers exactly, accuracies and
+# telemetry floats within 2e-2, and the floats (metrics rtol, grad_norm
+# rtol, metrics atol, observations and global prototypes, weights) at
+# tests/test_torch_vec_collab.py's MLP vec-against-seq bounds MESH_TOL for
+# the MLP fleets and for the LeNet fleet with cuDNN off on both sides
+# (PyTorch's own convolution, which runs a grouped convolution group by
+# group, so a rank's 8-client stack rounds as the 32-client one does).
+# The LeNet fleet on cuDNN, the path users run, keeps each float spread
+# within MESH_SPREAD times the unsharded engine's spread from the
+# sequential one on the same fleet (5h-a): in float32 (TF32 off, also in
+# each rank) cuDNN's grouped convolutions of an 8-client stack may round
+# otherwise than those of the 32-client one (5h-a's grouped-convolution
+# check reads it), and max-pool near-ties and Adam carry that on, as they
+# carry the grouped convolutions' rounding between the vec and seq
+# engines (tests/test_torch_vec_collab.py's docstring).
+MESH_TOL = (1e-3, 1e-3, 1e-4, 1e-4, 1e-4)
+MESH_SPREAD = 4
 # flash_attention (B, S, H, G, hd), S = Sq = Sk: the serving prefill's shape
 # first, then tests/test_kernels.py's, a ragged one, and the serving shape at
 # head_dim 32 and 128. Kernel and plain do the same float32 math, summed in
@@ -861,11 +921,22 @@ def flash_name(key):
     return m.group(0) if m else None
 
 
-def flash_kernel_names(fn):
+def flash_kernel_names(fn, windows=3):
     """[(name, count)] of the flash kernels fn() launched, by the profiler's
-    names (`flash_name`)."""
-    _, ev, _, _ = profile(fn)
-    return [(flash_name(e.key), e.count) for e in ev if flash_name(e.key)]
+    names (`flash_name`). A window that shows no flash kernel while its
+    device records fall short of the launches the host counted (the
+    profiler dropped some, MARKERS notwithstanding) proves nothing either
+    way, so it is taken again, up to `windows` in all."""
+    for i in range(windows):
+        _, ev, launched, dropped = profile(fn)
+        names = [(flash_name(e.key), e.count) for e in ev if flash_name(e.key)]
+        kept = sum(e.count for e in ev)
+        if names or kept >= launched:
+            return names
+        print(f"[flash symbols] window {i + 1}: the profiler kept {kept} of "
+              f"{launched} device records and dropped {dropped} of {MARKERS} "
+              f"markers; taken again")
+    return names
 
 
 def phase_flash_symbols(dev, rows):
@@ -1206,10 +1277,10 @@ def no_sync(vec):
     saved = [(o, a, getattr(o, a)) for o, a in owners]
 
     def wrap(step):
-        def no_sync_step(*args):
+        def no_sync_step(*args, **kwargs):
             torch.cuda.set_sync_debug_mode("error")
             try:
-                return step(*args)
+                return step(*args, **kwargs)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         return no_sync_step
@@ -1977,6 +2048,415 @@ def phase_scale(dev, secs_seq5, secs_vec5):
           f"N={SCALE_CLIENTS} {r32:.3f}x ({secs['seq'][-1]:.4f} / "
           f"{secs['vec'][-1]:.4f} s)")
     return {"n5": r5, "n32": r32, "secs32": secs}
+
+
+def mesh_fleet(fleet, hetero, telemetry, dev, mesh=None, n=MESH_CLIENTS):
+    """Phase 5h's MLP fleet in the vec engine, the reference mesh script's:
+    MESH_SAMPLES samples a client, batch 16, random weights from seed 0;
+    `hetero`: hidden width 96 on the ids divisible by 3, 64 elsewhere (5 +
+    3 at N = 8)."""
+    from repro_torch.collab_image_classification import MLP_SPEC
+    from repro_torch.core import vec_collab
+    from repro_torch.data import partition, synthetic
+    from repro_torch.models import mlp
+    from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
+    x, y = synthetic.class_images(MESH_SAMPLES * n, seed=0, noise=0.4)
+    test = synthetic.class_images(96, seed=9, noise=0.4)
+    parts = partition.uniform_split(x, y, n, seed=1)
+    g = torch.Generator().manual_seed(0)
+    params = [mlp.init_mlp(g, hidden=96 if hetero and i % 3 == 0 else 64,
+                           device="cpu") for i in range(n)]
+    return vec_collab.VectorizedCollabTrainer(
+        [MLP_SPEC] * n, params, parts, test,
+        CollabConfig(num_classes=10, d_feature=84, lambda_kd=2.0,
+                     lambda_disc=1.0), TrainConfig(batch_size=16), seed=0,
+        fleet=FleetConfig(mesh=mesh, **fleet), device=dev,
+        telemetry=telemetry or None)
+
+
+def mesh_run(t, rounds=ROUNDS, guard=False):
+    """`rounds` rounds of trainer `t`, its round steps under sync-debug
+    "error" with `guard`, the launch and exchange counts set to 0 just
+    before and read just after -> dict(records, launches (fwd, bwd,
+    proto), exchanges, s a round, relay fields on the host)."""
+    from repro_torch.kernels import ops
+    from repro_torch.relay import placement
+    restore = no_sync(t) if guard else (lambda: None)
+    ops.reset_launches()
+    placement.reset_exchanges()
+    secs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        rec = t.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        for m in rec["metrics"]:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"non-finite metrics {m}")
+    restore()
+    n = ops.LAUNCHES
+    stacks = [b.params for b in t.buckets] if t.hetero else [t.params]
+    return {"records": list(t.history[-rounds:]),
+            "params": [{k: v.cpu() for k, v in p.items()} for p in stacks],
+            "launches": (n["disc_loss_fwd"], n["disc_loss_bwd"],
+                         n["proto_accum"]),
+            "exchanges": placement.EXCHANGES["exchange"], "secs": secs,
+            "relay": {f: getattr(t.relay_state, f).cpu().numpy()
+                      for f in RING_INTS + ("obs", "global_protos")}}
+
+
+def mesh_want(hetero):
+    """A rank's launches over ROUNDS rounds on phase 5h's MLP fleets (one
+    local step a round): each way and proto_accum, once a stack."""
+    return ((2 if hetero else 1) * ROUNDS,) * 3
+
+
+def bit_equal(a, b, what):
+    """Two trainers run alike, one on a one-rank mesh: records, relay
+    state, history ring, pending buffer and every client's parameters
+    equal bit for bit."""
+    from repro_torch.tree import leaves
+    if a.history != b.history:
+        raise AssertionError(f"{what}: round records differ")
+    for tree in ("relay_state", "hist", "pending"):
+        for x, y in zip(leaves(getattr(a, tree, None)),
+                        leaves(getattr(b, tree, None))):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: {tree} differs")
+    for i in range(a.n_clients):
+        pa, pb = a.client_params(i), b.client_params(i)
+        if not all(torch.equal(pa[k], pb[k]) for k in pa):
+            raise AssertionError(f"{what}: client {i}'s parameters differ")
+
+
+def float_spread(recs_a, recs_b, relay_a, relay_b):
+    """The largest relative difference of any client's metric in any round
+    and the largest absolute one of the observations and global
+    prototypes, between two runs of one fleet."""
+    rel = max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-12)
+              for ra, rb in zip(recs_a, recs_b)
+              for ma, mb in zip(ra["metrics"], rb["metrics"]) for k in mb)
+    return {"metrics_rel": rel, "obs": max(
+        float(abs(relay_a[f] - relay_b[f]).max())
+        for f in ("obs", "global_protos"))}
+
+
+def mesh_held(got, want, what, tol):
+    """A 4-rank run's results against the unsharded engine's (`want`, the
+    same fleet and rounds): participants, commits, ledger floats, telemetry
+    integers and ring integers exactly; accuracies and telemetry floats
+    within 2e-2; metrics, observations and global prototypes within `tol`
+    (MESH_TOL, or None: read by the caller). -> float_spread of the two."""
+    from repro_torch.obs import metrics as obs_metrics
+    for rg, rw in zip(got["records"], want["records"]):
+        for k in ("round", "participants", "commits", "comm_up", "comm_down"):
+            if rg[k] != rw[k]:
+                raise AssertionError(f"{what}: {k} {rg[k]} != {rw[k]}")
+        if max(abs(a - b) for a, b in zip(rg["accs"], rw["accs"])) > 2e-2:
+            raise AssertionError(f"{what}: accuracies differ")
+        if ("telemetry" in rg) != ("telemetry" in rw):
+            raise AssertionError(f"{what}: telemetry in one run only")
+        for k in obs_metrics.EXACT_LEAVES if "telemetry" in rw else ():
+            if rg["telemetry"][k] != rw["telemetry"][k]:
+                raise AssertionError(f"{what}: telemetry {k} differs")
+        for k in obs_metrics.FLOAT_LEAVES if "telemetry" in rw else ():
+            a, b = (torch.tensor(rg["telemetry"][k], dtype=torch.float64),
+                    torch.tensor(rw["telemetry"][k], dtype=torch.float64))
+            if not torch.allclose(a, b, rtol=2e-2, atol=2e-2):
+                raise AssertionError(f"{what}: telemetry {k} {a} vs {b}")
+    for f in RING_INTS:
+        if not (got["relay"][f] == want["relay"][f]).all():
+            raise AssertionError(f"{what}: ring field {f} differs")
+    spread = float_spread(got["records"], want["records"], got["relay"],
+                          want["relay"])
+    if tol is None:
+        return spread
+    rtol, g_rtol, atol, o_tol, _ = tol
+    for rg, rw in zip(got["records"], want["records"]):
+        for mg, mw in zip(rg["metrics"], rw["metrics"]):
+            for k in mw:
+                tol = atol + (g_rtol if k == "grad_norm" else rtol) * abs(mw[k])
+                if abs(mg[k] - mw[k]) > tol:
+                    raise AssertionError(f"{what}: metric {k} {mg[k]} vs "
+                                         f"{mw[k]}")
+    if spread["obs"] > o_tol:
+        raise AssertionError(f"{what}: observations {spread['obs']:.3e} "
+                             f"apart > {o_tol}")
+    return spread
+
+
+def mesh_weights(res, want, what, tol):
+    """Every client's weights after the ranks' run (each rank's block of a
+    client-sharded stack, in rank order; a whole bucket from rank 0)
+    against the unsharded engine's, within `tol` (as mesh_held's); -> the
+    largest difference."""
+    worst = 0.0
+    for j, stack in enumerate(want["params"]):
+        for k, w in stack.items():
+            blocks = [got["params"][j][k] for got in res]
+            full = (blocks[0] if blocks[0].shape[0] == w.shape[0]
+                    else torch.cat(blocks))
+            worst = max(worst, float((full - w).abs().max()))
+    if tol is not None and worst > tol[4]:
+        raise AssertionError(f"{what}: weights {worst:.3e} apart > {tol[4]}")
+    return worst
+
+
+class cudnn_enabled:
+    """`torch.backends.cudnn.enabled` set to `on` inside the block (TF32
+    and every other setting as they were)."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        self.was = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = self.on
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.enabled = self.was
+
+
+def grouped_conv_check(stack, block, dev):
+    """Clients [0, block)'s LeNet features, and the gradients of their
+    squares' sum with respect to both convolutions' weights, computed in
+    the whole `stack`'s grouped convolutions (the vec engine's `vmap`)
+    and in a stack of those `block` clients alone, on one seeded batch of
+    32 images a client: -> {"cudnn on" / "cudnn off": (features' largest
+    difference, gradients' relative to their largest entry)}."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    n = next(iter(stack.values())).shape[0]
+    x, _ = synthetic.class_images(32 * n, seed=5, noise=0.8)
+    x = torch.from_numpy(x).to(dev).reshape(n, 32, *x.shape[1:])
+    feats = torch.func.vmap(cnn.features)
+    out = {}
+    for on in (True, False):
+        got = []
+        with cudnn_enabled(on):
+            for m in (n, block):
+                p = {k: v[:m].detach().clone().requires_grad_(True)
+                     for k, v in stack.items()}
+                s = feats(p, x[:m])[:block]
+                g = torch.autograd.grad(s.square().sum(),
+                                        [p["conv1"], p["conv2"]])
+                got.append((s.detach(), [t[:block] for t in g]))
+        (sa, ga), (sb, gb) = got
+        out["cudnn on" if on else "cudnn off"] = (
+            float((sa - sb).abs().max()),
+            max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(ga, gb)))
+    return out
+
+
+def phase_mesh_one_rank(dev, smi):
+    """5h-a: one rank over NCCL on cuda:0. Each MESH_PATHS fleet for ROUNDS
+    rounds on the mesh and without it, every device step under sync-debug
+    "error": records, ring, ledger, commits and parameters bit-equal, the
+    same launches, one exchange a round. Then the paper's scenario, N = 32
+    LeNet cors/flat, ROUNDS rounds with and without the mesh in turns
+    (bit-equal), and one profiled round of each. -> (summary, the unsharded
+    runs by path for 5h-b)."""
+    import torch.distributed as dist
+    from repro_torch import ranks, sharding
+    from repro_torch.collab_image_classification import build_trainer
+    from repro_torch.relay import placement
+    tmp = tempfile.mkdtemp(prefix="mesh-")
+    ranks.init(0, 1, "nccl", f"file://{tmp}/rendezvous")
+    plain, out = {}, {}
+    try:
+        mesh = sharding.client_mesh(1)
+        # the NCCL communicator comes up here, outside any sync-debug window
+        placement.gather(torch.zeros(1, device=dev), mesh)
+        for name, fleet, hetero, telem in MESH_PATHS:
+            a = mesh_fleet(fleet, hetero, telem, dev, mesh)
+            b = mesh_fleet(fleet, hetero, telem, dev)
+            ra, rb = mesh_run(a, guard=True), mesh_run(b, guard=True)
+            bit_equal(a, b, f"mesh {name}")
+            want = mesh_want(hetero)
+            if ra["launches"] != want or rb["launches"] != want:
+                raise AssertionError(f"mesh {name}: launches {ra['launches']}"
+                                     f" / {rb['launches']} != {want}")
+            if ra["exchanges"] != ROUNDS or rb["exchanges"] != ROUNDS:
+                raise AssertionError(f"mesh {name}: {ra['exchanges']} / "
+                                     f"{rb['exchanges']} exchanges in "
+                                     f"{ROUNDS} rounds")
+            plain[name] = rb
+            print(f"[mesh] 1 rank nccl {name}: bit-equal to unsharded, "
+                  f"launches {ra['launches']}, {ROUNDS} exchanges, no host "
+                  f"sync in the step; s/round {ra['secs']} (unsharded "
+                  f"{rb['secs']}) [{smi}]")
+        kw = dict(seed=0, device=dev, engine="vec",
+                  n_train=240 * SCALE_CLIENTS)
+        runs = {"mesh": build_trainer(SCALE_CLIENTS, "cors", mesh=mesh, **kw),
+                "unsharded": build_trainer(SCALE_CLIENTS, "cors", **kw)}
+        res = {tag: {"secs": [], "launches": (0, 0, 0), "exchanges": 0}
+               for tag in runs}
+        for r in range(ROUNDS):
+            for tag in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                one = mesh_run(runs[tag], rounds=1, guard=True)
+                res[tag]["secs"] += one["secs"]
+                res[tag]["exchanges"] += one["exchanges"]
+                res[tag]["launches"] = tuple(
+                    x + y for x, y in zip(res[tag]["launches"],
+                                          one["launches"]))
+        bit_equal(runs["mesh"], runs["unsharded"], f"mesh {MESH_LENET}")
+        # the unsharded engine against the sequential one on this fleet:
+        # the spread that the four ranks' is read beside
+        seq = build_trainer(SCALE_CLIENTS, "cors", **dict(kw, engine="seq"))
+        seq.run(ROUNDS)
+        relay_of = lambda st: {f: getattr(st, f).cpu().numpy()
+                               for f in RING_INTS + ("obs", "global_protos")}
+        vs_seq = float_spread(runs["unsharded"].history[:ROUNDS],
+                              seq.history, relay_of(
+                                  runs["unsharded"].relay_state),
+                              relay_of(seq.server.state))
+        vs_seq["weights"] = max(
+            float((runs["unsharded"].params[k][i] - c.params[k]).abs().max())
+            for i, c in enumerate(seq.clients) for k in c.params)
+        same_ring(runs["unsharded"].relay_state, seq.server.state,
+                  f"{MESH_LENET} vec against seq")
+        print(f"[mesh] {MESH_LENET}: unsharded vec against seq on the card, "
+              f"ring equal, metrics at most {vs_seq['metrics_rel']:.3e} "
+              f"apart relative, observations {vs_seq['obs']:.3e}, weights "
+              f"{vs_seq['weights']:.3e}")
+        del seq
+        conv = grouped_conv_check(runs["unsharded"].params,
+                                  SCALE_CLIENTS // MESH_RANKS, dev)
+        print(f"[mesh] grouped convolutions: clients 0-"
+              f"{SCALE_CLIENTS // MESH_RANKS - 1}'s LeNet features and "
+              f"conv gradients within the {SCALE_CLIENTS}-client stack "
+              f"against a {SCALE_CLIENTS // MESH_RANKS}-client stack, "
+              + ", ".join(f"{k}: features {a:.3e}, gradients {b:.3e} "
+                          f"(relative) apart"
+                          for k, (a, b) in conv.items()))
+        with cudnn_enabled(False):
+            plain[MESH_PINNED] = mesh_run(build_trainer(
+                SCALE_CLIENTS, "cors", **kw))
+        if (plain[MESH_PINNED]["launches"] != CORS_VEC
+                or plain[MESH_PINNED]["exchanges"] != ROUNDS):
+            raise AssertionError(f"{MESH_PINNED} unsharded: launches "
+                                 f"{plain[MESH_PINNED]['launches']}")
+        print(f"[mesh] {MESH_PINNED} unsharded: s/round "
+              f"{plain[MESH_PINNED]['secs']} [{smi}]")
+        plain[MESH_LENET] = {
+            "records": list(runs["unsharded"].history),
+            "params": [{k: v.cpu()
+                        for k, v in runs["unsharded"].params.items()}],
+            "relay": {f: getattr(runs["unsharded"].relay_state, f).cpu()
+                      .numpy() for f in RING_INTS + ("obs", "global_protos")}}
+        for tag, t in runs.items():
+            if res[tag]["launches"] != CORS_VEC or res[tag]["exchanges"] != ROUNDS:
+                raise AssertionError(f"mesh {MESH_LENET} {tag}: launches "
+                                     f"{res[tag]['launches']}, exchanges "
+                                     f"{res[tag]['exchanges']}")
+            _, n_ops, busy, busy_us = phase_profile(
+                t, f"mesh 1 rank {tag}", True)
+            res[tag].update(ops=n_ops, busy=busy, busy_ms=busy_us / 1e3)
+            print(f"[mesh] {MESH_LENET} {tag} (1 rank, nccl): s/round "
+                  f"{res[tag]['secs']}, {res[tag]['exchanges']} exchanges in "
+                  f"{ROUNDS} rounds, profiled round {n_ops} device ops, "
+                  f"{busy_us / 1e3:.3f} ms busy ({100 * busy:.1f}%) [{smi}]")
+        out = {"ranks": 1, "backend": "nccl", MESH_LENET: res,
+               "vec_vs_seq": vs_seq, "grouped_conv": conv}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, plain
+
+
+def mesh_rank_main(rank, world, out_dir):
+    """One of 5h-b's ranks, all on cuda:0 over gloo: the N = 6 guard, each
+    MESH_PATHS fleet and the N = 32 LeNet fleet for ROUNDS rounds on its
+    block, results pickled to out_dir/rank{rank}.pkl."""
+    import pickle
+    from repro_torch import sharding
+    from repro_torch.collab_image_classification import build_trainer
+    torch.set_num_threads(1)
+    phase_precision()
+    dev = torch.device("cuda", 0)
+    mesh = sharding.client_mesh(world)
+    res = {}
+    try:
+        mesh_fleet({}, False, False, dev, mesh, n=6)
+    except ValueError as e:
+        res["guard"] = str(e)
+    for name, fleet, hetero, telem in MESH_PATHS:
+        res[name] = mesh_run(mesh_fleet(fleet, hetero, telem, dev, mesh))
+    for name, on in ((MESH_LENET, True), (MESH_PINNED, False)):
+        with cudnn_enabled(on):
+            res[name] = mesh_run(build_trainer(
+                SCALE_CLIENTS, "cors", seed=0, device=dev, engine="vec",
+                n_train=240 * SCALE_CLIENTS, mesh=mesh))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def phase_mesh_four_ranks(smi, plain, vs_seq):
+    """5h-b: four ranks sharing cuda:0 over gloo (NCCL refuses two ranks on
+    one device; gloo stages each exchange through host memory), 2 clients a
+    rank at N = 8 and 8 at N = 32: every rank's records equal every other
+    rank's and the unsharded engine's (`plain`, from 5h-a; the LeNet fleet
+    on cuDNN within MESH_SPREAD times `vs_seq`, its spread from the
+    sequential engine), each rank's launches for its own stacks, one
+    exchange a round, and N = 6 refused. A correctness run: four processes
+    on one card are no scaling number."""
+    import pickle
+    from repro_torch import ranks
+    tmp = tempfile.mkdtemp(prefix="mesh-")
+    try:
+        t0 = time.perf_counter()
+        ranks.spawn(mesh_rank_main, MESH_RANKS, "gloo", tmp)
+        wall = time.perf_counter() - t0
+        res = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"ranks": MESH_RANKS, "backend": "gloo", "wall_s": wall}
+    for r, got in enumerate(res):
+        if "must divide" not in got.get("guard", ""):
+            raise AssertionError(f"rank {r}: N=6 on {MESH_RANKS} ranks was "
+                                 f"not refused: {got.get('guard')}")
+    lenets = ((MESH_LENET, None, False, None), (MESH_PINNED, None, False, None))
+    for name, _, hetero, _ in MESH_PATHS + lenets:
+        lenet = name in (MESH_LENET, MESH_PINNED)
+        tol = None if name == MESH_LENET else MESH_TOL
+        want = CORS_VEC if lenet else mesh_want(hetero)
+        spread = {"metrics_rel": 0.0, "obs": 0.0}
+        for r, got in enumerate(res):
+            g = got[name]
+            if g["records"] != res[0][name]["records"]:
+                raise AssertionError(f"4 ranks {name}: rank {r}'s records "
+                                     "differ from rank 0's")
+            if g["launches"] != want or g["exchanges"] != ROUNDS:
+                raise AssertionError(f"4 ranks {name}: rank {r} launches "
+                                     f"{g['launches']} (want {want}), "
+                                     f"{g['exchanges']} exchanges")
+            one = mesh_held(g, plain[name], f"4 ranks {name}, rank {r}", tol)
+            spread = {k: max(v, one[k]) for k, v in spread.items()}
+        spread["weights"] = mesh_weights([got[name] for got in res],
+                                         plain[name], f"4 ranks {name}", tol)
+        if tol is None:
+            limit = {k: MESH_SPREAD * vs_seq[k] for k in spread}
+            if any(spread[k] > limit[k] for k in spread):
+                raise AssertionError(f"4 ranks {name}: spread {spread} from "
+                                     f"unsharded beyond {MESH_SPREAD} x the "
+                                     f"vec-against-seq spread {vs_seq}")
+        out[name] = {"secs": [got[name]["secs"] for got in res],
+                     "launches": want, "spread": spread}
+        print(f"[mesh] 4 ranks gloo on one card, {name}: every rank's "
+              f"records equal and held against unsharded (metrics at most "
+              f"{spread['metrics_rel']:.3e} apart relative, observations "
+              f"{spread['obs']:.3e}, weights {spread['weights']:.3e}"
+              + ("" if tol else f"; within {MESH_SPREAD} x the unsharded "
+                 f"engine's from seq")
+              + f"); launches a rank {want}, {ROUNDS} exchanges; s/round (a "
+              f"correctness run) rank 0 {res[0][name]['secs']} [{smi}]")
+    print(f"[mesh] 4 ranks gloo: N=6 refused ('must divide'); {wall:.1f} s "
+          f"wall for the spawn and every path [{smi}]")
+    return out
 
 
 def phase_serve(dev):
@@ -2936,6 +3416,9 @@ def main():
     del gpu, vec
     scale = phase_scale(dev, secs_seq, secs_vec)
     torch.cuda.empty_cache()
+    mesh_one, mesh_plain = phase_mesh_one_rank(dev, smi)
+    mesh_four = phase_mesh_four_ranks(smi, mesh_plain, mesh_one["vec_vs_seq"])
+    torch.cuda.empty_cache()
     cfg, params, prompts, serve_launches, _ = phase_serve(dev)
     prof = phase_serve_profile(cfg, params, prompts)
     del params
@@ -3023,7 +3506,8 @@ def main():
           f"{json.dumps(async_scale)}; N={CLIENTS} shards "
           f"{json.dumps(shard_cost)}; N={SCALE_CLIENTS} population "
           f"{json.dumps(population)}; telemetry on / off "
-          f"{json.dumps(telemetry)}; lm train parity "
+          f"{json.dumps(telemetry)}; client mesh {json.dumps(mesh_one)} "
+          f"{json.dumps(mesh_four)}; lm train parity "
           f"{json.dumps(lm_parity)}; lm train "
           f"{json.dumps({k: v for k, v in lm_train.items() if 'launches' not in k})}"
           f"; lm twin 2 rounds {lm_twin_s:.2f} s; families "

@@ -21,13 +21,21 @@ clients are seats of a cohort table, `sim/population.py`) is
 `build_trainer(..., arrivals="stream:k,rate,p_leave,population,seed")`, as
 the reference's `benchmarks/common.make_trainer(..., arrivals=...)`.
 
+`--ranks W` runs the vec engine on a client mesh of W ranks, N / W clients
+a rank, with the round's uploads as its one exchange (`FleetConfig.mesh`,
+`relay/placement.py`): W processes started here (`ranks.spawn`), or, under
+`torchrun --nproc-per-node W -m repro_torch.collab_image_classification`,
+the launcher's ranks. On CUDA with a card a rank the ranks talk over NCCL,
+otherwise (the CPU, or ranks sharing a card) over gloo. Every rank runs every round and holds the same records;
+rank 0 prints and writes the checkpoints.
+
   PYTHONPATH=src python -m repro_torch.collab_image_classification \
       [--rounds R] [--clients N] [--mode cors|il|fd|fedavg] \
       [--relay-policy flat|per_class|staleness[:lam]|sharded:<inner>,<S>[,<g>]] \
       [--participation full|uniform_k:K|cyclic:K|bernoulli:P|adaptive:P[,B]] \
       [--hetero] [--clock-model none|homogeneous:D|lognormal:D[,S]|periodic:D,P] \
       [--download-clock none|homogeneous:D|lognormal:D[,S]|periodic:D,P] \
-      [--engine vec|seq] [--device cuda|cpu] \
+      [--engine vec|seq] [--device cuda|cpu] [--ranks W] \
       [--telemetry-out RUN.jsonl] [--out DIR]
 """
 from __future__ import annotations
@@ -38,10 +46,11 @@ import time
 
 import torch
 
-from repro_torch import convert, obs
+from repro_torch import convert, obs, ranks, sharding
 from repro_torch.checkpoint import save_pytree
 from repro_torch.core import client as client_lib, collab, vec_collab
 from repro_torch.data import partition, synthetic
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import cnn, mlp
 from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
@@ -61,7 +70,7 @@ def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
                   device=None, engine: str = "vec", n_train: int = 1200,
                   relay_policy=None, participation=None,
                   hetero: bool = False, clock=None, download_clock=None,
-                  arrivals=None, telemetry=None):
+                  arrivals=None, telemetry=None, mesh=None):
     """The example's fleet: `class_images(n_train)` split uniformly over the
     clients, 2000 test images, batch 32, LeNet clients (with `hetero`, the
     MLP on odd client ids) with random weights from `seed`, in the `engine`
@@ -69,7 +78,8 @@ def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
     the upload `clock` and the `download_clock` (`repro_torch.sim` specs;
     None or "none" is the synchronous fleet), and the `arrivals` schedule
     (None, or "stream:...": the clients are seats of a cohort table), with
-    `telemetry` as the trainers take it (None: off)."""
+    `telemetry` as the trainers take it (None: off), on the client `mesh`
+    (None, or `sharding.client_mesh(W)`: the vec engine only)."""
     x, y = synthetic.class_images(n_train, seed=0, noise=0.8)
     tx, ty = synthetic.class_images(2000, seed=99, noise=0.8)
     parts = partition.uniform_split(x, y, clients, seed=1)
@@ -86,7 +96,7 @@ def build_trainer(clients: int = 5, mode: str = "cors", seed: int = 0,
                                              participation=participation,
                                              clock=clock,
                                              download_clock=download_clock,
-                                             arrivals=arrivals),
+                                             arrivals=arrivals, mesh=mesh),
                            device=device, telemetry=telemetry)
 
 
@@ -131,8 +141,37 @@ def main(argv=None):
                          "metrics are on either way")
     ap.add_argument("--out", default="artifacts/collab_ckpt",
                     help="directory of the per-client checkpoints")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run the vec engine on a client mesh of this many "
+                         "ranks, started here (0: no mesh; under torchrun "
+                         "the launcher's ranks)")
     args = ap.parse_args(argv)
+    if ranks.under_launcher():
+        world = int(os.environ["WORLD_SIZE"])
+        rank = ranks.init_from_env(_backend(args.device, world))
+        try:
+            _run(rank, world, args)
+        finally:
+            torch.distributed.destroy_process_group()
+    elif args.ranks:
+        ranks.spawn(_run, args.ranks, _backend(args.device, args.ranks), args)
+    else:
+        _run(0, 0, args)
 
+
+def _backend(device, world: int) -> str:
+    """NCCL where the ranks run on CUDA with a card each; gloo on the CPU
+    or where ranks share a card (NCCL refuses two ranks on one device)."""
+    cuda = resolve_device(device).type == "cuda"
+    return "nccl" if cuda and world <= torch.cuda.device_count() else "gloo"
+
+
+def _run(rank: int, world: int, args):
+    """The run in one process: rank `rank` of a client mesh of `world`
+    ranks (0: no mesh). Rank 0 prints and writes the checkpoints."""
+    if world and (args.device == "cpu" or not torch.cuda.is_available()):
+        ranks.cpu_threads()
+    say = print if rank == 0 else (lambda *a, **k: None)
     trainer = build_trainer(args.clients, args.mode,
                             lambda_kd=args.lambda_kd,
                             lambda_disc=args.lambda_disc, device=args.device,
@@ -142,18 +181,22 @@ def main(argv=None):
                             hetero=args.hetero, clock=args.clock_model,
                             download_clock=args.download_clock,
                             telemetry=obs.TelemetryConfig(
-                                jsonl=args.telemetry_out))
-    print(f"{args.clients} clients sharing 1200 samples, mode={args.mode}, "
+                                jsonl=args.telemetry_out if rank == 0
+                                else None),
+                            mesh=sharding.client_mesh(world) if world
+                            else None)
+    say(f"{args.clients} clients sharing 1200 samples, mode={args.mode}, "
           f"relay={args.relay_policy}, participation={args.participation}, "
           f"clock={args.clock_model}, download clock={args.download_clock}, "
           f"engine={args.engine}, device={trainer.device}"
-          + (", hetero LeNet/MLP fleet" if args.hetero else ""))
+          + (", hetero LeNet/MLP fleet" if args.hetero else "")
+          + (f", client mesh of {world} ranks" if world else ""))
     ops.reset_launches()
     for _ in range(args.rounds):
         t0 = time.perf_counter()
         rec = trainer.run_round()
         dt = time.perf_counter() - t0
-        print(f"  round {rec['round']:3d} acc {rec['acc_mean']:.4f} "
+        say(f"  round {rec['round']:3d} acc {rec['acc_mean']:.4f} "
               f"±{rec['acc_std']:.4f}  comm {trainer.ledger.total_bytes/1e6:.2f}"
               f" MB  {dt:.3f} s  participants {rec['participants']}  "
               f"commits {rec['commits']}  "
@@ -163,25 +206,27 @@ def main(argv=None):
     telem = [h["telemetry"] for h in trainer.history]
     late = sum(sum(t["commit_hist"][1:]) for t in telem)
     if late:
-        print(f"async relay: {late} uploads committed late (in event order, "
+        say(f"async relay: {late} uploads committed late (in event order, "
               f"see src/repro_torch/relay/events.py)")
     stale = sum(t["stale_reads"] for t in telem)
     if stale:
-        print(f"download lag: {stale} client-rounds trained against a stale "
+        say(f"download lag: {stale} client-rounds trained against a stale "
               f"relay snapshot (history ring, see "
               f"src/repro_torch/relay/history.py)")
     if args.telemetry_out:
-        print(f"telemetry: {args.telemetry_out} (render with `python -m "
+        say(f"telemetry: {args.telemetry_out} (render with `python -m "
               f"repro_torch.obs.report {args.telemetry_out}`)")
 
     for i in range(args.clients):
+        # on a mesh `client_params` is a collective: every rank calls it
         p = (trainer.client_params(i) if args.engine == "vec"
              else trainer.clients[i].params)
         kind = "mlp" if args.hetero and i % 2 == 1 else "cnn"
-        save_pytree(os.path.join(args.out, f"client{i}.npz"),
-                    convert.params_to_numpy(p, kind), step=args.rounds)
+        if rank == 0:
+            save_pytree(os.path.join(args.out, f"client{i}.npz"),
+                        convert.params_to_numpy(p, kind), step=args.rounds)
     best = max(h["acc_mean"] for h in trainer.history)
-    print(f"\nbest mean accuracy: {best:.4f}; "
+    say(f"\nbest mean accuracy: {best:.4f}; "
           f"total comm {trainer.ledger.total_bytes/1e6:.2f} MB; "
           f"checkpoints in {args.out}/")
 

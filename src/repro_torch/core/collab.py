@@ -112,16 +112,11 @@ RELAY_MODES = ("cors", "fd")     # the modes that go through the relay
 
 
 def check_setup(ccfg: CollabConfig, fleet: FleetConfig) -> relay_lib.RelayPolicy:
-    """Refuses an unknown mode, and a mesh, which the port does not run yet
-    (ROADMAP slice 9); -> the fleet's relay policy."""
+    """Refuses an unknown mode; -> the fleet's relay policy."""
     if ccfg.mode not in client_lib.MODES:
         raise ValueError(f"unknown mode {ccfg.mode!r} (have "
                          f"{sorted(client_lib.MODES)})")
-    policy = relay_lib.get_policy(fleet.policy)
-    if fleet.mesh is not None and fleet.mesh != "none":
-        raise NotImplementedError(f"FleetConfig.mesh={fleet.mesh!r} comes "
-                                  "with multi-device (ROADMAP slice 9)")
-    return policy
+    return relay_lib.get_policy(fleet.policy)
 
 
 def check_arrivals(ccfg: CollabConfig, fleet: FleetConfig, clock,
@@ -222,6 +217,11 @@ class CollabTrainer:
                  telemetry=None):
         fleet = fleet if fleet is not None else FleetConfig()
         policy = check_setup(ccfg, fleet)
+        if fleet.mesh is not None:
+            raise ValueError(
+                "the sequential oracle steps clients host-side and holds "
+                "no stacked client axis to shard; FleetConfig.mesh only "
+                "applies to the vectorized engine (core/vec_collab.py)")
         # telemetry: the same RoundTelemetry function as the vectorized
         # engine's, over this engine's equal ring, with the event-log
         # quantities counted here on the host

@@ -60,6 +60,23 @@ def merge(*states: ProtoState) -> ProtoState:
                       sum(s.count for s in states))
 
 
+def psum_merge(state: ProtoState, group=None) -> ProtoState:
+    """On-mesh aggregation over the client axis (the relay as an
+    all-reduce): the sums and counts summed over the ranks of `group`, a
+    process group or a client mesh (its "clients" group; None is the
+    default group). A collective: every rank of the group calls it. New
+    tensors; the vectorized engine gathers the per-client sums instead
+    (`relay/placement.exchange`), so that the merge adds them in the
+    unsharded order."""
+    import torch.distributed as dist
+    if hasattr(group, "get_group"):
+        group = group.get_group("clients")
+    s, c = state.sum.clone(), state.count.clone()
+    dist.all_reduce(s, group=group)
+    dist.all_reduce(c, group=group)
+    return ProtoState(s, c)
+
+
 def observations(prio, features, labels, num_classes: int, n_avg: int):
     """Paper's t^c_m: for each class c, one average over n_avg same-class
     samples per row of `prio`.

@@ -80,12 +80,32 @@ phase, the shared bucket commit and the asynchronous commit take in place
 of their own weighted sum, and through states whose leaves lead with the
 shard axis (also in the history ring).
 
-This slice runs every mode of the sequential engine (cors, fd, fedavg, il,
-cl), the relay policies flat, per_class, staleness and sharded, every
+This engine runs every mode of the sequential engine (cors, fd, fedavg,
+il, cl), the relay policies flat, per_class, staleness and sharded, every
 participation schedule, heterogeneous buckets, asynchrony, download lag
 and streaming arrivals. fedavg's weight average is part of the round step,
-in float32, as the reference computes it. The mesh raises
-`NotImplementedError` naming the ROADMAP slice that brings it.
+in float32, as the reference computes it.
+
+A client mesh (`FleetConfig.mesh`, `sharding.client_mesh(W)`, one process
+a rank under `torch.distributed`): every rank builds the trainer from the
+same seed and the same full client list, and keeps its contiguous block of
+N / W clients (parameters, Adam state, data, batches, draws, pending
+positions), as `relay/placement.py` declares them CLIENT_SHARDED. It holds
+the relay state, the history ring and all host-side bookkeeping (schedule,
+clocks, cohort table, commit mirror, ledger, history) whole, computed the
+same on every rank. The round body is the unsharded one: the only place
+where client-sharded values cross ranks is `placement.exchange`, once a
+round, on the commit payload (the per-client uploads with their masks,
+owners and stamps, gathered in rank order = upload order), after which
+every rank reduces the per-client sums in the unsharded order and runs the
+same append and merge; fedavg's exchange is each rank's weighted sum. Off
+a mesh `exchange` is the identity. Static-k compaction pads each rank's
+block to min(k, N / W) with absent clients (masked rows, which consume no
+ring slot); a mixed fleet's bucket whose size W divides is client-sharded,
+any other is run whole by every rank and enters the exchange once. The
+round record's metrics and accuracies are gathered after the step
+(`placement.gather`), so every rank's record equals the one-rank engine's;
+`client_params` is then a collective.
 
 Telemetry (`telemetry=`, `repro_torch.obs`): a build flag of the
 synchronous, compacted, asynchronous and lagged round steps, which then
@@ -104,12 +124,12 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import obs, sim
+from repro_torch import obs, sharding, sim
 from repro_torch.core import baselines, client as client_lib, collab, comm, \
     prototypes
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
-from repro_torch.relay import events, history, participation
+from repro_torch.relay import events, history, participation, placement
 from repro_torch.relay.participation import freeze_absent, keep_if
 from repro_torch.tree import tree_map
 from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
@@ -183,95 +203,176 @@ def make_client_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig):
     return uploads_of
 
 
-def make_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig,
-                      policy=None):
-    """Phase 3a (uplink, compute side): the per-client pieces reduced into
-    one relay append. Returns `uploads_of(params, data_x, data_y, prio, ids,
-    mask) -> dict(proto, logit (fd mode, else None), obs_rows, valid_rows,
-    owner_rows, row_mask)`: absent clients' prototype and logit sums are
-    zero-weighted and their observation rows masked out. A `policy` with
-    `reduce_uploads` (cohort shards) takes the same weights and per-client
-    sums and segments them by owner instead of summing them."""
+def make_upload_phase(spec: client_lib.ClientSpec, ccfg: CollabConfig):
+    """Phase 3a of a synchronous round: the per-client pieces of
+    `make_client_upload_phase` and the participation mask, `uploads_of(
+    params, data_x, data_y, prio, ids, mask) -> dict(..., mask (k,))`. The
+    cross-client reduction is the commit's, after the round's exchange
+    (`make_relay_commit`), so that on a mesh the sums are added in the
+    unsharded order."""
     per_client = make_client_upload_phase(spec, ccfg)
-    own = policy.reduce_uploads if policy is not None else None
 
     def uploads_of(p_s, dx, dy, prio, ids_s, sub_mask):
-        wf = sub_mask.to(torch.float32)
-        u = per_client(p_s, dx, dy, prio, ids_s)
-        reduce = (
-            (lambda s, c: own(s, c, wf, u["owner"])) if own is not None else
-            (lambda s, c: prototypes.ProtoState(
-                (s * wf[:, None, None]).sum(0), (c * wf[:, None]).sum(0))))
-        k, m_real = u["obs"].shape[:2]
-        return {"proto": reduce(u["psum"], u["pcnt"]),
-                "logit": (reduce(u["lsum"], u["lcnt"]) if "lsum" in u
-                          else None),
-                "obs_rows": u["obs"].reshape(k * m_real, *u["obs"].shape[2:]),
-                "valid_rows": u["valid"][:, None].expand(k, m_real, -1)
-                .reshape(k * m_real, -1),
-                "owner_rows": u["owner"][:, None].expand(k, m_real).reshape(-1),
-                "row_mask": sub_mask[:, None].expand(k, m_real).reshape(-1)}
+        return dict(per_client(p_s, dx, dy, prio, ids_s), mask=sub_mask)
 
     return uploads_of
 
 
-def make_relay_commit(policy, lagged: bool = False):
-    """Phase 3b: the round's single relay write. `commit(rstate, payloads)`
-    concatenates the payloads' observation rows (in upload order), appends
-    them through the policy in one write and runs ONE merge of the
-    prototype sums (and, in fd mode, the logit sums).
+def _reduce(policy, u, sum_key: str, count_key: str):
+    """One stack's committing prototype (or fd logit) sums: absent clients
+    zero-weighted and the rest summed over the client axis, or, for a
+    policy with `reduce_uploads` (cohort shards), segmented by owner."""
+    wf = u["mask"].to(torch.float32)
+    s, c = u[sum_key], u[count_key]
+    if policy.reduce_uploads is not None:
+        return policy.reduce_uploads(s, c, wf, u["owner"])
+    return prototypes.ProtoState((s * wf[:, None, None]).sum(0),
+                                 (c * wf[:, None]).sum(0))
 
-    `lagged=True`: `commit(rstate, payloads, hist)` also pushes the new
-    state to the history ring and returns (rstate, hist)."""
 
-    def commit(rstate, payloads, *hist):
-        cat = lambda k: torch.cat([p[k] for p in payloads])
-        proto = prototypes.merge(*[p["proto"] for p in payloads])
-        logit = (prototypes.merge(*[p["logit"] for p in payloads])
-                 if payloads[0]["logit"] is not None else None)
-        new = policy.append(rstate, cat("obs_rows"), cat("valid_rows"),
-                            cat("owner_rows"), cat("row_mask"))
+def _concat(payloads):
+    """The stacks' per-client pieces on one client axis, in bucket order."""
+    if len(payloads) == 1:
+        return payloads[0]
+    return {k: torch.cat([p[k] for p in payloads]) for k in payloads[0]}
+
+
+def make_relay_commit(policy, lagged: bool = False, mesh=None,
+                      layout=placement.CLIENT_SHARDED, sizes=None):
+    """Phase 3b: the round's single relay write. `commit(rstate, payloads,
+    *hist, extra=None)` takes the stacks' uploads (`make_upload_phase`, one
+    payload a stack, in bucket = upload order) and exchanges them
+    (`placement.exchange`, THE round's exchange: on a mesh `layout` places
+    their concatenated client axis on the ranks and `sizes` are the stacks'
+    full sizes). It then reduces each stack's prototype sums (and, in fd
+    mode, logit sums) and merges them, appends every observation row in
+    upload order through the policy in one write and runs ONE merge, kept
+    only if someone took part (`keep_if`, on the gathered mask).
+
+    -> (new state, [history ring with it pushed, when `lagged`], the
+    gathered `extra`): `extra` is client-sharded leaves of the same layout
+    (telemetry's inputs) that ride the exchange."""
+    spans = None
+    if sizes is not None and len(sizes) > 1:
+        starts = np.cumsum([0] + list(sizes[:-1]))
+        spans = list(zip(starts.tolist(), sizes))
+
+    def commit(rstate, payloads, *hist, extra=None):
+        u, extra = placement.exchange((_concat(payloads), extra), mesh, layout)
+        parts = ([u] if spans is None else
+                 [{k: v.narrow(0, a, n) for k, v in u.items()}
+                  for a, n in spans])
+        proto = prototypes.merge(*[_reduce(policy, p, "psum", "pcnt")
+                                   for p in parts])
+        logit = (prototypes.merge(*[_reduce(policy, p, "lsum", "lcnt")
+                                    for p in parts])
+                 if "lsum" in u else None)
+        k, m_real = u["obs"].shape[:2]
+        new = policy.append(
+            rstate, u["obs"].reshape(k * m_real, *u["obs"].shape[2:]),
+            u["valid"][:, None].expand(k, m_real, -1).reshape(k * m_real, -1),
+            u["owner"][:, None].expand(k, m_real).reshape(-1),
+            u["mask"][:, None].expand(k, m_real).reshape(-1))
         new = policy.merge_round(new, proto, logit)
-        return (new, history.push(hist[0], new)) if lagged else new
+        new = keep_if(u["mask"].any(), new, rstate)
+        out = (new, history.push(hist[0], new)) if lagged else (new,)
+        return out + (extra,)
 
     return commit
 
 
-def make_async_relay_commit(policy, lagged: bool = False):
+def make_async_relay_commit(policy, lagged: bool = False, mesh=None,
+                            layout=placement.CLIENT_SHARDED):
     """Phase 3b of an asynchronous fleet: `commit(rstate, pending,
-    payloads, round_idx, delays, mask) -> (rstate, pending)` concatenates
-    the payloads' PER-CLIENT pieces (`make_client_upload_phase`, one a
-    bucket, in bucket = upload order) and runs ONE
-    `events.commit_and_park`; `delays` and `mask` come in upload order, the
-    pending buffer's. It runs every round, since parked uploads may be due
-    when nobody trains. `lagged=True` takes the history ring last, pushes
-    the new state (unconditionally) and returns it third."""
+    payloads, round_idx, delays, mask, *hist, extra=None) -> (rstate,
+    pending, [hist], extra)` concatenates the payloads' PER-CLIENT pieces
+    (`make_client_upload_phase`, one a bucket, in bucket = upload order)
+    and runs ONE `events.commit_and_park`, whose commit payload is the
+    round's exchange on `mesh` (`layout` places the upload positions);
+    `delays` and `mask` come in upload order, the pending buffer's. It runs
+    every round, since parked uploads may be due when nobody trains.
+    `lagged=True` takes the history ring last and pushes the new state
+    (unconditionally). `extra` rides the exchange and comes back gathered,
+    last."""
 
-    def commit(rstate, pending, payloads, round_idx, delays, mask, *hist):
-        fresh = {k: torch.cat([p[k] for p in payloads]) for k in payloads[0]}
-        rstate, pending = events.commit_and_park(
-            policy, rstate, pending, fresh, round_idx, delays, mask)
+    def commit(rstate, pending, payloads, round_idx, delays, mask, *hist,
+               extra=None):
+        out = events.commit_and_park(
+            policy, rstate, pending, _concat(payloads), round_idx, delays,
+            mask, mesh, layout, extra=extra)
+        rstate, pending = out[:2]
+        shared = out[2] if extra is not None else None
         if lagged:
-            return rstate, pending, history.push(hist[0], rstate)
-        return rstate, pending
+            return rstate, pending, history.push(hist[0], rstate), shared
+        return rstate, pending, shared
 
     return commit
 
 
-def fedavg_average(params, mask):
+def fedavg_average(params, mask, mesh=None, extra=None):
     """fedavg's exchange inside the round step: every present client's
     weights replaced by the float32 average over the present clients,
     sum(p . w) / n_present, as the reference's vectorized engine computes
-    it; absent clients keep theirs. New tensors, none shared."""
+    it; absent clients keep theirs. The exchange's payload is this rank's
+    weighted sums and present count, one row a rank (on a mesh the
+    model-size all-reduce, added in rank order; off it, one row).
+    -> (new tensors, none shared; the gathered `extra`)."""
     wf = mask.to(torch.float32)
-    denom = wf.sum().clamp(min=1.0)
+    lead = lambda p: (-1,) + (1,) * (p.dim() - 1)
+    part = {"n": wf.sum()[None],
+            "s": {k: (p.float() * wf.reshape(lead(p))).sum(0)[None]
+                  for k, p in params.items()}}
+    part, extra = placement.exchange((part, extra), mesh)
+    denom = part["n"].sum(0).clamp(min=1.0)
 
-    def avg(p):
-        b = (-1,) + (1,) * (p.dim() - 1)
-        a = ((p.float() * wf.reshape(b)).sum(0) / denom).to(p.dtype)
-        return torch.where(mask.reshape(b), a.expand_as(p), p)
+    def avg(k, p):
+        a = (part["s"][k].sum(0) / denom).to(p.dtype)
+        return torch.where(mask.reshape(lead(p)), a.expand_as(p), p)
 
-    return {k: avg(v) for k, v in params.items()}
+    return {k: avg(k, v) for k, v in params.items()}, extra
+
+
+def _telemetry_parts(metrics, mask, dl=None, pending=None, round_idx=None,
+                     delays=None):
+    """The client-sharded inputs of the round's telemetry, by client (or
+    upload position): mask, last-batch loss and gradient norm, download
+    delays, and under asynchrony the commit delays and the pending slots
+    before and after this round's commit. On a mesh they ride the round's
+    exchange, so that the telemetry reads the whole fleet."""
+    parts = {"mask": mask, "loss": metrics["total"],
+             "gnorm": metrics["grad_norm"]}
+    if dl is not None:
+        parts["dl"] = dl
+    if delays is not None:
+        parts["delays"] = delays
+    if pending is not None:
+        parts.update(live=pending.live, commit=pending.commit,
+                     birth=pending.birth,
+                     live_post=events.live_after(pending, round_idx, delays,
+                                                 mask))
+    return parts
+
+
+def _pending_views(parts):
+    """(pre-commit, post-commit) pending buffers for `round_telemetry`,
+    which reads only their slots' live, commit and birth."""
+    empty = events.PendingState(*([None] * len(events.PendingState._fields)))
+    return (empty._replace(live=parts["live"], commit=parts["commit"],
+                           birth=parts["birth"]),
+            empty._replace(live=parts["live_post"]))
+
+
+def _round_telemetry(prev_state, new_state, n: int, parts, round_idx=None):
+    """A homogeneous step's RoundTelemetry from the exchanged parts."""
+    pend = {}
+    if "live" in parts:
+        pre, post = _pending_views(parts)
+        pend = dict(pending=post, pending_pre=pre, round_idx=round_idx,
+                    delays=parts["delays"])
+    return obs.round_telemetry(
+        prev_state, new_state, n, mask=parts["mask"],
+        loss_parts=(parts["loss"],), gnorm_parts=(parts["gnorm"],),
+        mask_parts=(parts["mask"],), dl=parts.get("dl"), **pend)
 
 
 def make_bucket_update_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
@@ -285,9 +386,10 @@ def make_bucket_update_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
     of a mixed fleet reads the same round-start state and one shared commit
     follows. Returns `step(params, opt, rstate, batches, data_x, data_y,
     ids, noise, picks, prio, mask) -> (params, opt, metrics, payload)`;
-    `payload` is None outside cors and fd: the masked reduction of
-    `make_upload_phase`, or with `per_client_payload` the per-client pieces
-    of `make_client_upload_phase` that the event log parks and commits.
+    `payload` is None outside cors and fd: the per-client pieces and mask
+    of `make_upload_phase`, or with `per_client_payload` the per-client
+    pieces of `make_client_upload_phase` that the event log parks and
+    commits.
 
     `lagged=True`: the `rstate` argument is the history ring, and a
     trailing `dl` (k,) gives each client's snapshot depth. The ring is read
@@ -296,7 +398,7 @@ def make_bucket_update_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
                                                    stacked=True)
     teachers = make_teacher_phase(policy, ccfg, lagged)
     uploads_of = (make_client_upload_phase(spec, ccfg) if per_client_payload
-                  else make_upload_phase(spec, ccfg, policy))
+                  else make_upload_phase(spec, ccfg))
 
     def step(params, opt, rstate, batches, data_x, data_y, ids, noise,
              picks, prio, mask, *dl):
@@ -317,14 +419,16 @@ def make_bucket_update_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
 
 def make_async_round_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
                           tcfg: TrainConfig, policy, lagged: bool = False,
-                          telemetry: bool = False):
+                          telemetry: bool = False, mesh=None):
     """The homogeneous ASYNCHRONOUS round step (bounded-delay uploads,
     `relay/events.py`), full width: phases 1-2 as in the synchronous step,
     then the per-client uploads and ONE `events.commit_and_park`. Returns
     `step(params, opt, rstate, pending, batches, data_x, data_y, ids, noise,
     picks, prio, mask, delays, round_idx) -> (params, opt, rstate, pending,
     metrics)`; `mask`, `delays` (N,) int32 and `round_idx` (0-d int32) are
-    device inputs, so the step reads nothing back to the host.
+    device inputs, so the step reads nothing back to the host. On `mesh`
+    the client-sharded inputs are this rank's block, and the commit
+    payload is the round's one exchange.
 
     `lagged=True` adds download lag: two trailing inputs `(hist, dl)`, each
     client's teacher from its own snapshot, the new state pushed to the
@@ -332,29 +436,27 @@ def make_async_round_step(spec: client_lib.ClientSpec, ccfg: CollabConfig,
 
     `telemetry=True` (a build flag: off, the step is exactly the one built
     without it) appends the round's `obs.RoundTelemetry` as the last
-    output, from the round-start and committed relay states, the pre-commit
-    pending buffer's due events and this round's mask and delays."""
+    output, from the round-start and committed relay states, the pending
+    buffer's slots before and after the commit and this round's mask and
+    delays, which ride the commit's exchange."""
     bucket_step = make_bucket_update_step(spec, ccfg, tcfg, policy,
                                           per_client_payload=True,
                                           lagged=lagged)
-    commit = make_async_relay_commit(policy, lagged)
+    commit = make_async_relay_commit(policy, lagged, mesh)
 
     def step(params, opt, rstate, pending, batches, data_x, data_y, ids,
              noise, picks, prio, mask, delays, round_idx, *lag):
         params, opt, metrics, payload = bucket_step(
             params, opt, lag[0] if lagged else rstate, batches, data_x,
             data_y, ids, noise, picks, prio, mask, *lag[1:])
-        out = commit(rstate, pending, [payload], round_idx, delays, mask,
-                     *lag[:1])
-        tail = ()
-        if telemetry:
-            tail = (obs.round_telemetry(
-                rstate, out[0], mask.shape[0], mask=mask,
-                loss_parts=(metrics["total"],),
-                gnorm_parts=(metrics["grad_norm"],), mask_parts=(mask,),
-                pending=out[1], pending_pre=pending, round_idx=round_idx,
-                delays=delays, dl=lag[1] if lagged else None),)
-        return (params, opt) + out + (metrics,) + tail
+        parts = None if not telemetry else _telemetry_parts(
+            metrics, mask, dl=lag[1] if lagged else None, pending=pending,
+            round_idx=round_idx, delays=delays)
+        *out, parts = commit(rstate, pending, [payload], round_idx, delays,
+                             mask, *lag[:1], extra=parts)
+        tail = () if not telemetry else (_round_telemetry(
+            rstate, out[0], mask.shape[0], parts, round_idx),)
+        return (params, opt) + tuple(out) + (metrics,) + tail
 
     return step
 
@@ -375,9 +477,12 @@ def make_eval_hits(spec: client_lib.ClientSpec):
 class ClientBucket:
     """One stackable group of a mixed fleet: one model's clients'
     parameters, Adam state and data stacked on a leading axis of len(ids),
-    and the bucket's step and eval. `ids` are the clients' ids (ascending),
-    which tag their ring rows and pick their draws and mask entries."""
+    and the bucket's step and eval. `whole` are the bucket's client ids
+    (ascending) and `ids` those this rank holds: all of them, or off a
+    client-sharded bucket's rank block on a mesh; they tag the ring rows
+    and pick the draws and mask entries."""
     ids: np.ndarray
+    whole: np.ndarray
     ids_t: torch.Tensor
     params: Dict[str, torch.Tensor]
     opt: object
@@ -396,7 +501,8 @@ class VectorizedCollabTrainer:
     schedules); a mixed fleet runs one step a bucket around a shared relay
     commit. Client datasets are trimmed to the shortest partition of their
     bucket so they stack; pass equal-size partitions for parity with the
-    sequential engine."""
+    sequential engine. On a client mesh (`FleetConfig.mesh`) every rank
+    constructs it alike and runs every round; see the module docstring."""
 
     def __init__(self, specs, params_list: Sequence[Dict[str, torch.Tensor]],
                  client_data: Sequence[Tuple], test_data: Tuple,
@@ -421,6 +527,7 @@ class VectorizedCollabTrainer:
         self.device = dev = resolve_device(device)
         self.ccfg, self.tcfg = ccfg, tcfg
         self.n_clients = N = len(params_list)
+        self.mesh = _check_mesh(fleet.mesh, N)
         self.clock = sim.get_clock(fleet.clock, seed=seed)
         # a streaming fleet: N seats of a cohort table, which owns
         # participation; its evictions hit the relay before each round step
@@ -435,17 +542,34 @@ class VectorizedCollabTrainer:
         if self._cohort is not None:
             self._evict = self.policy.evict_owners
         self._upload_order = [i for _, ids in buckets for i in ids]
+        # this rank's part of every stack: a homogeneous fleet and a bucket
+        # whose size the mesh divides are client-sharded (a rank block), any
+        # other bucket is held whole; off a mesh everything is whole
+        tags = [_stack_placement(self.mesh, len(ids)) for _, ids in buckets]
+        self._local_ids = []
+        for tag, (_, ids) in zip(tags, buckets):
+            lo, hi = placement.rank_block(self.mesh, len(ids), tag)
+            self._local_ids.append(list(ids[lo:hi]))
+        self._local_order = [i for ids in self._local_ids for i in ids]
+        self._layout = (placement.Blocks(
+            [(t, len(ids)) for t, ids in zip(tags, self._local_ids)])
+            if self.hetero else tags[0])
+        sizes = [len(ids) for _, ids in buckets]
+        self._spans = list(zip(np.cumsum([0] + sizes[:-1]).tolist(), sizes))
         self.relay_state = self.policy.init_state(ccfg, ccfg.d_feature, seed,
                                                   n_clients=N, device=dev)
+        if self.mesh is not None:
+            _held_whole(self.policy.out_spec(self.relay_state), "relay state")
         as_t = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
         self.test_x, self.test_y = as_t(test_data[0]), as_t(test_data[1])
         self.draws = draws if draws is not None else collab.TorchDraws(seed)
         self.ledger = comm.CommLedger()
         self.history: List[Dict] = []
-        # asynchrony: a pending buffer indexed by upload position, and the
-        # host's mirror of the commit order; a D_max = 0 clock is the
-        # synchronous fleet. Download lag: the snapshot ring, under any
-        # download clock. Only the relay modes commit and download.
+        # asynchrony: a pending buffer indexed by upload position (this
+        # rank's), and the host's mirror of the commit order; a D_max = 0
+        # clock is the synchronous fleet. Download lag: the snapshot ring,
+        # under any download clock. Only the relay modes commit and
+        # download.
         relay_mode = ccfg.mode in collab.RELAY_MODES
         self._async = (self.clock is not None and self.clock.d_max > 0
                        and relay_mode)
@@ -454,42 +578,53 @@ class VectorizedCollabTrainer:
         self._lagged = self.dl_clock is not None and relay_mode
         if self._async:
             self.pending = events.init_pending(
-                N, self.clock.d_max, ccfg.m_up, ccfg.num_classes,
-                ccfg.d_feature, fd=ccfg.mode == "fd", device=dev)
+                len(self._local_order), self.clock.d_max, ccfg.m_up,
+                ccfg.num_classes, ccfg.d_feature, fd=ccfg.mode == "fd",
+                device=dev)
             self._commit_mirror = events.CommitMirror()
         if self._lagged:
             self._h_max = self.dl_clock.d_max + 1
             self.hist = history.init(self.relay_state, self._h_max)
+            if self.mesh is not None:
+                _held_whole(history.out_spec(self.hist), "history ring")
         if self.hetero:
             self._init_bucketed(buckets, params_list, client_data)
             return
 
         self.spec = buckets[0][0]
+        self._lo, self._hi = self._local_ids[0][0], self._local_ids[0][-1] + 1
+        mine = slice(self._lo, self._hi)
         self.data_x, self.data_y, self.batches, self.params, self.opt_state \
-            = self._stack_clients(params_list, client_data)
-        self._model_size = baselines.num_params(self.client_params(0))
-        self._ids = torch.arange(N, dtype=torch.int32, device=dev)
+            = self._stack_clients(params_list[mine], client_data[mine],
+                                  min(len(x) for x, _ in client_data))
+        self._model_size = baselines.num_params(
+            {k: v[0] for k, v in self.params.items()})
+        self._ids = torch.arange(self._lo, self._hi, dtype=torch.int32,
+                                 device=dev)
         # static-k compaction: only when the schedule's participant count is
         # fixed and a strict subset (a full-size gather and scatter-back
         # would tax every full round for nothing), and never under
         # asynchrony, whose commits are not the participants' uploads; a
-        # streaming fleet runs full width (its seat ids are a device input)
+        # streaming fleet runs full width (its seat ids are a device input).
+        # On a mesh each rank's block is min(k, N / W) wide, padded with
+        # absent clients, so that its shape does not change with the round
         fixed_k = self.schedule.fixed_k if self.schedule is not None else None
         self._k_active = (fixed_k if fixed_k is not None and not self._async
                           else N)
+        self._k_block = min(self._k_active, self._hi - self._lo)
         self._round_step = (
             make_async_round_step(self.spec, ccfg, self.tcfg, self.policy,
-                                  self._lagged, self._telem)
+                                  self._lagged, self._telem, self.mesh)
             if self._async else self._make_round_step())
         self._eval_hits = make_eval_hits(self.spec)
 
     # ------------------------------------------------------------------
-    def _stack_clients(self, params_list, client_data):
-        """Trimmed data, batched views, parameters and fresh Adam state (one
-        step count a client), all with a leading client axis, on the
-        device."""
+    def _stack_clients(self, params_list, client_data, n_common: int):
+        """Data trimmed to `n_common` samples (the shortest partition of the
+        whole stack, this rank's part or not), batched views, parameters and
+        fresh Adam state (one step count a client), all with a leading
+        client axis, on the device."""
         dev = self.device
-        n_common = min(len(x) for x, _ in client_data)
         data_x = torch.stack([torch.as_tensor(np.asarray(x[:n_common]))
                               for x, _ in client_data]).to(dev)
         data_y = torch.stack([torch.as_tensor(np.asarray(y[:n_common]))
@@ -509,11 +644,14 @@ class VectorizedCollabTrainer:
         self.buckets: List[ClientBucket] = []
         self._client_slot: Dict[int, Tuple[int, int]] = {}
         for b, (spec, ids) in enumerate(buckets):
+            mine = self._local_ids[b]
             data_x, data_y, batches, params, opt = self._stack_clients(
-                [params_list[i] for i in ids], [client_data[i] for i in ids])
+                [params_list[i] for i in mine], [client_data[i] for i in mine],
+                min(len(client_data[i][0]) for i in ids))
             self.buckets.append(ClientBucket(
-                ids=np.asarray(ids, np.int64),
-                ids_t=torch.tensor(ids, dtype=torch.int32, device=self.device),
+                ids=np.asarray(mine, np.int64),
+                whole=np.asarray(ids, np.int64),
+                ids_t=torch.tensor(mine, dtype=torch.int32, device=self.device),
                 params=params, opt=opt, batches=batches, data_x=data_x,
                 data_y=data_y,
                 step=make_bucket_update_step(
@@ -523,8 +661,10 @@ class VectorizedCollabTrainer:
             for j, i in enumerate(ids):
                 self._client_slot[i] = (b, j)
         self._relay_commit = (
-            make_async_relay_commit(self.policy, self._lagged) if self._async
-            else make_relay_commit(self.policy, self._lagged))
+            make_async_relay_commit(self.policy, self._lagged, self.mesh,
+                                    self._layout) if self._async
+            else make_relay_commit(self.policy, self._lagged, self.mesh,
+                                   self._layout, [n for _, n in self._spans]))
         # the ring advances in a synchronous round that commits nothing
         self._hist_push = history.push
         # no single step to put telemetry in: one call after the commit
@@ -533,25 +673,37 @@ class VectorizedCollabTrainer:
                 self.n_clients, asynchronous=self._async, lagged=self._lagged)
 
     def client_params(self, i: int) -> Dict[str, torch.Tensor]:
-        """Client i's parameters, unstacked (views into its stack)."""
+        """Client i's parameters, unstacked: views into its stack where this
+        rank holds client i. On a mesh, for a client of a client-sharded
+        stack, this is a COLLECTIVE: every rank calls it with the same i
+        and gets a copy from the rank that holds the client."""
         if self.hetero:
             b, j = self._client_slot[i]
-            return {k: v[j] for k, v in self.buckets[b].params.items()}
-        return {k: v[i] for k, v in self.params.items()}
+            stack, n_mine = self.buckets[b].params, len(self.buckets[b].ids)
+            n_all = len(self.buckets[b].whole)
+        else:
+            j, stack = i, self.params
+            n_mine, n_all = self._hi - self._lo, self.n_clients
+        if n_mine == n_all:
+            return {k: v[j] for k, v in stack.items()}
+        got = placement.gather({k: v[j % n_mine][None]
+                                for k, v in stack.items()}, self.mesh)
+        return {k: v[j // n_mine] for k, v in got.items()}
 
     # ------------------------------------------------------------------
     def _make_round_step(self):
-        ccfg, N = self.ccfg, self.n_clients
+        ccfg, N, mesh = self.ccfg, self.n_clients, self.mesh
         lagged, telem = self._lagged, self._telem
         bucket_step = make_bucket_update_step(self.spec, ccfg, self.tcfg,
                                               self.policy, lagged=lagged)
-        commit = make_relay_commit(self.policy)
-        compact = self._k_active < N
+        commit = make_relay_commit(self.policy, mesh=mesh)
+        compact = self._k_block < self._hi - self._lo
 
         def round_core(params, opt, rstate, batches, data_x, data_y, ids,
                        noise, picks, prio, mask, idx, *lag):
             # `lag` = (hist, dl) under a download clock: the snapshot ring
-            # and this round's (N,) snapshot depths
+            # and this round's (N,) snapshot depths. On a mesh every
+            # client-sharded input is this rank's block
             rstate0 = rstate
             # phase 0: the participants' (k, ...) block, gathered by `idx`
             full = (params, opt, batches, data_x, data_y, ids, noise, picks,
@@ -566,28 +718,31 @@ class VectorizedCollabTrainer:
             p_s, o_s, metrics, payload = bucket_step(
                 p_s, o_s, lag[0] if lagged else rstate, b_s, dx, dy, ids_s,
                 noise_s, picks_s, prio_s, sub, *full[10:])
-            # phase 3b: one append, one merge, kept only if someone took
-            # part; or fedavg's weight average
+            put = lambda whole, part: whole.index_copy(0, idx, part)
+            if compact:
+                metrics = {k: put(v.new_zeros(mask.shape + v.shape[1:]), v)
+                           for k, v in metrics.items()}
+            # phase 3b, the round's one exchange: one append and one merge,
+            # kept only if someone took part; or fedavg's weight average;
+            # the telemetry's per-client inputs ride along
+            parts = None if not telem else _telemetry_parts(
+                metrics, mask, dl=lag[1] if lagged else None)
             if payload is not None:
-                rstate = keep_if(sub.any(), commit(rstate, [payload]), rstate)
+                rstate, parts = commit(rstate, [payload], extra=parts)
             elif ccfg.mode == "fedavg":
-                p_s = fedavg_average(p_s, sub)
+                p_s, parts = fedavg_average(p_s, sub, mesh, parts)
+            elif parts is not None:
+                parts = placement.exchange(parts, mesh)
             # phase 4: the block scattered back into the stacks
             if compact:
-                put = lambda whole, part: whole.index_copy(0, idx, part)
                 params, opt = tree_map(put, params, p_s), tree_map(put, opt, o_s)
-                metrics = {k: put(v.new_zeros((N,) + v.shape[1:]), v)
-                           for k, v in metrics.items()}
             else:
                 params, opt = p_s, o_s
-            # telemetry, over the full-width metrics and mask: a synchronous
+            # telemetry over the full-width metrics and mask: a synchronous
             # commit's lag is 0, so commit_hist is the participant count in
             # bin 0; stale reads come from the full-width delays
-            tail = () if not telem else (obs.round_telemetry(
-                rstate0, rstate, N, mask=mask,
-                loss_parts=(metrics["total"],),
-                gnorm_parts=(metrics["grad_norm"],), mask_parts=(mask,),
-                dl=lag[1] if lagged else None),)
+            tail = () if not telem else (
+                _round_telemetry(rstate0, rstate, N, parts),)
             if lagged:
                 # the ring advances every round, also when nothing
                 # committed: "d rounds ago" counts rounds, not merges
@@ -614,6 +769,16 @@ class VectorizedCollabTrainer:
                             for i in ids]).to(dev)
         return noise, picks, prio
 
+    def _block_index(self, mask_mine) -> torch.Tensor:
+        """The compacted block's rows of this rank's stack: its present
+        clients, and on a mesh as many absent ones as pad the block to its
+        fixed width (masked rows, which change nothing), ascending."""
+        sel = np.nonzero(mask_mine)[0]
+        if sel.size < self._k_block:
+            pad = np.nonzero(~mask_mine)[0][:self._k_block - sel.size]
+            sel = np.sort(np.concatenate([sel, pad]))
+        return torch.as_tensor(sel).to(self.device)
+
     def _commits(self, r: int, mask_np, delays_np) -> List[Tuple[int, int]]:
         """The round's commits, [(birth round, client id)], in commit order:
         the event order of the commit mirror under asynchrony, the upload
@@ -636,7 +801,7 @@ class VectorizedCollabTrainer:
             # the owners evicted at admission, gone before any read
             view = self._cohort.round(r)
             mask_np = view.mask.copy()
-            ids = _i32(view.seat_ids, dev)
+            ids = _i32(view.seat_ids[self._lo:self._hi], dev)
             if view.evicted.size:
                 with self._span("evict", round=r) as sp:
                     self.relay_state = self._evict(self.relay_state,
@@ -651,21 +816,23 @@ class VectorizedCollabTrainer:
         commits = self._commits(r, mask_np, delays_np)
         telem = None
         if self.hetero:
-            metrics_all, telem = self._run_buckets(r, mask_np, present,
-                                                   delays_np, dl_np)
+            metrics_parts, telem = self._run_buckets(r, mask_np, present,
+                                                     delays_np, dl_np)
             model_size = 0
         else:
-            noise, picks, prio = self._round_draws(r, range(N),
-                                                   self.data_y.shape[1])
-            mask = torch.as_tensor(mask_np).to(dev)
-            lag = ((self.hist, _i32(dl_np, dev)) if self._lagged else ())
+            mine = slice(self._lo, self._hi)
+            noise, picks, prio = self._round_draws(
+                r, range(self._lo, self._hi), self.data_y.shape[1])
+            mask = torch.as_tensor(mask_np[mine]).to(dev)
+            lag = ((self.hist, _i32(dl_np[mine], dev)) if self._lagged
+                   else ())
             if self._async:
                 with self._span("round_step", round=r) as sp:
                     out = sp.block(self._round_step(
                         self.params, self.opt_state, self.relay_state,
                         self.pending, self.batches, self.data_x,
                         self.data_y, ids, noise, picks, prio, mask,
-                        _i32(delays_np, dev), _i32(r, dev), *lag))
+                        _i32(delays_np[mine], dev), _i32(r, dev), *lag))
                 if self._telem:
                     *out, telem = out
                 self.params, self.opt_state, self.relay_state, self.pending \
@@ -677,7 +844,8 @@ class VectorizedCollabTrainer:
                             f"schedule {self.schedule.name} emitted "
                             f"{present.size} participants, not its fixed_k "
                             f"{self._k_active}")
-                    idx = torch.as_tensor(present).to(dev)
+                if self._k_block < self._hi - self._lo:
+                    idx = self._block_index(mask_np[mine])
                 else:
                     idx = None                   # full width: no gather
                 with self._span("round_step", round=r) as sp:
@@ -690,7 +858,7 @@ class VectorizedCollabTrainer:
                 self.params, self.opt_state, self.relay_state = out[:3]
             if self._lagged:
                 self.hist = out[-2]
-            metrics_all = _host_metrics(out[-1])
+            metrics_parts = [out[-1]]
             model_size = self._model_size if ccfg.mode == "fedavg" else 0
         up, down = comm.round_floats(
             ccfg.mode, n_present=int(present.size), n_commit=len(commits),
@@ -699,7 +867,7 @@ class VectorizedCollabTrainer:
             m_down=ccfg.m_down, model_size=model_size)
         self.ledger.log_round(up, down)
         with self._span("eval"):
-            accs = self.evaluate_all()
+            metrics_all, accs = self._records(metrics_parts)
         rec = collab.log_round(self.history, present, accs, metrics_all,
                                commits, up, down, telem)
         self._obs.emit(rec)
@@ -709,62 +877,76 @@ class VectorizedCollabTrainer:
                      dl_np) -> Tuple[List[Dict], object]:
         """One round across the buckets: every bucket's step reads the
         round-start relay state (or, under lag, the shared ring), then one
-        commit writes all uploads in bucket order and merges once. A
-        synchronous round with no participant skips the commit on the host
-        (the ring still advances); the asynchronous commit runs every round,
-        with the mask and delays in upload order. -> (every client's
-        metrics, by client id; the RoundTelemetry or None), the telemetry
-        computed once after the commit, with the mask and delays in client
-        id order (its counts do not depend on the order)."""
+        commit exchanges and writes all uploads in bucket order and merges
+        once. A synchronous round with no participant skips the commit on
+        the host (the ring still advances); the asynchronous commit runs
+        every round, with the mask and delays in upload order. -> (each
+        bucket's metrics on this rank; the RoundTelemetry or None), the
+        telemetry computed once after the commit from the exchanged losses
+        and pending slots, with the mask and delays in client id order (its
+        counts do not depend on the order)."""
         dev = self.device
         rstate0 = self.relay_state
         pending0 = self.pending if self._async else None
-        payloads, parts, masks = [], [], []
+        payloads, parts = [], []
         with self._span("bucket_steps", round=r) as sp:
             for b in self.buckets:
                 noise, picks, prio = self._round_draws(r, b.ids,
                                                        b.data_y.shape[1])
-                masks.append(torch.as_tensor(mask_np[b.ids]).to(dev))
                 b.params, b.opt, metrics, payload = b.step(
                     b.params, b.opt, self.hist if self._lagged else rstate0,
                     b.batches, b.data_x, b.data_y, b.ids_t, noise, picks,
-                    prio, masks[-1],
+                    prio, torch.as_tensor(mask_np[b.ids]).to(dev),
                     *((_i32(dl_np[b.ids], dev),) if self._lagged else ()))
                 payloads.append(payload)
                 parts.append(metrics)
             sp.block(parts)
         hist = (self.hist,) if self._lagged else ()
+        # this rank's upload positions: the order of the pending buffer and
+        # of the concatenated payloads
+        order = self._local_order
+        mask_up = torch.as_tensor(mask_np[order]).to(dev)
+        delays_up = _i32(delays_np[order], dev) if self._async else None
+        extra = None
+        if self._telem:
+            extra = _telemetry_parts(
+                {k: torch.cat([m[k] for m in parts])
+                 for k in ("total", "grad_norm")}, mask_up,
+                pending=pending0, round_idx=_i32(r, dev), delays=delays_up)
         out = None
         with self._span("commit", round=r) as sp:
             if self._async:
-                order = self._upload_order
                 out = self._relay_commit(
-                    rstate0, self.pending, payloads, _i32(r, dev),
-                    _i32(delays_np[order], dev),
-                    torch.as_tensor(mask_np[order]).to(dev), *hist)
+                    rstate0, self.pending, payloads, _i32(r, dev), delays_up,
+                    mask_up, *hist, extra=extra)
                 self.relay_state, self.pending = out[:2]
             elif self.ccfg.mode in collab.RELAY_MODES and present.size:
-                out = self._relay_commit(rstate0, payloads, *hist)
-                self.relay_state = out[0] if self._lagged else out
-            elif self._lagged:
-                self.hist = self._hist_push(self.hist, rstate0)
-            if self._lagged and out is not None:
-                self.hist = out[-1]
+                out = self._relay_commit(rstate0, payloads, *hist,
+                                         extra=extra)
+                self.relay_state = out[0]
+            else:
+                if self._lagged:
+                    self.hist = self._hist_push(self.hist, rstate0)
+                if extra is not None:
+                    extra = placement.exchange(extra, self.mesh, self._layout)
+            if out is not None:
+                extra = out[-1]
+                if self._lagged:
+                    self.hist = out[-2]
             sp.block(self.relay_state)
         telem = None
         if self._telem:
-            rest = ((pending0, self.pending, _i32(r, dev),
-                     _i32(delays_np, dev)) if self._async else ())
+            split = lambda v: tuple(v.narrow(0, a, n) for a, n in self._spans)
+            rest = ()
+            if self._async:
+                pre, post = _pending_views(extra)
+                rest = (pre, post, _i32(r, dev), _i32(delays_np, dev))
             rest += (_i32(dl_np, dev),) if self._lagged else ()
             telem = self._telem_fn(
                 rstate0, self.relay_state, torch.as_tensor(mask_np).to(dev),
-                tuple(masks), tuple(m["total"] for m in parts),
-                tuple(m["grad_norm"] for m in parts), *rest)
-        metrics_all: List[Dict] = [None] * self.n_clients
-        for b, metrics in zip(self.buckets, parts):
-            for j, m in enumerate(_host_metrics(metrics)):
-                metrics_all[int(b.ids[j])] = m
-        return metrics_all, telem
+                split(extra["mask"]), split(extra["loss"]),
+                split(extra["gnorm"]), *rest)
+        return parts, telem
 
     def run(self, rounds: int, log_every: int = 0) -> List[Dict]:
         for k in range(rounds):
@@ -775,25 +957,90 @@ class VectorizedCollabTrainer:
         return self.history
 
     # ------------------------------------------------------------------
-    def evaluate_all(self, batch: int = 512) -> List[float]:
-        """Per-client test accuracy: all of a stack's clients on each test
-        chunk in one call, the hit counts added on the device, one host
-        read a stack."""
-        n = self.test_x.shape[0]
+    def _stacks(self):
+        """(eval function, parameter stack, whole client ids) of each
+        stack, in bucket order."""
+        if not self.hetero:
+            return [(self._eval_hits, self.params, np.arange(self.n_clients))]
+        return [(b.eval_hits, b.params, b.whole) for b in self.buckets]
 
-        def stack_hits(hits, P):
+    def _records(self, metrics_parts=None, batch: int = 512):
+        """Every client's test accuracy and, given each stack's (k,) metrics
+        on this rank, its metrics, both by client id: all of a stack's
+        clients on each test chunk in one call, the hit counts added on the
+        device; on a mesh one gather of every stack's hits and metrics
+        (outside the round step), then one host read a stack."""
+        n = self.test_x.shape[0]
+        local = []
+        for j, (hits, P, _) in enumerate(self._stacks()):
             correct = 0
             for i in range(0, n, batch):
                 correct = correct + hits(P, self.test_x[i:i + batch],
                                          self.test_y[i:i + batch])
-            return correct.cpu().numpy() / n
-
-        if not self.hetero:
-            return stack_hits(self._eval_hits, self.params).tolist()
+            local.append({"hits": correct} if metrics_parts is None
+                         else {"hits": correct, "m": metrics_parts[j]})
+        if self.mesh is not None:
+            whole = placement.gather(
+                tree_map(lambda *xs: torch.cat(xs), *local), self.mesh,
+                self._layout)
+            local = [tree_map(lambda v: v.narrow(0, a, k), whole)
+                     for a, k in self._spans]
         accs = np.zeros((self.n_clients,))
-        for b in self.buckets:
-            accs[b.ids] = stack_hits(b.eval_hits, b.params)
-        return accs.tolist()
+        metrics_all: List[Dict] = [None] * self.n_clients
+        for part, (_, _, ids) in zip(local, self._stacks()):
+            accs[ids] = part["hits"].cpu().numpy() / n
+            if metrics_parts is not None:
+                for j, m in enumerate(_host_metrics(part["m"])):
+                    metrics_all[int(ids[j])] = m
+        return metrics_all, accs.tolist()
+
+    def evaluate_all(self, batch: int = 512) -> List[float]:
+        """Per-client test accuracy by client id (on a mesh a collective:
+        every rank gets every client's)."""
+        return self._records(batch=batch)[1]
+
+
+def _check_mesh(mesh, n_clients: int):
+    """`FleetConfig.mesh` as the engine takes it: None, or a DeviceMesh
+    with a "clients" axis whose size divides the fleet."""
+    if mesh is None:
+        return None
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if placement.CLIENT_AXIS not in names:
+        raise ValueError(
+            f"FleetConfig.mesh must be a torch.distributed DeviceMesh with a "
+            f"{placement.CLIENT_AXIS!r} axis (sharding.client_mesh); got "
+            f"{mesh!r}")
+    w = sharding.axis_size(mesh, placement.CLIENT_AXIS)
+    if n_clients % w:
+        raise ValueError(
+            f"FleetConfig.mesh: the fleet's client axis (N={n_clients}) must "
+            f"divide the mesh's {placement.CLIENT_AXIS!r} axis ({w} ranks). "
+            "CLIENT_SHARDED state at rest (the client stacks, the async "
+            "pending buffer) is held in equal contiguous blocks, one a rank "
+            "(a mixed fleet's bucket that the mesh does not divide is held "
+            "whole by every rank instead). Pad the fleet or use a rank "
+            "count that divides it.")
+    return mesh
+
+
+def _stack_placement(mesh, n: int) -> str:
+    """Where a stack of n clients lives on `mesh`: client-sharded when the
+    mesh divides n (and off a mesh, where every stack is whole anyway),
+    replicated otherwise."""
+    if mesh is not None and n % sharding.axis_size(mesh,
+                                                   placement.CLIENT_AXIS):
+        return placement.REPLICATED
+    return placement.CLIENT_SHARDED
+
+
+def _held_whole(declaration, what: str):
+    """The engine holds the relay state and its history ring whole on every
+    rank, as their placement declarations say."""
+    if placement.tags(declaration) != {placement.REPLICATED}:
+        raise NotImplementedError(
+            f"the {what}'s placement declaration has client-sharded leaves; "
+            "the vectorized engine holds it whole on every rank")
 
 
 def _i32(a, dev) -> torch.Tensor:

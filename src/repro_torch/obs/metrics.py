@@ -1,6 +1,8 @@
 """Round telemetry: one fixed-shape `RoundTelemetry` of tensors a round; the
-port of `repro/obs/metrics.py` (without `out_spec`: placement comes with
-multi-device, ROADMAP slice 9).
+port of `repro/obs/metrics.py`. Every leaf is a fleet-wide summary, so the
+tuple is REPLICATED on a client mesh (`out_spec`): the vectorized engine's
+client-sharded inputs of it (losses, gradient norms, masks, the pending
+buffer's slots) ride the round's one exchange.
 
 The vectorized engine computes it INSIDE its round step (a build flag of the
 step: with it off the step's inputs, outputs and device ops are exactly
@@ -44,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.relay import placement
 from repro_torch.relay.base import EMPTY_OWNER
 
 # One histogram width for stale_hist and commit_hist: ages and lags
@@ -70,6 +73,13 @@ class RoundTelemetry(NamedTuple):
 EXACT_LEAVES = ("occupancy", "fill", "owner_diversity", "stale_hist",
                 "pending_depth", "commit_hist", "stale_reads")
 FLOAT_LEAVES = ("proto_drift", "bucket_loss", "bucket_grad_norm")
+
+
+def out_spec(telem: RoundTelemetry):
+    """Placement declaration (`relay/placement.py`): every leaf is a
+    fleet-wide summary of replicated relay and pending reductions, nothing
+    is per-client resident, so the whole tuple is REPLICATED."""
+    return placement.like(telem, placement.REPLICATED)
 
 
 def _hist(bins, weights):

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prototypes
+from repro_torch.relay import placement
 from repro_torch.types import CollabConfig
 
 # Ring-slot owner sentinels. Real clients are >= 0.
@@ -175,6 +176,17 @@ class RelayPolicy:
 
     def debug_entries(self, state):
         raise NotImplementedError
+
+    def out_spec(self, state):
+        """Placement tree of `state` (same structure, one REPLICATED or
+        CLIENT_SHARDED tag a leaf; `relay/placement.py`), which the
+        vectorized engine reads on a client mesh. The relay is the paper's
+        SHARED pool (every client samples from it and the server merges
+        into it), so the default, which every built-in policy keeps, is all
+        REPLICATED: no leading axis of theirs is a client axis (the flat
+        ring's is a slot, per_class's a class, the sharded relay's a
+        cohort shard)."""
+        return placement.like(state, placement.REPLICATED)
 
     # when None the engines keep their own mask-weighted prototype sum
     reduce_uploads = None

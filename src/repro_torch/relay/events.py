@@ -27,8 +27,11 @@ records and the ledger. A delayed upload's per-class sums join the merge
 of its commit round, so round t's global prototypes average exactly the
 contributions that committed in round t.
 
-Not ported here: the reference's placement (`out_spec`, the `mesh`
-exchange of `commit_and_park`: multi-device, ROADMAP slice 9).
+On a client mesh the pending buffer is CLIENT_SHARDED (`out_spec`): each
+rank parks its own block of upload positions, and `commit_and_park`'s
+commit payload (this round's uploads and the parked ones, by upload
+position) is the round's one exchange (`relay/placement.py`), after which
+every rank appends and merges the same rows and sums.
 """
 from __future__ import annotations
 
@@ -38,8 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prototypes
-from repro_torch.relay import participation
-from repro_torch.tree import tree_map
+from repro_torch.relay import participation, placement
 
 
 class PendingState(NamedTuple):
@@ -90,6 +92,15 @@ def init_pending(n: int, d_max: int, m_up: int, num_classes: int,
         live=zb(n, d_max))
 
 
+def out_spec(pending: PendingState):
+    """Placement declaration (`relay/placement.py`): every leaf is indexed
+    [upload position, pending slot, ...] and an in-flight upload is read by
+    no other client until it commits, so the whole buffer is CLIENT_SHARDED
+    over its leading (upload position) axis; the commit is the exchange
+    point (`commit_and_park`'s `mesh`)."""
+    return placement.like(pending, placement.CLIENT_SHARDED)
+
+
 def event_slot_order(round_idx, d_max: int):
     """Pending slots in EVENT (birth-ascending) order for a round-
     `round_idx` commit: the slot of birth round_idx - d_max, ..., of birth
@@ -101,12 +112,6 @@ def event_slot_order(round_idx, d_max: int):
     return torch.remainder(births, d_max).to(torch.int32)
 
 
-def _ordered(pending: PendingState, order):
-    """The pending buffer as (D, N, ...) with D in event order."""
-    return tree_map(
-        lambda a: a.movedim(0, 1).index_select(0, order), pending)
-
-
 def _rep(a, m: int):
     """Each upload's entry repeated for its m observation rows:
     (k, ...) -> (k * m, ...)."""
@@ -114,8 +119,21 @@ def _rep(a, m: int):
         .reshape(a.shape[0] * m, *a.shape[1:])
 
 
+def live_after(pending: PendingState, round_idx, delays, mask):
+    """The pending buffer's `live` after round `round_idx`'s commit: the due
+    uploads retired, this round's delayed ones parked in slot round_idx
+    mod D_max. (N, D) bool, with no host read."""
+    slot = torch.remainder(round_idx, pending.d_max).reshape(1).long()
+    live = pending.live & (pending.commit != round_idx)
+    return live.index_copy(1, slot, (mask & (delays > 0)).unsqueeze(1))
+
+
+_PARKED = ("obs", "valid", "psum", "pcnt", "lsum", "lcnt", "stamp")
+
+
 def commit_and_park(policy, rstate, pending: PendingState, fresh: Dict,
-                    round_idx, delays, mask):
+                    round_idx, delays, mask, mesh=None,
+                    layout=placement.CLIENT_SHARDED, extra=None):
     """ONE round of the asynchronous relay, with no host read: commit every
     due event in event order, then park this round's delayed uploads. The
     single relay write of the asynchronous engines.
@@ -126,38 +144,59 @@ def commit_and_park(policy, rstate, pending: PendingState, fresh: Dict,
     round_idx a 0-d int32 tensor; delays (N,) int32 this round's commit
     delays and mask (N,) bool participation, both in upload order.
 
+    mesh: a client mesh, on which N is this rank's block of upload
+    positions (`layout`: CLIENT_SHARDED, or `placement.Blocks` for a mixed
+    fleet). The commit payload, this round's uploads and the parked ones
+    by upload position with their commit masks and birth stamps, is THE
+    round's exchange (`placement.exchange`; the identity off a mesh): every
+    rank then appends the same rows in event order and reduces the same
+    per-position sums in the unsharded order, and parks its own block.
+    `extra`, client-sharded leaves of the same layout (telemetry's inputs),
+    rides the exchange and comes back gathered as a third output.
+
     Returns (new_rstate, new_pending). A round with no commit leaves rstate
     untouched (no append, no merge, no clock tick): `keep_if` on the
     device."""
     owner = fresh["owner"]
     dev = owner.device
-    N, m = fresh["obs"].shape[:2]
     D = pending.d_max
     round_idx = torch.as_tensor(round_idx, dtype=torch.int32, device=dev)
     fresh_commit = mask & (delays == 0)
     fresh_stamp = policy.stamp_now(rstate, owner)
-    wf = fresh_commit.to(torch.float32)
+    payload = {"fresh": dict(fresh, commit=fresh_commit, stamp=fresh_stamp)}
+    if D > 0:
+        payload["parked"] = dict(
+            {k: getattr(pending, k) for k in _PARKED},
+            due=pending.live & (pending.commit == round_idx))
+    payload, shared = placement.exchange((payload, extra), mesh, layout)
+    f = payload["fresh"]
+    owner_all = f["owner"]
+    N, m = f["obs"].shape[:2]
+    wf = f["commit"].to(torch.float32)
 
     # -- the commit set in event order: parked slots, then the fresh rows --
-    obs_rows = fresh["obs"].reshape(N * m, *fresh["obs"].shape[2:])
-    valid_rows = _rep(fresh["valid"], m)
-    owner_rows = _rep(owner, m)
-    row_mask = _rep(fresh_commit, m)
-    stamp_rows = _rep(fresh_stamp, m)
-    any_commit = fresh_commit.any()
+    obs_rows = f["obs"].reshape(N * m, *f["obs"].shape[2:])
+    valid_rows = _rep(f["valid"], m)
+    owner_rows = _rep(owner_all, m)
+    row_mask = _rep(f["commit"], m)
+    stamp_rows = _rep(f["stamp"], m)
+    any_commit = f["commit"].any()
+    po = {}
     if D > 0:
-        po = _ordered(pending, event_slot_order(round_idx, D))  # (D, N, ...)
-        due = po.live & (po.commit == round_idx)                 # (D, N)
+        order = event_slot_order(round_idx, D)
+        po = {k: None if v is None else v.movedim(0, 1).index_select(0, order)
+              for k, v in payload["parked"].items()}          # (D, N, ...)
         flat = lambda a: a.reshape(D * N, *a.shape[2:])
-        obs_rows = torch.cat([po.obs.reshape(D * N * m, *po.obs.shape[3:]),
+        obs_rows = torch.cat([po["obs"].reshape(D * N * m,
+                                                *po["obs"].shape[3:]),
                               obs_rows])
-        valid_rows = torch.cat([_rep(flat(po.valid), m), valid_rows])
-        owner_rows = torch.cat([_rep(owner.expand(D, N).reshape(-1), m),
+        valid_rows = torch.cat([_rep(flat(po["valid"]), m), valid_rows])
+        owner_rows = torch.cat([_rep(owner_all.expand(D, N).reshape(-1), m),
                                 owner_rows])
-        row_mask = torch.cat([_rep(flat(due), m), row_mask])
-        stamp_rows = torch.cat([_rep(flat(po.stamp), m), stamp_rows])
-        wdue = due.to(torch.float32)
-        any_commit = any_commit | due.any()
+        row_mask = torch.cat([_rep(flat(po["due"]), m), row_mask])
+        stamp_rows = torch.cat([_rep(flat(po["stamp"]), m), stamp_rows])
+        wdue = po["due"].to(torch.float32)
+        any_commit = any_commit | po["due"].any()
 
     def reduce(fsum, fcnt, parked_sum, parked_cnt):
         """The committing uploads' prototype sums: the mask-weighted sum
@@ -179,37 +218,35 @@ def commit_and_park(policy, rstate, pending: PendingState, fresh: Dict,
         if D > 0:
             s = s + (parked_sum * wdue[:, :, None, None]).sum(0)
             c = c + (parked_cnt * wdue[:, :, None]).sum(0)
-        return policy.reduce_uploads(s, c, torch.ones_like(wf), owner)
+        return policy.reduce_uploads(s, c, torch.ones_like(wf), owner_all)
 
-    proto = reduce(fresh["psum"], fresh["pcnt"], po.psum if D else None,
-                   po.pcnt if D else None)
-    logit = (reduce(fresh["lsum"], fresh["lcnt"], po.lsum if D else None,
-                    po.lcnt if D else None)
-             if fresh.get("lsum") is not None else None)
+    proto = reduce(f["psum"], f["pcnt"], po.get("psum"), po.get("pcnt"))
+    logit = (reduce(f["lsum"], f["lcnt"], po.get("lsum"), po.get("lcnt"))
+             if f.get("lsum") is not None else None)
     new = policy.append(rstate, obs_rows, valid_rows, owner_rows, row_mask,
                         stamp_rows)
     new = policy.merge_round(new, proto, logit)
     rstate = participation.keep_if(any_commit, new, rstate)
 
-    # -- park this round's delayed uploads in slot round_idx mod D ---------
-    if D == 0:
-        return rstate, pending
-    park = mask & (delays > 0)
-    slot = torch.remainder(round_idx, D).reshape(1).long()
-    live = pending.live & (pending.commit != round_idx)        # retire the due
-    put = lambda buf, v: (None if buf is None
-                          else buf.index_copy(1, slot, v.unsqueeze(1)))
-    return rstate, pending._replace(
-        obs=put(pending.obs, fresh["obs"]),
-        valid=put(pending.valid, fresh["valid"]),
-        psum=put(pending.psum, fresh["psum"]),
-        pcnt=put(pending.pcnt, fresh["pcnt"]),
-        lsum=put(pending.lsum, fresh.get("lsum")),
-        lcnt=put(pending.lcnt, fresh.get("lcnt")),
-        birth=put(pending.birth, round_idx.expand(N)),
-        stamp=put(pending.stamp, fresh_stamp),
-        commit=put(pending.commit, (round_idx + delays).to(torch.int32)),
-        live=put(live, park))
+    # -- park this rank's delayed uploads in slot round_idx mod D ----------
+    out = (rstate, pending)
+    if D > 0:
+        n = owner.shape[0]
+        slot = torch.remainder(round_idx, D).reshape(1).long()
+        put = lambda buf, v: (None if buf is None
+                              else buf.index_copy(1, slot, v.unsqueeze(1)))
+        out = (rstate, pending._replace(
+            obs=put(pending.obs, fresh["obs"]),
+            valid=put(pending.valid, fresh["valid"]),
+            psum=put(pending.psum, fresh["psum"]),
+            pcnt=put(pending.pcnt, fresh["pcnt"]),
+            lsum=put(pending.lsum, fresh.get("lsum")),
+            lcnt=put(pending.lcnt, fresh.get("lcnt")),
+            birth=put(pending.birth, round_idx.expand(n)),
+            stamp=put(pending.stamp, fresh_stamp),
+            commit=put(pending.commit, (round_idx + delays).to(torch.int32)),
+            live=live_after(pending, round_idx, delays, mask)))
+    return out if extra is None else out + (shared,)
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,8 @@ returns a state of the policy's own type.
 engine runs them inside its round step; the sequential engine replays the
 ring as a most-recent-first list (`core/collab.py`). `H_max = 1` keeps only
 the current state: delay-0 reads equal the history-free engines' bit for
-bit. The reference's placement declaration (`out_spec`) comes with the
-multi-device slice (ROADMAP slice 9).
+bit. On a client mesh the ring is REPLICATED (`out_spec`): every rank
+holds every snapshot, and a client's stale read is a local gather.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.relay import placement
 from repro_torch.tree import tree_map
 
 
@@ -65,6 +66,15 @@ def init(snapshot, h_max: int) -> History:
                      snapshot)
     return History(snaps=snaps, head=torch.zeros(
         (), dtype=torch.int32, device=_first_leaf(snapshot).device))
+
+
+def out_spec(hist: History):
+    """Placement declaration (`relay/placement.py`): the ring stacks
+    snapshots of a REPLICATED relay state along a history axis, and every
+    client must be able to read any depth, so the whole ring (snaps and
+    head) is REPLICATED; a client-sharded delay vector then reads it with a
+    local gather on each rank."""
+    return placement.like(hist, placement.REPLICATED)
 
 
 def push(hist: History, snapshot) -> History:

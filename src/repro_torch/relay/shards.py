@@ -31,7 +31,8 @@ shard's own merge. With S = 1 the gossip mean IS the inner merge and
 `reduce_uploads` is the engines' own weighted sum, op for op, so
 `sharded:<inner>,1` evolves the state of `<inner>` bit for bit.
 
-Not ported here: `out_spec` (placement, ROADMAP slice 9).
+On a client mesh the stacked state is REPLICATED (`out_spec`): every rank
+runs the same reduction and merge over the round's gathered uploads.
 """
 from __future__ import annotations
 

@@ -199,8 +199,13 @@ class FleetConfig:
     (`sim.get_clock`, `sim.get_download_clock`) and streaming arrivals
     (`sim.get_arrivals`; not with a schedule, an upload clock with
     D_max > 0, a download clock, a mode without a relay or a mixed fleet,
-    as in the reference); a mesh raises `NotImplementedError` naming the
-    ROADMAP slice that brings it."""
+    as in the reference).
+
+    mesh: None, or a `torch.distributed` DeviceMesh with a "clients" axis
+    (`sharding.client_mesh(W)`, built in every rank of an initialized
+    process group): the vectorized engine then holds N / W clients a rank
+    and exchanges the round's uploads once (`relay/placement.py`); W must
+    divide N. The sequential engine refuses a mesh."""
     policy: Any = None
     participation: Any = None
     clock: Any = None

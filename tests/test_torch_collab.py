@@ -121,7 +121,9 @@ def test_port_trainer_rejects_what_it_does_not_run():
     with pytest.raises(ValueError, match="unknown mode"):
         tcollab.CollabTrainer(*args, CollabConfig(mode="fl"), TrainConfig(),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 9"):
+    # as the reference's sequential oracle, in its words: a mesh is the
+    # vectorized engine's (tests/test_torch_placement.py)
+    with pytest.raises(ValueError, match="sequential oracle.*host-side"):
         tcollab.CollabTrainer(*args, CollabConfig(), TrainConfig(),
                               fleet=FleetConfig(mesh=object()), device="cpu")
     for fleet in (FleetConfig(policy="sharded:flat,2"),

@@ -886,3 +886,91 @@ def test_reduced_whisper_serving_on_the_card_matches_the_cpu(cuda):
     err = float((out["cuda"]["logits"].cpu() - want).abs().max())
     assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
     assert torch.equal(out["cuda"]["ids"], out["cpu"]["ids"])
+
+
+def _mlp_fleet(cuda, fleet, mesh=None, n=4):
+    from repro_torch.core import client, vec_collab
+    from repro_torch.data import partition, synthetic
+    from repro_torch.models import mlp
+    from repro_torch.types import CollabConfig, FleetConfig, TrainConfig
+    x, y = synthetic.class_images(48 * n, seed=0, noise=0.4)
+    parts = partition.uniform_split(x, y, n, seed=1)
+    spec = client.ClientSpec(apply=mlp.apply,
+                             head=lambda p: (p["head_w"], p["head_b"]))
+    gen = torch.Generator().manual_seed(0)
+    ps = [mlp.init_mlp(gen, device="cpu") for _ in range(n)]
+    return vec_collab.VectorizedCollabTrainer(
+        [spec] * n, ps, parts, (x, y), CollabConfig(lambda_kd=2.0),
+        TrainConfig(batch_size=16), seed=0, fleet=FleetConfig(mesh=mesh, **fleet),
+        device=cuda, telemetry=True)
+
+
+@pytest.mark.parametrize("fleet", [
+    {}, {"participation": "uniform_k:2"},
+    {"clock": "lognormal:2", "download_clock": "periodic:2,3"}])
+def test_one_rank_nccl_mesh_round_is_bit_equal_and_never_syncs(cuda, fleet):
+    """The vec engine on a one-rank NCCL client mesh, each round step (its
+    exchange included) under CUDA sync-debug mode "error" after the
+    communicator is up: three rounds with telemetry bit-equal to the
+    unsharded engine's (records, relay state, parameters) and one exchange
+    a round."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import ranks, sharding
+    from repro_torch.relay import placement
+    from repro_torch.tree import leaves
+    tmp = tempfile.mkdtemp()
+    ranks.init(0, 1, "nccl", f"file://{tmp}/rendezvous")
+    try:
+        mesh = sharding.client_mesh(1)
+        placement.gather(torch.zeros(1, device=cuda), mesh)
+        meshed, plain = _mlp_fleet(cuda, fleet, mesh), _mlp_fleet(cuda, fleet)
+        step = meshed._round_step
+
+        def no_sync_step(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        meshed._round_step = no_sync_step
+        placement.reset_exchanges()
+        for _ in range(3):
+            assert meshed.run_round() == plain.run_round()
+        assert placement.EXCHANGES["exchange"] == 6
+        for a, b in zip(leaves(meshed.relay_state), leaves(plain.relay_state)):
+            assert torch.equal(a, b)
+        for i in range(4):
+            pa, pb = meshed.client_params(i), plain.client_params(i)
+            assert all(torch.equal(pa[k], pb[k]) for k in pa)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_four_ranks_sharing_the_card_equal_the_unsharded_records(cuda,
+                                                                tmp_path):
+    """Four gloo ranks sharing cuda:0 (tests/torch_fleet_ranks.py), 2
+    clients a rank: every rank's records equal rank 0's, one exchange a
+    round, and each composition held against the unsharded engine on the
+    card (integers exactly, floats at the vec-against-seq tolerances)."""
+    import pickle
+    import torch_fleet_ranks as tfr
+    from repro_torch import ranks
+    ranks.spawn(tfr.card_rank_main, 4, "gloo", str(tmp_path))
+    got = []
+    for r in range(4):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            got.append(pickle.load(f))
+    for marker, n, fleet, mode, hetero, telem, rounds in tfr.COMPOSITIONS:
+        if marker not in tfr.CARD_COMPOSITIONS:
+            continue
+        for g in got:
+            assert g[marker]["records"] == got[0][marker]["records"], marker
+            assert g[marker]["exchanges"] == rounds, marker
+        plain = tfr.build("vec", n, fleet, mode, hetero, telem,
+                          device="cuda")
+        for _ in range(rounds):
+            plain.run_round()
+        tfr.held_against(got[0][marker], plain, marker, rounds, tight=True)
+

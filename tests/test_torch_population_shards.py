@@ -58,6 +58,7 @@ from test_torch_async_relay import (J_SPECS, T_SPECS, _data, _kw,  # noqa: F401
                                     one_torch_thread, run_three,
                                     shared_reference_jits)
 from test_torch_download_lag import run_lagged, stale_reads
+from torch_dist import one_rank_mesh
 from test_torch_relay_policies import (client_weights, relay_state,
                                        state_fields)
 
@@ -539,11 +540,19 @@ def test_streaming_composition_guards(fleet, mode, hetero):
 
 
 def test_streaming_accepts_a_delay0_clock_and_refuses_a_mesh():
+    """As in the reference: the sequential engine refuses a mesh, in the
+    reference's words, and the vectorized one runs a streaming fleet on a
+    client mesh (here one rank), record for record as without it."""
     for which in ("seq", "vec"):
         t = _trainer(which, dict(arrivals="stream:2", clock="homogeneous:0"))
         t.run_round()
-        with pytest.raises(NotImplementedError, match="ROADMAP slice 9"):
-            _trainer(which, dict(arrivals="stream:2", mesh=object()))
+    with one_rank_mesh() as mesh:
+        with pytest.raises(ValueError, match="sequential oracle.*host-side"):
+            _trainer("seq", dict(arrivals="stream:2", mesh=mesh))
+        plain = _trainer("vec", dict(arrivals="stream:2"))
+        meshed = _trainer("vec", dict(arrivals="stream:2", mesh=mesh))
+        for _ in range(2):
+            assert plain.run_round() == meshed.run_round()
 
 
 @pytest.mark.slow

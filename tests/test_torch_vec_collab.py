@@ -278,6 +278,15 @@ def test_stacked_params_round_trip():
         np.testing.assert_array_equal(back[k], np.stack([p[k] for p in np_params]))
 
 
+class _FourRankMesh:
+    """A stand-in with a DeviceMesh's axis surface: "clients" over 4 ranks
+    (the fleet-size guard runs before anything needs a process group)."""
+    mesh_dim_names = ("clients",)
+
+    def size(self, dim=None):
+        return 4
+
+
 def test_vec_engine_rejects_what_it_does_not_run():
     x, y = synthetic.class_images(64, seed=0)
     parts = partition.uniform_split(x, y, 2, seed=1)
@@ -289,9 +298,16 @@ def test_vec_engine_rejects_what_it_does_not_run():
     with pytest.raises(ValueError, match="unknown mode"):
         tvec.VectorizedCollabTrainer(*args, CollabConfig(mode="fl"),
                                      TrainConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 9"):
+    # a mesh must be a DeviceMesh with a "clients" axis, whose size divides
+    # the fleet (the reference's guard, in its words); the mesh runs are in
+    # tests/test_torch_placement.py and tests/test_torch_multidevice.py
+    with pytest.raises(ValueError, match="DeviceMesh with a 'clients' axis"):
         tvec.VectorizedCollabTrainer(*args, CollabConfig(), TrainConfig(),
                                      fleet=FleetConfig(mesh=object()),
+                                     device="cpu")
+    with pytest.raises(ValueError, match="must divide"):
+        tvec.VectorizedCollabTrainer(*args, CollabConfig(), TrainConfig(),
+                                     fleet=FleetConfig(mesh=_FourRankMesh()),
                                      device="cpu")
     for fleet in (FleetConfig(policy="sharded:flat,2"),
                   FleetConfig(arrivals="stream:2,1,0.1,100,0")):
