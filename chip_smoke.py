@@ -206,7 +206,26 @@ Phases (each failure raises, so the process exits non-zero):
      step with the client axis and no flash launch, peak under 70 GB,
      MoE's balance loss finite; s/step, tokens/s, and one profiled step
      (busy share, device ops, proto_accum's device time). Phase 10a holds
-     Whisper and the four kinds, reduced, on the card against the CPU.
+     Whisper and the four kinds, reduced, on the card against the CPU;
+  14. the LM launch path on a mesh (`launch/mesh.py`, `sharding.py`'s LM
+     half, the serve and train shardings on DTensor): 14a, one NCCL rank,
+     mesh (1, 1) over ("data", "model"), TinyLlama-1.1B at full depth:
+     phase 7's serving and phase 10b's training (2 steps of each of "tp",
+     "dp_only" and "zero1") on trees placed by the shardings, bit-equal to
+     the unsharded path (logits, tokens, caches; parameters, moments,
+     ProtoState, metrics), 22 flash launches a prefill and one
+     proto_accum launch a step (`ops` runs DTensors through `local_map`),
+     prefill ms, decode ms a step and s/step beside the unsharded ones;
+     14b, four gloo ranks sharing the card (DTensor's functional
+     collectives staged through host memory, `ranks.
+     stage_functional_collectives`), mesh (2, 2), full width and 4 of 22
+     layers in float32: serving and one train step of each strategy
+     against the unsharded runs on the card, within MESH_LM_* (a bf16
+     prefill's difference reported only).
+Phase 5h-a also runs the MLP stack check (clients 0-1's features and
+gradients within the 8-client MLP stack against a 2-client stack, and the
+first layer's batched GEMM at batch 8 against batch 2). Phases 10b and 13
+print each peak beside `launch/roofline.memory_floor_bytes`.
 Phase 4 also holds three faulty flash results at the serving shape and at
 DeepSeek-V2-Lite's split shape against the bf16 check, which must reject
 each: a bf16 accumulator, the last 16 keys dropped, and P rounded to bf16
@@ -220,7 +239,7 @@ also on a (k, ...) block gathered by `index_select` from an N-client stack
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12 and 13) before the last line,
+phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12, 13 and 14) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -2330,6 +2349,19 @@ def phase_mesh_one_rank(dev, smi):
               + ", ".join(f"{k}: features {a:.3e}, gradients {b:.3e} "
                           f"(relative) apart"
                           for k, (a, b) in conv.items()))
+        mlp_check = mlp_stack_check(
+            mesh_fleet({}, False, False, dev).params,
+            MESH_CLIENTS // MESH_RANKS, dev)
+        print(f"[mesh] MLP stack: clients 0-"
+              f"{MESH_CLIENTS // MESH_RANKS - 1}'s features and hidden-weight "
+              f"gradients within the {MESH_CLIENTS}-client stack against a "
+              f"{MESH_CLIENTS // MESH_RANKS}-client stack: features "
+              f"{mlp_check['features']:.3e}, gradients "
+              f"{mlp_check['gradients']:.3e} (relative) apart; the first "
+              f"layer's batched GEMM, slices 0-"
+              f"{MESH_CLIENTS // MESH_RANKS - 1} of {MESH_CLIENTS} against "
+              f"{MESH_CLIENTS // MESH_RANKS}: {mlp_check['bmm']:.3e} apart "
+              f"[{smi}]")
         with cudnn_enabled(False):
             plain[MESH_PINNED] = mesh_run(build_trainer(
                 SCALE_CLIENTS, "cors", **kw))
@@ -2358,7 +2390,8 @@ def phase_mesh_one_rank(dev, smi):
                   f"{ROUNDS} rounds, profiled round {n_ops} device ops, "
                   f"{busy_us / 1e3:.3f} ms busy ({100 * busy:.1f}%) [{smi}]")
         out = {"ranks": 1, "backend": "nccl", MESH_LENET: res,
-               "vec_vs_seq": vs_seq, "grouped_conv": conv}
+               "vec_vs_seq": vs_seq, "grouped_conv": conv,
+               "mlp_stack": mlp_check}
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2825,8 +2858,15 @@ def phase_lm_train(dev):
     print(f"[train profile] proto_accum {us_pa:.2f} us a launch at "
           f"{LM_PROTO_SHAPE}; {100 * us_pa / busy:.3f}% of the step's device "
           f"time")
+    floor = memory_floor(cfg, LM_BATCH, LM_SEQ)
+    print(f"[train] peak {peak / 1e9:.2f} GB against the analytic floor "
+          f"(launch/roofline.memory_floor_bytes: 12 bytes a parameter, one "
+          f"checkpoint a layer, logits, prototypes) {floor / 1e9:.2f} GB: "
+          f"{peak / floor:.2f}x; {peak / (LM_CLIENTS * n_par):.1f} bytes a "
+          f"parameter of the {LM_CLIENTS} clients")
     return {"s_per_step": s_step, "tokens_per_s": tokens / s_step,
-            "peak_bytes": peak, "hardware_flops": flops,
+            "peak_bytes": peak, "memory_floor_bytes": floor,
+            "hardware_flops": flops,
             "share_of_bf16_peak": flops / s_step / BF16_FLOPS,
             "model_flops": model_flops,
             "model_share_of_bf16_peak": model_flops / s_step / BF16_FLOPS,
@@ -3310,9 +3350,14 @@ def phase_model_train(dev, arch, layers, batch, seq, steps):
     n_pa, us_pa = port.get("proto_accum", (0, 0.0))
     if n_pa != 1 or "flash_attention" in port:
         raise AssertionError(f"[train {arch} profile] port kernels {port}")
+    floor = memory_floor(cfg, batch, seq)
+    print(f"[family train] {arch}: peak {peak / 1e9:.2f} GB against the "
+          f"analytic floor {floor / 1e9:.2f} GB (launch/roofline."
+          f"memory_floor_bytes): {peak / floor:.2f}x")
     res = {"arch": arch, "layers": cfg.num_layers, "of_layers": full,
            "params": n_par, "setup_s": setup_s, "s_per_step": s_step,
            "tokens_per_s": tokens / s_step, "peak_gb": peak / 1e9,
+           "memory_floor_gb": floor / 1e9,
            "steps_s": secs, "moe_aux": aux, "busy_share": busy / 1e6 / wall,
            "device_ops": launched, "proto_accum_us": us_pa,
            "proto_accum_share": us_pa / busy, "launches": launches,
@@ -3377,6 +3422,496 @@ def phase_train_kinds(dev):
     return rows
 
 
+# Phase 14: the LM launch path on a mesh (launch/mesh.py, the LM half of
+# sharding.py, the serve and train shardings on DTensor). 14a: one NCCL
+# rank, mesh (1, 1) over ("data", "model"), TinyLlama-1.1B at full depth:
+# phase 7's serving (SERVE_BATCH x SERVE_PROMPT, SERVE_TOKENS tokens) and
+# phase 10b's training (LM_CLIENTS x LM_BATCH x LM_SEQ, MESH_LM_STEPS steps
+# of each strategy) on placed trees, bit-equal to the unsharded path. 14b:
+# four gloo ranks sharing the card, mesh (2, 2), full width and
+# MESH_LM_LAYERS of 22 layers in float32: serving (MESH_LM_PROMPT-token
+# prompts, MESH_LM_TOKENS tokens) and one train step of each strategy
+# (MESH_LM_CLIENTS x MESH_LM_TRAIN_BATCH x MESH_LM_TRAIN_SEQ) held against the
+# unsharded step on the card: logits within CHECK_TOL x max(1, |logit|),
+# the step's loss within MESH_LM_LOSS_TOL relative, client 0's gradients
+# within MESH_LM_GRAD_TOL x max|g| a leaf, parameters and moments by
+# phase 10a's PARITY_PARAM_* rule (one step), proto counts exact; a bf16
+# prefill's difference is reported only.
+MESH_LM_ARCH = "tinyllama-1.1b"
+MESH_LM_STRATEGIES = ("tp", "dp_only", "zero1")
+MESH_LM_STEPS = 2
+MESH_LM_SHAPE = (2, 2)
+MESH_LM_LAYERS = 4
+MESH_LM_PROMPT, MESH_LM_TOKENS = 256, 4
+# one client (14a holds the two-client loop); its batch divides over the 4
+# ranks of (data, model) (dp_only)
+MESH_LM_CLIENTS, MESH_LM_TRAIN_BATCH, MESH_LM_TRAIN_SEQ = 1, 4, 128
+MESH_LM_LOSS_TOL, MESH_LM_GRAD_TOL = 1e-5, 1e-5
+
+
+def quiet_redistribute():
+    """DTensor warns at every redistribution that a flattened mesh would
+    take one collective where it takes two; the mesh here is (2, 2) on
+    purpose, and the warning floods the log."""
+    import logging
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+
+
+def mesh_lm_place_state(cfg, state, mesh, strategy):
+    from repro_torch import sharding
+    from repro_torch.launch import train
+    sharding.set_hints(mesh=mesh, moe_ep=False,
+                       moe_dp=strategy in ("dp_only", "zero1"))
+    return sharding.place(state, train.state_shardings(
+        state, cfg, mesh, state.opt.step.shape[0], strategy=strategy), mesh,
+        src_data_rank=None)
+
+
+def mesh_lm_place_batch(batch, mesh, strategy):
+    from repro_torch import sharding
+    from repro_torch.launch import train
+    return sharding.place(batch, train.batch_shardings(
+        batch, mesh, batch["labels"].shape[0], strategy=strategy), mesh,
+        src_data_rank=None)
+
+
+def phase_mesh_lm_one_rank(dev, smi):
+    """14a: one NCCL rank, mesh (1, 1): serving and training on placed
+    trees bit-equal to the unsharded path, flash and proto_accum launches
+    as phases 7 and 10b count them, times beside the unsharded ones."""
+    import torch.distributed as dist
+    from repro_torch import ranks, serve_lm, sharding
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh, serve, train
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    from repro_torch.types import CollabConfig
+    tmp = tempfile.mkdtemp(prefix="mesh-lm-")
+    t_phase = time.perf_counter()
+    quiet_redistribute()
+    ranks.init(0, 1, "nccl", f"file://{tmp}/rendezvous")
+    out = {"mesh": "data:1xmodel:1", "backend": "nccl"}
+    try:
+        mesh = lmesh.device_mesh(lmesh.make_host_mesh())
+        cfg = get_arch(MESH_LM_ARCH)
+        params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+        placed = sharding.place(params, serve.params_shardings(
+            params, cfg, mesh), mesh, src_data_rank=None)
+        prompts = serve_lm.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
+        runs = {}
+        with torch.no_grad():
+            for tag, p, m in (("unsharded", params, None),
+                              ("mesh", placed, mesh)):
+                serve_lm.serve(p, cfg, prompts, 2, mesh=m)     # warm-up
+                ops.reset_launches()
+                r = serve_lm.serve(p, cfg, prompts, SERVE_TOKENS, mesh=m)
+                r["launches"] = dict(ops.LAUNCHES)
+                runs[tag] = r
+        a, b = runs["mesh"], runs["unsharded"]
+        want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": 0,
+                "flash_attention": cfg.num_layers}
+        if a["launches"] != want or b["launches"] != want:
+            raise AssertionError(f"[mesh lm] serving launches {a['launches']}"
+                                 f" / {b['launches']} != {want}")
+        if not (torch.equal(a["logits"], b["logits"])
+                and torch.equal(a["ids"], b["ids"])):
+            raise AssertionError("[mesh lm] placed serving logits or ids "
+                                 "differ from the unsharded path")
+        for x, y in zip(leaves(a["caches"]), leaves(b["caches"])):
+            if not torch.equal(sharding.full(x), y):
+                raise AssertionError("[mesh lm] placed serving caches differ "
+                                     "from the unsharded path")
+        out["serve"] = {t: {"prefill_ms": r["prefill_s"] * 1e3,
+                            "decode_ms_step": r["decode_s"] * 1e3
+                            / SERVE_TOKENS} for t, r in runs.items()}
+        out["serve"]["flash_launches_a_prefill"] = a["launches"][
+            "flash_attention"]
+        print(f"[mesh lm] 14a {cfg.name} serving on data:1xmodel:1 (nccl), "
+              f"{SERVE_BATCH}x{SERVE_PROMPT} prompts, {SERVE_TOKENS} tokens: "
+              f"logits, ids and caches bit-equal to unsharded, "
+              f"{cfg.num_layers} flash launches a prefill; prefill "
+              f"{a['prefill_s'] * 1e3:.2f} ms (unsharded "
+              f"{b['prefill_s'] * 1e3:.2f}), decode "
+              f"{a['decode_s'] * 1e3 / SERVE_TOKENS:.3f} ms/step (unsharded "
+              f"{b['decode_s'] * 1e3 / SERVE_TOKENS:.3f}) [{smi}]")
+        del runs, a, b, placed, params
+        torch.cuda.empty_cache()
+
+        ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
+                            d_feature=cfg.d_feature)
+        batches = [_to(x, dev) for x in lm_train_batches(
+            cfg.vocab_size, LM_CLIENTS, LM_BATCH, LM_SEQ, MESH_LM_STEPS,
+            seed=0)]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        negs = [train.draw_negatives(gen, cfg, ccfg, LM_CLIENTS)
+                for _ in range(MESH_LM_STEPS)]
+        step = train.make_train_step(cfg, ccfg, n_clients=LM_CLIENTS,
+                                     disc_tokens=LM_DISC_TOKENS)
+
+        def run(strategy):
+            state = train.init_state(
+                cfg, torch.Generator(device=dev).manual_seed(0), LM_CLIENTS,
+                device=dev)
+            bs = batches
+            if strategy:
+                state = mesh_lm_place_state(cfg, state, mesh, strategy)
+                bs = [mesh_lm_place_batch(x, mesh, strategy) for x in bs]
+            ops.reset_launches()
+            secs, mets = [], []
+            try:
+                for x, neg in zip(bs, negs):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, x, neg)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    mets.append({k: float(sharding.full(v))
+                                 for k, v in m.items()})
+            finally:
+                sharding.set_hints(mesh=None)
+            return (state, mets, secs, dict(ops.LAUNCHES),
+                    dict(ops.LAUNCHES_BATCHED))
+
+        state, mets, secs, launches, batched = run(None)
+        ref = [t.cpu() for t in leaves(state)]
+        ref_mets = mets
+        out["train"] = {"unsharded": {"s_per_step": secs}}
+        del state
+        torch.cuda.empty_cache()
+        want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0,
+                "proto_accum": MESH_LM_STEPS, "flash_attention": 0}
+        for strategy in MESH_LM_STRATEGIES:
+            state, mets, s_secs, launches, batched = run(strategy)
+            if launches != want or batched["proto_accum"] != MESH_LM_STEPS:
+                raise AssertionError(f"[mesh lm] train {strategy}: launches "
+                                     f"{launches}, batched {batched}")
+            if mets != ref_mets:
+                raise AssertionError(f"[mesh lm] train {strategy}: metrics "
+                                     f"{mets} != unsharded {ref_mets}")
+            for x, y in zip(leaves(state), ref):
+                if not torch.equal(sharding.full(x).cpu(), y):
+                    raise AssertionError(f"[mesh lm] train {strategy}: the "
+                                         "state differs from unsharded")
+            out["train"][strategy] = {
+                "s_per_step": s_secs,
+                "proto_accum_launches_a_step": launches["proto_accum"]
+                / MESH_LM_STEPS}
+            print(f"[mesh lm] 14a {cfg.name} train {strategy} on "
+                  f"data:1xmodel:1 (nccl), {LM_CLIENTS} clients x {LM_BATCH} "
+                  f"x {LM_SEQ} tokens, {MESH_LM_STEPS} steps: parameters, "
+                  f"moments, proto sums and counts and metrics bit-equal to "
+                  f"unsharded, one proto_accum launch a step; s/step "
+                  f"{[round(s, 4) for s in s_secs]} (unsharded "
+                  f"{[round(s, 4) for s in secs]}) [{smi}]")
+            del state
+            torch.cuda.empty_cache()
+        out["wall_s"] = time.perf_counter() - t_phase
+        print(f"[mesh lm] 14a: {out['wall_s']:.1f} s in all")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def mesh_lm_cfg(dtype="float32"):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(family_depth(get_arch(MESH_LM_ARCH),
+                                            MESH_LM_LAYERS), dtype=dtype)
+
+
+def mesh_lm_train_inputs(cfg, dev):
+    from repro_torch.launch import train
+    from repro_torch.types import CollabConfig
+    ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
+                        d_feature=cfg.d_feature)
+    batch = _to(lm_train_batches(cfg.vocab_size, MESH_LM_CLIENTS,
+                                 MESH_LM_TRAIN_BATCH, MESH_LM_TRAIN_SEQ, 1,
+                                 seed=0)[0], dev)
+    neg = train.draw_negatives(torch.Generator(device=dev).manual_seed(1),
+                               cfg, ccfg, MESH_LM_CLIENTS)
+    return ccfg, batch, neg
+
+
+def mesh_lm_grads(cfg, ccfg, state, batch, neg):
+    """Client 0's gradients (the step's loss function, before Adam)."""
+    from repro_torch.core import prototypes
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_map
+    loss_fn = train.make_loss_fn(cfg, ccfg)
+    g, m, _, _ = train.client_grads(
+        loss_fn, tree_map(lambda a: a[0], state.params),
+        {k: v[0] for k, v in batch.items()}, prototypes.means(state.proto),
+        neg[0])
+    return g, m
+
+
+def mesh_lm_reference(dev, path):
+    """14b's unsharded runs on the card, saved to `path` (on the CPU)."""
+    from repro_torch import serve_lm
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    cfg = mesh_lm_cfg()
+    ref = {}
+    with torch.no_grad():
+        params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+        prompts = serve_lm.make_prompts(cfg, SERVE_BATCH, MESH_LM_PROMPT)
+        r = serve_lm.serve(params, cfg, prompts, MESH_LM_TOKENS)
+        ref["logits"], ref["ids"] = r["logits"].cpu(), r["ids"]
+        ref["caches"] = [t.cpu() for t in leaves(r["caches"])]
+        del params, r
+        cfg16 = mesh_lm_cfg("bfloat16")
+        p16 = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg16,
+                         device=dev)
+        ref["bf16_logits"] = lm.forward(p16, cfg16, {"tokens": torch.as_tensor(
+            prompts, device=dev)}, mode="prefill")["logits"][:, -1].float(
+            ).cpu()
+        del p16
+    ccfg, batch, neg = mesh_lm_train_inputs(cfg, dev)
+    state = train.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             MESH_LM_CLIENTS, device=dev)
+    g, m = mesh_lm_grads(cfg, ccfg, state, batch, neg)
+    ref["grads"] = [t.cpu() for t in leaves(g)]
+    step = train.make_train_step(cfg, ccfg, n_clients=MESH_LM_CLIENTS)
+    state, met = step(state, batch, neg)
+    ref["loss"] = float(met["total"])
+    ref["params"] = [t.cpu() for t in leaves((state.params, state.opt.m))]
+    ref["proto_count"] = state.proto.count.cpu()
+    torch.save(ref, path)
+    del state, g
+    torch.cuda.empty_cache()
+
+
+def mesh_lm_local(x, full):
+    """A DTensor's local shard (a `Partial` sum reduced first) on the host,
+    the same slice of `full` (the whole reference on the host), and
+    whether this rank counts the shard once (coordinate 0 on every mesh
+    dim that replicates it)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = x.device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    if tuple(pl) != tuple(x.placements):
+        x = x.redistribute(mesh, pl)
+    shape, off = compute_local_shape_and_global_offset(full.shape, mesh, pl)
+    own = all(p.is_shard() or mesh.get_local_rank(i) == 0
+              for i, p in enumerate(pl))
+    return (x.to_local().cpu(),
+            full[tuple(slice(o, o + n) for o, n in zip(off, shape))], own)
+
+
+def mesh_lm_rank_main(rank, world, tmp):
+    """One of 14b's ranks, all on cuda:0 over gloo (DTensor's functional
+    collectives staged through host memory, `ranks.STAGED`): serving, a
+    bf16 prefill and one train step of each strategy on the (2, 2) mesh,
+    held by rank 0 against the unsharded runs in tmp/ref.pt; rank 0 writes
+    tmp/result.json."""
+    import torch.distributed as dist
+    from repro_torch import ranks, serve_lm, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh, serve, train
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    torch.set_num_threads(2)          # 8 host cores, 4 ranks
+    quiet_redistribute()
+    phase_precision()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ranks.stage_functional_collectives()
+    mesh = lmesh.device_mesh(lmesh.MeshShape(("data", "model"),
+                                             MESH_LM_SHAPE), "cuda")
+    ref = torch.load(os.path.join(tmp, "ref.pt"), mmap=True)
+    cfg = mesh_lm_cfg()
+    res = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        p = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev)
+        p = sharding.place(p, serve.params_shardings(p, cfg, mesh), mesh,
+                           src_data_rank=None)
+        prompts = serve_lm.make_prompts(cfg, SERVE_BATCH, MESH_LM_PROMPT)
+        ops.reset_launches()
+        r = serve_lm.serve(p, cfg, prompts, MESH_LM_TOKENS, mesh=mesh)
+        res["serve_launches"] = dict(ops.LAUNCHES)
+        caches = [sharding.full(t).cpu() for t in leaves(r["caches"])]
+        d = (r["logits"].cpu() - ref["logits"]).abs()
+        res["logits"] = float((d / ref["logits"].abs().clamp(min=1.0)).max())
+        res["ids_equal"] = bool(torch.equal(r["ids"], ref["ids"]))
+        res["caches"] = max(float((a - b).abs().max())
+                            for a, b in zip(caches, ref["caches"]))
+        del p, r, caches
+        cfg16 = mesh_lm_cfg("bfloat16")
+        p16 = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg16,
+                         device=dev)
+        p16 = sharding.place(p16, serve.params_shardings(p16, cfg16, mesh),
+                             mesh, src_data_rank=None)
+        tok = {"tokens": torch.as_tensor(prompts, device=dev)}
+        tok = sharding.place(tok, serve.batch_shardings(tok, mesh), mesh,
+                             src_data_rank=None)
+        lg = lm.forward(p16, cfg16, tok, mode="prefill")["logits"]
+        lg = sharding.full(lg[:, -1].float()).cpu()
+        res["bf16_logits"] = float((lg - ref["bf16_logits"]).abs().max())
+        del p16
+    ccfg, batch, neg = mesh_lm_train_inputs(cfg, dev)
+    step = train.make_train_step(cfg, ccfg, n_clients=MESH_LM_CLIENTS)
+    res["train"] = {}
+    res["serve_s"] = time.perf_counter() - t0
+    for strategy in MESH_LM_STRATEGIES:
+        t0 = time.perf_counter()
+        state = mesh_lm_place_state(cfg, train.init_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), MESH_LM_CLIENTS,
+            device=dev), mesh, strategy)
+        pb = mesh_lm_place_batch(batch, mesh, strategy)
+        try:
+            # each rank holds its shards against the same slices of the
+            # reference; the maxima and counts are reduced over the ranks
+            g, _ = mesh_lm_grads(cfg, ccfg, state, pb, neg)
+            e_g = []
+            for a, b in zip(leaves(g), ref["grads"]):
+                x, r, _ = mesh_lm_local(a, b)
+                e_g.append((float((x - r).abs().max()),
+                            float(r.abs().max())))
+            del g, x
+            ops.reset_launches()
+            state, met = step(state, pb, neg)
+            launches = dict(ops.LAUNCHES)
+        finally:
+            sharding.set_hints(mesh=None)
+        loss = float(sharding.full(met["total"]))
+        e_p, n_far, n_all = 0.0, 0, 0
+        for a, b in zip(leaves((state.params, state.opt.m)), ref["params"]):
+            x, r, own = mesh_lm_local(a, b)
+            dd = (x.float() - r.float()).abs()
+            e_p = max(e_p, float(dd.max()))
+            if own:
+                n_far += int((dd > PARITY_PARAM_TOL).sum())
+                n_all += dd.numel()
+        e_g = torch.tensor(e_g, dtype=torch.float64)
+        dist.all_reduce(e_g, op=dist.ReduceOp.MAX)
+        ints = torch.tensor([n_far, n_all], dtype=torch.int64)
+        dist.all_reduce(ints)
+        e_p = torch.tensor([e_p], dtype=torch.float64)
+        dist.all_reduce(e_p, op=dist.ReduceOp.MAX)
+        count = sharding.full(state.proto.count).cpu()
+        res["train"][strategy] = {
+            "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+            "grads_rel": float((e_g[:, 0] / e_g[:, 1].clamp(min=1e-30)
+                                ).max()),
+            "params": float(e_p[0]), "params_far": int(ints[0]),
+            "params_n": int(ints[1]),
+            "counts_equal": bool(torch.equal(count, ref["proto_count"])),
+            "proto_accum_launches": launches["proto_accum"],
+            "wall_s": time.perf_counter() - t0}
+        del state, pb
+        torch.cuda.empty_cache()
+    res["staged"] = dict(ranks.STAGED)
+    if rank == 0:
+        with open(os.path.join(tmp, "result.json"), "w") as f:
+            json.dump(res, f)
+
+
+def phase_mesh_lm_four_ranks(dev, smi):
+    """14b: four gloo ranks sharing cuda:0 on the (2, 2) mesh against the
+    unsharded runs on the card, by the bounds above."""
+    from repro_torch import ranks
+    tmp = tempfile.mkdtemp(prefix="mesh-lm-")
+    try:
+        t0 = time.perf_counter()
+        mesh_lm_reference(dev, os.path.join(tmp, "ref.pt"))
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks.spawn(mesh_lm_rank_main, 4, "gloo", tmp)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "result.json")) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = mesh_lm_cfg()
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": 0,
+            "flash_attention": cfg.num_layers}
+    if res["serve_launches"] != want:
+        raise AssertionError(f"[mesh lm] 14b serving launches a rank "
+                             f"{res['serve_launches']} != {want}")
+    if not (res["logits"] <= CHECK_TOL and res["ids_equal"]):
+        raise AssertionError(f"[mesh lm] 14b logits {res['logits']:.3e} "
+                             f"relative (limit {CHECK_TOL}), ids equal "
+                             f"{res['ids_equal']}")
+    lim = 2 * 1e-3
+    for strategy, t in res["train"].items():
+        ok = (t["loss_rel"] <= MESH_LM_LOSS_TOL
+              and t["grads_rel"] <= MESH_LM_GRAD_TOL
+              and t["params"] <= lim
+              and t["params_far"] <= PARITY_PARAM_FRAC * t["params_n"]
+              and t["counts_equal"] and t["proto_accum_launches"] == 1)
+        if not ok:
+            raise AssertionError(f"[mesh lm] 14b train {strategy}: {t}")
+        print(f"[mesh lm] 14b train {strategy} on data:2xmodel:2 (4 gloo "
+              f"ranks, one card; {t['wall_s']:.1f} s), {MESH_LM_LAYERS} of "
+              f"22 layers, float32: "
+              f"loss {t['loss_rel']:.3e} relative, client 0's gradients "
+              f"{t['grads_rel']:.3e} of max|g| a leaf, parameters and "
+              f"moments {t['params']:.3e} ({t['params_far']} of "
+              f"{t['params_n']} beyond {PARITY_PARAM_TOL}), proto counts "
+              f"equal, one proto_accum launch a rank")
+    print(f"[mesh lm] 14b serving on data:2xmodel:2: logits "
+          f"{res['logits']:.3e} relative (limit {CHECK_TOL}), ids equal, "
+          f"caches {res['caches']:.3e}, {cfg.num_layers} flash launches a "
+          f"rank a prefill; bf16 prefill logits {res['bf16_logits']:.3e} "
+          f"from unsharded (reported only); host-staged collectives "
+          f"{res['staged']}; {t_ref:.1f} s unsharded, {wall:.1f} s the four "
+          f"ranks, serving {res['serve_s']:.1f} s of it [{smi}]")
+    res.update(ranks=4, backend="gloo", wall_s=wall, reference_s=t_ref)
+    return res
+
+
+def mlp_stack_check(stack, block, dev):
+    """Clients [0, block)'s MLP features, and the gradients of their
+    squares' sum with respect to both hidden weights, within the whole
+    `stack` (the vec engine's `vmap`: batched GEMMs over the clients)
+    against a stack of those `block` clients alone, on one seeded batch of
+    16 images a client; and one batched GEMM of the first layer's shape,
+    (n, 16, 784) @ (n, 784, 64), its first `block` slices against the same
+    GEMM over `block` slices. -> features' largest difference, gradients'
+    relative to their largest entry, the GEMM's largest difference."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import mlp
+    n = next(iter(stack.values())).shape[0]
+    x, _ = synthetic.class_images(16 * n, seed=5, noise=0.4)
+    x = torch.from_numpy(x).to(dev).reshape(n, 16, -1)
+    feats = torch.func.vmap(mlp.features)
+    got = []
+    for m in (n, block):
+        p = {k: v[:m].detach().clone().requires_grad_(True)
+             for k, v in stack.items()}
+        s = feats(p, x[:m])[:block]
+        g = torch.autograd.grad(s.square().sum(), [p["w1"], p["w2"]])
+        got.append((s.detach(), [t[:block] for t in g]))
+    (sa, ga), (sb, gb) = got
+    w1 = stack["w1"].detach()
+    gemm = float((torch.bmm(x, w1)[:block] - torch.bmm(x[:block], w1[:block])
+                  ).abs().max())
+    return {"features": float((sa - sb).abs().max()),
+            "gradients": max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(ga, gb)),
+            "bmm": gemm}
+
+
+def memory_floor(cfg, batch, seq):
+    """`launch/roofline.memory_floor_bytes` of a train step of LM_CLIENTS
+    clients x batch x seq tokens on one device: the bytes the state,
+    one checkpoint a layer, the logits and the prototypes need at least."""
+    from repro_torch.launch import roofline
+    from repro_torch.types import ShapeConfig
+    return roofline.memory_floor_bytes(
+        cfg, ShapeConfig("train", seq, LM_CLIENTS * batch, "train"), 1,
+        n_clients=LM_CLIENTS)["total"]
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -3434,6 +3969,10 @@ def main():
     whisper = phase_whisper_serve(dev)
     whisper_check = phase_whisper_check(dev)
     trains = phase_train_kinds(dev)
+    torch.cuda.empty_cache()
+    mesh_lm = {"one_rank": phase_mesh_lm_one_rank(dev, smi)}
+    torch.cuda.empty_cache()
+    mesh_lm["four_ranks"] = phase_mesh_lm_four_ranks(dev, smi)
     launches["flash_attention"] = serve_launches["flash_attention"]
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         launches[name + "_batched"] = launches_vec[name]
@@ -3482,8 +4021,22 @@ def main():
             k["lm_train_device_us_per_launch"] = lm_train["proto_accum_us"]
             k["train_device_us_per_launch"] = {
                 t["arch"]: t["proto_accum_us"] for t in trains}
+        if name == "proto_accum_batched":
+            k["launches_by_path"].update(
+                {f"mesh lm train {st} (1 rank, a step)": mesh_lm["one_rank"][
+                    "train"][st]["proto_accum_launches_a_step"]
+                 for st in MESH_LM_STRATEGIES})
+            k["launches_by_path"].update(
+                {f"mesh lm train {st} (4 ranks, a rank a step)": t[
+                    "proto_accum_launches"]
+                 for st, t in mesh_lm["four_ranks"]["train"].items()})
         if name == "flash_attention":
             k["launches_by_path"]["serve tinyllama-1.1b"] = launches[name]
+            k["launches_by_path"]["mesh lm serve (1 rank, a prefill)"] = (
+                mesh_lm["one_rank"]["serve"]["flash_launches_a_prefill"])
+            k["launches_by_path"]["mesh lm serve (4 ranks, a rank a "
+                                  "prefill)"] = mesh_lm["four_ranks"][
+                "serve_launches"]["flash_attention"]
             k["launches_by_path"].update(
                 {f"serve {f['arch']}": f["flash_launches"] for f in families})
             k["launches_by_path"]["serve whisper-small"] = whisper[
@@ -3510,6 +4063,7 @@ def main():
           f"{json.dumps(mesh_four)}; lm train parity "
           f"{json.dumps(lm_parity)}; lm train "
           f"{json.dumps({k: v for k, v in lm_train.items() if 'launches' not in k})}"
+          f"; mesh lm {json.dumps(mesh_lm)}"
           f"; lm twin 2 rounds {lm_twin_s:.2f} s; families "
           f"{json.dumps(families)}; whisper serve {json.dumps(whisper)}; "
           f"train kinds {json.dumps(train_rows)}")

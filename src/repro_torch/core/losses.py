@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 
 
@@ -113,15 +114,19 @@ def disc_loss_sampled(neg_ids, features, protos, labels, head_w, head_b=None,
     """
     s_logits = (_tau(head_w, head_b, features)
                 if student_logits is None else student_logits)
+    # on a mesh the draws join as a replicated DTensor
+    neg_ids = sharding.replicated_like(neg_ids, protos)
     lab, neg = labels.long(), neg_ids.long()
-    z_pos = _tau(head_w, head_b, protos[lab])                     # (B, C)
-    z_neg = _tau(head_w, head_b, protos[neg])                     # (K, C)
+    z_pos = _tau(head_w, head_b, sharding.lookup(protos, lab))    # (B, C)
+    z_neg = _tau(head_w, head_b, sharding.lookup(protos, neg))    # (K, C)
     p = torch.softmax(s_logits.float(), dim=-1)                   # (B, C)
     h_pos = torch.clamp((p * torch.softmax(z_pos, dim=-1)).sum(-1),
                         _EPS, 1 - _EPS)                           # (B,)
     h_neg = torch.clamp(p @ torch.softmax(z_neg, dim=-1).T,
                         _EPS, 1 - _EPS)                           # (B, K)
-    not_self = (neg[None, :] != lab[:, None]).float()
+    # 1 - (==), not (!=): a DTensor has no sharding rule for aten.ne in
+    # every PyTorch release this runs on (2.11 lacks it); the same values
+    not_self = 1.0 - (neg[None, :] == lab[:, None]).float()
     loss = -torch.log(h_pos) - (torch.log1p(-h_neg) * not_self).sum(-1)
     return loss.mean()
 

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.kernels import ops, ref
 
 
@@ -40,9 +41,14 @@ def init_state(num_classes: int, d_feature: int, device,
 
 def accumulate(state: ProtoState, features, labels) -> ProtoState:
     """features (..., n, d'); labels (..., n) int. Adds per-class
-    sums/counts."""
+    sums/counts: one proto_accum launch. DTensors are first placed as the
+    kernel's wrapper declares (`ops.proto_accum_placed`); a plain state is
+    then added as a replicated DTensor."""
+    if sharding.is_dtensor(features):
+        features, labels = ops.proto_accum_placed(features, labels)
     s, c = ops.proto_accum(features.float(), labels, state.num_classes)
-    return ProtoState(state.sum + s, state.count + c)
+    return ProtoState(sharding.replicated_like(state.sum, s) + s,
+                      sharding.replicated_like(state.count, c) + c)
 
 
 def means(state: ProtoState, fallback: Optional[torch.Tensor] = None):

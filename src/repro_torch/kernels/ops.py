@@ -6,6 +6,14 @@ kernel wrapper adds one to its entry of `LAUNCHES` where it launches, and
 nowhere else, so a run can show that its main path went through the kernels;
 a launch with a leading client axis also adds one to `LAUNCHES_BATCHED`.
 Outputs and scratch are allocated here; kernels run on the current stream.
+
+DTensors (the LM launch path on a mesh, `sharding.place`): the kernels take
+raw pointers, so a DTensor never reaches them. `flash_attention` and
+`proto_accum` run DTensor inputs through
+`torch.distributed.tensor.experimental.local_map`: each rank calls the
+kernel (or, for CPU shards, its plain version) once on its local shards,
+with the placements each wrapper declares; a DTensor placed in any other
+way raises, and nothing is gathered to one rank or moved to the CPU.
 """
 from __future__ import annotations
 
@@ -109,6 +117,21 @@ def _labels(labels, shape):
     if labels.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"labels must be int32 or int64, got {labels.dtype}")
     return labels.contiguous(), int(labels.dtype == torch.int64)
+
+
+def _is_dtensor(*tensors) -> bool:
+    """True if any of `tensors` is a DTensor; then every one must be, on one
+    mesh."""
+    from torch.distributed.tensor import DTensor
+    flags = [isinstance(t, DTensor) for t in tensors if t is not None]
+    if not any(flags):
+        return False
+    if not all(flags):
+        raise ValueError("mixed DTensor and plain tensor inputs: place every "
+                         "input on the mesh (sharding.place) or none")
+    if len({t.device_mesh for t in tensors if t is not None}) != 1:
+        raise ValueError("DTensor inputs on different meshes")
+    return True
 
 
 def _ptr(t) -> Optional[int]:
@@ -258,7 +281,12 @@ def _proto_plan(n: int, d: int, C: int):
 def proto_accum(features, labels, num_classes: int):
     """features (..., n, d) f32 or bf16; labels (..., n) int -> (sums (...,
     C, d) f32, counts (..., C) f32), with an optional leading client axis:
-    one launch for every client. Labels outside [0, C) contribute nothing."""
+    one launch for every client. Labels outside [0, C) contribute nothing.
+
+    DTensor inputs (see `_proto_accum_dtensor`): one launch a rank on its
+    rows and class block."""
+    if _is_dtensor(features, labels):
+        return _proto_accum_dtensor(features, labels, num_classes)
     if not _on_cuda(features, labels):
         return ref.proto_accum(features, labels, num_classes)
     if features.dim() not in (2, 3):
@@ -294,6 +322,85 @@ def proto_accum(features, labels, num_classes: int):
     return sums, counts
 
 
+def proto_accum_placements(features, labels):
+    """The placements `proto_accum` declares for DTensor `features` (..., n,
+    d) and `labels` (..., n): on each mesh dim both `Shard` on the row dim
+    n where both are split there, else both `Replicate()`."""
+    from torch.distributed.tensor import Replicate, Shard
+    fd, ld = features.dim() - 2, labels.dim() - 1
+    rows = [pf == Shard(fd) and pl == Shard(ld)
+            for pf, pl in zip(features.placements, labels.placements)]
+    return (tuple(Shard(fd) if r else Replicate() for r in rows),
+            tuple(Shard(ld) if r else Replicate() for r in rows))
+
+
+def proto_accum_placed(features, labels):
+    """DTensor `features` and `labels` redistributed to the placements
+    `proto_accum` declares (`proto_accum_placements`): a caller whose
+    features arrive otherwise (a `Partial` sum, a split of d) places them
+    so first."""
+    pf, pl = proto_accum_placements(features, labels)
+    mesh = features.device_mesh
+    return features.redistribute(mesh, pf), labels.redistribute(mesh, pl)
+
+
+def _proto_accum_dtensor(features, labels, num_classes: int):
+    """proto_accum on DTensors, one launch a rank through `local_map`.
+
+    Declared placements (`proto_accum_placements`): on every mesh dim,
+    `features` (..., n, d) and `labels` (..., n) are both `Shard` on the
+    row dim n, or both `Replicate()`. A rank's sums and counts are then
+    `Partial` over the mesh dims that split the rows (each rank adds its
+    own rows; the caller's first read reduces them once), and on the mesh
+    dims that replicate the rows the classes are split: the rank at
+    coordinate r of a dim of size w (w dividing C, C / w = Cw) accumulates
+    its block [r Cw, (r + 1) Cw) with labels - r Cw and C = Cw, exact by
+    the kernel's own rule that labels outside [0, C) add nothing: the
+    vocab-sharded prototypes of the LM train step
+    (`launch/train.state_shardings`), one launch a rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = features.device_mesh
+    if labels.dim() != features.dim() - 1 or features.dim() not in (2, 3):
+        raise ValueError(f"features must be (n, d) or (N, n, d) and labels "
+                         f"(n,) or (N, n); got {tuple(features.shape)}, "
+                         f"{tuple(labels.shape)}")
+    declared = proto_accum_placements(features, labels)
+    if (tuple(features.placements), tuple(labels.placements)) != declared:
+        raise ValueError(
+            f"proto_accum takes DTensors sharded on the row dim or "
+            f"replicated, alike for features and labels, on every mesh "
+            f"dim; got {features.placements} and {labels.placements} "
+            f"(`proto_accum_placed` places them so)")
+    fd, ld = features.dim() - 2, labels.dim() - 1
+    C = int(num_classes)
+    f_out, c_out, blocks = [], [], []
+    for i, p in enumerate(declared[0]):
+        w = mesh.size(i)
+        if p.is_shard():
+            f_out.append(Partial())
+            c_out.append(Partial())
+        elif w > 1 and C % w == 0:
+            f_out.append(Shard(fd))
+            c_out.append(Shard(ld))
+            blocks.append(i)
+        else:
+            f_out.append(Replicate())
+            c_out.append(Replicate())
+    Cl, v0 = C, 0
+    for i in blocks:
+        Cl //= mesh.size(i)
+        v0 = v0 * mesh.size(i) + mesh.get_local_rank(i)
+    v0 *= Cl
+
+    def local(f, y):
+        return proto_accum(f, y - v0 if v0 else y, Cl)
+
+    return local_map(local, out_placements=(tuple(f_out), tuple(c_out)),
+                     in_placements=(features.placements, labels.placements),
+                     device_mesh=mesh)(features, labels)
+
+
 # -- flash_attention ----------------------------------------------------------
 def flash_attention(q, k, v, causal: bool = True):
     """q (B, Sq, H, hd); k (B, Sk, G, hd); v (B, Sk, G, hv), H % G == 0,
@@ -301,7 +408,18 @@ def flash_attention(q, k, v, causal: bool = True):
     see `ref.flash_attention`. bf16 at equal dims and at MLA's (192, 128)
     and (96, 64) runs on the tensor cores (`flash_attention_bf16_kernel`);
     float32 at every pair, and bf16 at the reduced configs' (80, 64), on the
-    CUDA cores (`flash_attention_kernel`)."""
+    CUDA cores (`flash_attention_kernel`).
+
+    DTensor q, k, v run through `local_map`, one launch a rank on its own
+    batch rows and heads. Declared placements, alike for q, k and v on
+    every mesh dim: `Shard(0)` (the batch), `Shard(2)` (heads; the mesh dim
+    must divide both H and G, so that a rank's query heads read its own KV
+    heads) or `Replicate()`. Any other placement raises: a split of the
+    sequence or of head_dim would compute another softmax, so a caller
+    whose heads do not split redistributes them whole first
+    (`nn.attention.gqa_block`)."""
+    if _is_dtensor(q, k, v):
+        return _flash_dtensor(q, k, v, causal)
     if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
             or v.shape[:3] != k.shape[:3]
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]):
@@ -342,3 +460,25 @@ def flash_attention(q, k, v, causal: bool = True):
                               int(bool(causal)), _stream()), "flash_attention")
         LAUNCHES["flash_attention"] += 1
     return out
+
+
+def _flash_dtensor(q, k, v, causal: bool):
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    H, G = q.shape[2], k.shape[2]
+    for i, p in enumerate(q.placements):
+        ok = (p == k.placements[i] == v.placements[i]
+              and (isinstance(p, Replicate) or p in (Shard(0), Shard(2))))
+        if p == Shard(2) and (H % mesh.size(i) or G % mesh.size(i)):
+            ok = False
+        if not ok:
+            raise ValueError(
+                f"flash_attention takes q, k and v placed alike on every "
+                f"mesh dim as Shard(0), Shard(2) (dividing H {H} and G {G}) "
+                f"or Replicate(); got {q.placements}, {k.placements}, "
+                f"{v.placements}")
+    return local_map(flash_attention, out_placements=(q.placements,),
+                     in_placements=(q.placements, k.placements, v.placements,
+                                    None),
+                     device_mesh=mesh)(q, k, v, causal)

@@ -4,9 +4,16 @@ against the cache), and the abstract inputs of each step as `meta` tensors
 (shapes and dtypes only). CoRS is a training-time technique; serving is
 the plain model, so these steps carry no prototype traffic. An
 encoder-decoder (Whisper) prefills from tokens and audio frames, encoding
-the frames once, and decodes against its self and cross caches. The
-reference's sharding helpers come with the multi-device slice (ROADMAP.md,
-queue 1, slice 9).
+the frames once, and decodes against its self and cross caches.
+
+Shardings, as the reference's (`params_shardings`, `cache_shardings`,
+`batch_shardings`), give a spec tree (`sharding.py`: a tuple an array,
+one entry a dim) over a mesh's axis names and sizes; `sharding.place` puts
+a tree on a `DeviceMesh` by them, and the steps run unchanged on the
+placed parameters, caches and batch. Cache sharding: batch over "data"
+when divisible; otherwise (long_500k, B=1) the cache *sequence* axis is
+sharded over "data". KV heads shard over "model" when divisible, else
+head_dim, else replicated (sharding.head_axis_plan).
 """
 from __future__ import annotations
 
@@ -14,7 +21,9 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.models import encdec, lm
+from repro_torch.tree import tree_map
 from repro_torch.types import ModelConfig, ShapeConfig
 
 META = torch.device("meta")
@@ -103,3 +112,57 @@ def cache_shapes(cfg: ModelConfig, shape: ShapeConfig):
                 "cross": (z(cfg.head_dim), z(cfg.v_head_dim))}
     return lm.init_cache(cfg, B, shape.seq_len,
                          window=decode_window(cfg, shape), device=META)
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+def params_shardings(pshapes, cfg: ModelConfig, mesh):
+    """Serving: no FSDP (weights stay resident); TP over the model axis
+    only."""
+    return sharding.tree_param_specs(pshapes, mesh, fsdp=False)
+
+
+def _cache_leaf_spec(shape, cfg: ModelConfig, mesh, batch: int,
+                     shard_seq: bool) -> tuple:
+    """Heuristic spec for a stacked cache leaf (leading layer axis)."""
+    dp = sharding.dp_axes(mesh)
+    tp = sharding.axis_size(mesh, "model")
+    nd = len(shape)
+    spec = [None] * nd
+    # find the batch dim (first dim == batch after the layer axis)
+    bdim = 1 if nd >= 2 and shape[1] == batch else None
+    if bdim is not None and not shard_seq:
+        if batch % sharding.dp_size(mesh) == 0:
+            spec[bdim] = dp if len(dp) > 1 else dp[0]
+    if shard_seq and nd >= 3:
+        # long-context: shard the sequence axis (dim 2) over data
+        if shape[2] % sharding.dp_size(mesh) == 0:
+            spec[2] = dp if len(dp) > 1 else dp[0]
+    # shard a trailing "heads-like" or feature dim over model
+    for d in range(nd - 2, 1, -1):
+        if spec[d] is None and shape[d] % tp == 0 and shape[d] >= tp:
+            spec[d] = "model"
+            break
+    else:
+        if nd >= 2 and spec[-1] is None and shape[-1] % tp == 0 \
+                and shape[-1] >= tp:
+            spec[-1] = "model"
+    return tuple(spec)
+
+
+def cache_shardings(cshapes, cfg: ModelConfig, mesh, shape: ShapeConfig):
+    shard_seq = shape.global_batch < sharding.dp_size(mesh)
+    return tree_map(
+        lambda l: _cache_leaf_spec(tuple(l.shape), cfg, mesh,
+                                   shape.global_batch, shard_seq), cshapes)
+
+
+def batch_shardings(bshapes, mesh):
+    def leaf(l):
+        if l.shape[0] % sharding.dp_size(mesh) == 0:
+            dp = sharding.dp_axes(mesh)
+            lead = dp if len(dp) > 1 else dp[0]
+            return (lead, *([None] * (l.dim() - 1)))
+        return (None,) * l.dim()
+    return tree_map(leaf, bshapes)

@@ -23,7 +23,16 @@ il exchanges nothing.
 Draws: the reference splits a key per client and draws each client's K
 negative classes with `jax.random.randint`; the port takes them as an
 (N, K) argument (`draw_negatives` makes them from a `torch.Generator`).
-The reference's sharding helpers come with slice 9 (multi-device).
+
+Shardings, as the reference's (`state_shardings` with the strategies "tp",
+"dp_only" and "zero1", `round_sync_shardings`, `batch_shardings`), give
+spec trees (`sharding.py`); `sharding.place` puts the state and batch on
+a `DeviceMesh` by them, and `make_train_step` runs unchanged on the placed
+trees: DTensor propagates the shardings through the forward, autograd
+and Adam, and the merge's `ops.proto_accum` launches once a rank on its
+rows and vocab block. The "pod" client axis is declared and reckoned
+(the dry-run) but not run: a placed state's clients are whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -31,11 +40,12 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.core import losses, prototypes
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, lm
 from repro_torch.optim import adam_init, adam_update
-from repro_torch.relay import history as relay_history
+from repro_torch.relay import history as relay_history, placement
 from repro_torch.relay.participation import bcast_mask, freeze_absent
 from repro_torch.tree import leaves, tree_map
 from repro_torch.types import CollabConfig, ModelConfig, ShapeConfig
@@ -97,15 +107,18 @@ def make_loss_fn(cfg: ModelConfig, ccfg: CollabConfig, *,
         f_flat = feats.reshape(-1, feats.shape[-1])
         y_flat = labels.reshape(-1)
         z_flat = logits.reshape(-1, V)
-        l_ce = losses.ce_loss(z_flat, y_flat)
+        # on a mesh each term is reduced whole before they combine (a mean's
+        # Partial and the MoE aux's do not add in PyTorch 2.11's DTensor)
+        whole = sharding.replicate
+        l_ce = whole(losses.ce_loss(z_flat, y_flat))
         metrics = {"ce": l_ce}
-        total = l_ce + 0.01 * out["aux"]
+        total = l_ce + 0.01 * whole(out["aux"])
         if ccfg.mode == "cors":
-            l_kd = losses.kd_loss(f_flat, proto_means, y_flat)
+            l_kd = whole(losses.kd_loss(f_flat, proto_means, y_flat))
             T = min(disc_tokens, f_flat.shape[0])
-            l_disc = losses.disc_loss_sampled(
+            l_disc = whole(losses.disc_loss_sampled(
                 neg_ids, f_flat[:T], proto_means, y_flat[:T],
-                _head_w(cfg, params), None, student_logits=z_flat[:T])
+                _head_w(cfg, params), None, student_logits=z_flat[:T]))
             total = total + ccfg.lambda_kd * l_kd + ccfg.lambda_disc * l_disc
             metrics.update(kd=l_kd, disc=l_disc)
         metrics["total"] = total
@@ -151,6 +164,9 @@ def make_train_step(cfg: ModelConfig, ccfg: CollabConfig, *,
     def train_step(state: TrainState, batch, neg_ids=None,
                    participation=None):
         proto_means = prototypes.means(state.proto)
+        # on a mesh, the mask as a replicated DTensor (the loss places the
+        # draws so)
+        participation = sharding.replicated_like(participation, proto_means)
         grads = tree_map(torch.empty_like, state.params)
         per_client, feats, labels = [], [], []
         for i in range(n_clients):
@@ -194,7 +210,8 @@ def make_train_step(cfg: ModelConfig, ccfg: CollabConfig, *,
         else:
             n_eff = wf.sum().clamp(min=1.0)
             metrics = {k: (v * wf).sum() / n_eff for k, v in metrics.items()}
-        return TrainState(params, opt, proto, state.step + 1), metrics
+        new = TrainState(params, opt, proto, state.step + 1)
+        return sharding.placed_like(new, state), metrics
 
     return train_step
 
@@ -391,3 +408,86 @@ def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig,
         batch["frames"] = torch.empty(N, Bc, cfg.encoder_seq, cfg.d_model,
                                       dtype=dt, device=meta)
     return batch
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+def _client_lead(mesh, n_clients: int):
+    return ("pod" if (n_clients > 1 and "pod" in sharding.axis_names(mesh))
+            else None)
+
+
+def state_shardings(state_shapes, cfg: ModelConfig, mesh, n_clients: int = 1,
+                    *, strategy: str = "tp") -> TrainState:
+    """A TrainState of specs. strategy:
+      "tp"      (default) model axis = tensor parallel
+      "dp_only" params replicated; the model axis becomes extra data
+                parallelism - no per-layer activation all-reduces
+      "zero1"   dp_only + Adam moments sharded over the flattened
+                (data, model) axes (ZeRO-1: replicated-params memory without
+                replicated-optimizer memory)
+    Leaves carry the leading client axis; inside a layer list the rules
+    read the reference's stacked shape (`sharding.layer_spec`)."""
+    lead = _client_lead(mesh, n_clients)
+    flat_dp = sharding.dp_size(mesh) * sharding.axis_size(mesh, "model")
+    names = sharding.axis_names(mesh)
+
+    def param_rule(path, dims):
+        if strategy in ("dp_only", "zero1"):
+            return (None,) * len(dims)
+        return sharding.param_spec(path, dims, mesh, fsdp=cfg.fsdp)
+
+    def opt_rule(path, dims):
+        if strategy == "zero1":
+            spec = [None] * len(dims)
+            for i, dsz in enumerate(dims):
+                if dsz % flat_dp == 0 and dsz >= flat_dp:
+                    axes = tuple(a for a in ("data", "model") if a in names)
+                    spec[i] = axes if len(axes) > 1 else axes[0]
+                    break
+            return tuple(spec)
+        return param_rule(path, dims)
+
+    def spec_tree(tree, rule):
+        return sharding.map_params(
+            lambda path, leaf, n: (lead, *sharding.layer_spec(
+                rule, path, tuple(leaf.shape[1:]), n)), tree)
+
+    params_sh = spec_tree(state_shapes.params, param_rule)
+    opt_sh = type(state_shapes.opt)(
+        (lead,), spec_tree(state_shapes.opt.m, opt_rule),
+        spec_tree(state_shapes.opt.v, opt_rule))
+    tp = sharding.axis_size(mesh, "model")
+    shard_v = strategy != "dp_only" and cfg.vocab_size % tp == 0
+    proto_sh = prototypes.ProtoState(
+        ("model", None) if shard_v else (None, None),
+        ("model",) if shard_v else (None,))
+    return TrainState(params_sh, opt_sh, proto_sh, ())
+
+
+def round_sync_shardings(mesh, n_clients: int = 1):
+    """Placements for the per-round prototype exchange (`make_round_sync` /
+    `make_async_round_sync` / `make_download_lag_round_sync`), through the
+    same declarations the collaborative engines use
+    (`relay/placement.resolve`), resolved against this path's "pod" client
+    axis: the shared, pending and history ProtoStates are REPLICATED;
+    per-client bucket stats (leading client axis) are CLIENT_SHARDED over
+    "pod", their sum inside the round sync then the round's one exchange.
+    Returns (replicated, stats) DTensor placements; on a single-client or
+    pod-less mesh both are replicated."""
+    lead = _client_lead(mesh, n_clients)
+    rep = placement.resolve(placement.REPLICATED, mesh)
+    stats = (placement.resolve(placement.CLIENT_SHARDED, mesh, axis=lead)
+             if lead else rep)
+    return rep, stats
+
+
+def batch_shardings(batch_shapes, mesh, n_clients: int = 1, *,
+                    strategy: str = "tp"):
+    """(N, Bc, ...) -> client over pod, batch over data (+model: dp_only
+    and zero1)."""
+    lead = _client_lead(mesh, n_clients)
+    baxes = ("data", "model") if strategy in ("dp_only", "zero1") else "data"
+    return tree_map(lambda l: (lead, baxes, *((None,) * (l.dim() - 2))),
+                    batch_shapes)

@@ -17,33 +17,49 @@ out of the remat beside x, as the reference carries `aux` through it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.nn import attention, layers, mla, moe, ssm, xlstm
 from repro_torch.tree import tree_map
 
 # Activation-checkpoint policy for the per-layer remat in train mode:
 #   "full" - recompute each layer in backward (the reference's default)
+#   "dots" - save the products with a weight, recompute the rest (the
+#            reference's jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
 #   "none" - no remat (more live memory, no recompute)
-# The reference's "dots" (save matmul outputs) is read only by its
-# `launch/dryrun.py --remat`, which comes with slice 9 (multi-device).
 REMAT_POLICY = "full"
+
+# "dots": the ops whose outputs a layer's selective checkpoint saves. A
+# product with a weight, (..., d) @ (d, f), folds to 2-D and dispatches
+# `aten.mm` (`aten.addmm` with a bias); attention's score and value
+# products and MoE's expert einsums have a batch dim (JAX's dot_general
+# batch dims), dispatch `aten.bmm` / `aten.baddbmm`, and are recomputed.
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _wrap_remat(fn):
     """fn(x) -> (x, aux), rematerialised by `REMAT_POLICY`."""
     if REMAT_POLICY == "full":
         return lambda x: checkpoint(fn, x, use_reentrant=False)
+    if REMAT_POLICY == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda x: checkpoint(fn, x, use_reentrant=False,
+                                    context_fn=ctx)
     if REMAT_POLICY == "none":
         return fn
-    raise NotImplementedError(
-        f'REMAT_POLICY {REMAT_POLICY!r} is not ported: the port has "full" '
-        'and "none"; the reference\'s "dots" is read only by '
-        "launch/dryrun.py --remat, which comes with slice 9 (ROADMAP.md, "
-        "queue 1: multi-device)")
+    raise ValueError(f"REMAT_POLICY {REMAT_POLICY!r}: the policies are "
+                     f'"full", "dots" and "none"')
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.nn import layers, rope as rope_lib
@@ -72,7 +73,7 @@ def init_lm(gen: Optional[torch.Generator], cfg,
 
 def _embed(params, cfg, batch):
     if cfg.input_kind == "tokens":
-        return params["embed"][batch["tokens"].long()]
+        return sharding.lookup(params["embed"], batch["tokens"])
     return batch["embeddings"].to(_dtype(cfg))
 
 
@@ -83,11 +84,15 @@ def _head(params, cfg, features):
     return features @ w
 
 
-def _positions(cfg, batch, B, S, device, offset=0):
+def _positions(cfg, batch, x, offset=0):
+    """The batch's positions, or the default ones from `offset`, placed as
+    x's batch rows when x is a DTensor."""
     pos = batch.get("positions")
     if pos is None:
-        pos = rope_lib.default_positions(B, S, cfg.rope_kind, offset=offset,
-                                         device=device)
+        B, S = x.shape[:2]
+        pos = sharding.rows_like(
+            rope_lib.default_positions(B, S, cfg.rope_kind, offset=offset,
+                                       device=x.device), x)
     return pos
 
 
@@ -96,8 +101,7 @@ def forward(params, cfg, batch, *, mode: str = "train", window: int = 0):
     sums the MoE balance losses (0.0 without MoE layers)."""
     _check_supported(cfg)
     x = _embed(params, cfg, batch)
-    B, S = x.shape[:2]
-    positions = _positions(cfg, batch, B, S, x.device)
+    positions = _positions(cfg, batch, x)
     points = shared_points(cfg)
     aux_total = 0.0
     caches: Dict[str, Any] = {"segments": [], "shared": []}
@@ -136,13 +140,9 @@ def decode_step(params, cfg, batch, caches, *, window: int = 0,
     """
     _check_supported(cfg)
     x = _embed(params, cfg, batch)
-    B = x.shape[0]
-    positions = batch.get("positions")
-    if positions is None:
-        offset = (_cache_len(cfg, caches) - 1 if cache_index is None
-                  else int(cache_index))
-        positions = rope_lib.default_positions(B, 1, cfg.rope_kind,
-                                               offset=offset, device=x.device)
+    offset = (_cache_len(cfg, caches) - 1 if cache_index is None
+              else int(cache_index))
+    positions = _positions(cfg, batch, x, offset)
     points = shared_points(cfg)
     new_caches: Dict[str, Any] = {"segments": [], "shared": []}
     count = 0
@@ -222,8 +222,14 @@ def init_cache(cfg, batch_size: int, ctx_len: int, *, window: int = 0,
 
 
 def _pad_seq(a, axis: int, extra: int):
-    """a with `extra` zero slots appended on `axis` (a new tensor)."""
-    return F.pad(a, [0, 0] * (a.dim() - 1 - axis) + [0, extra])
+    """a with `extra` zero slots appended on `axis` (a new tensor). A
+    DTensor is padded on each rank's shard through `local_map` (DTensor's
+    own pad fails to plan its redistribution in PyTorch 2.11), gathered
+    whole on `axis` first where that axis is split."""
+    axis %= a.dim()
+    pad = lambda t: F.pad(t, [0, 0] * (t.dim() - 1 - axis) + [0, extra])
+    return sharding.local_rows(pad, 1, a, split_dims=[
+        d for d in range(a.dim()) if d != axis])
 
 
 def pad_cache_for_decode(cfg, caches, extra: int = 1):

@@ -17,13 +17,24 @@ nothing is routed quietly to a plain path on the card. `gqa_decode` uses
 `full_attention` against the self-attention cache.
 
 Layouts: x (B, S, D); q (B, S, H, hd); k/v (B, S, G, hd) with G = KV heads.
+
+On a mesh (DTensor parameters, `sharding.place`) the projections
+propagate as DTensor ops: `wq`/`wk`/`wv` split over "model" leave q, k and
+v split on heads, `wo`'s rows give a `Partial` sum that the residual add
+reduces. Attention itself runs on each rank's batch rows and whole heads
+(`_heads`): in prefill through the kernel's own `local_map`
+(`ops.flash_attention`), in train mode and decode through `local_map` of
+the plain functions here, the decode writing its rank's cache shard in
+place.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 from repro_torch.nn import layers, rope as rope_lib
 
@@ -81,6 +92,31 @@ def _scaled_q(q, G):
     q's dtype first, as the reference does."""
     B, Sq, H, hd = q.shape
     return (q.reshape(B, Sq, G, H // G, hd) * (hd ** -0.5)).float()
+
+
+def _heads(q, k, v):
+    """DTensor q (B, S, H, hd) and k, v (B, S, G, .) placed alike, as
+    attention on each rank's shard needs them (the placements
+    `ops.flash_attention` declares): on each mesh dim `Shard(0)` where all
+    three split the batch, `Shard(2)` where all three split the heads and
+    the dim divides both H and G (a rank's query heads then read its own KV
+    heads), else `Replicate()`: heads whose split does not divide, or a
+    split of head_dim, are gathered whole, since a split there would
+    compute another softmax."""
+    mesh = q.device_mesh
+    H, G = q.shape[2], k.shape[2]
+    want = []
+    for i in range(mesh.ndim):
+        ps = (q.placements[i], k.placements[i], v.placements[i])
+        if all(p == Shard(0) for p in ps):
+            want.append(Shard(0))
+        elif (all(p == Shard(2) for p in ps) and H % mesh.size(i) == 0
+              and G % mesh.size(i) == 0):
+            want.append(Shard(2))
+        else:
+            want.append(Replicate())
+    return tuple(t if tuple(t.placements) == tuple(want)
+                 else t.redistribute(mesh, want) for t in (q, k, v))
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
@@ -151,13 +187,18 @@ def gqa_block(params, x, positions, *, num_heads, num_kv_heads, head_dim,
         B, S = x.shape[:2]
         q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
         k, v = kv
+    if sharding.is_dtensor(q):
+        q, k, v = _heads(q, k, v)
     if mode != "train":
         o = _prefill_attention(q, k, v, causal=causal)
-    elif k.shape[1] <= 2 * chunk or k.shape[1] % chunk != 0:
-        o = full_attention(q, k, v, causal=causal, window=window)
     else:
-        o = chunked_attention(q, k, v, causal=causal, window=window,
-                              chunk=chunk)
+        if k.shape[1] <= 2 * chunk or k.shape[1] % chunk != 0:
+            fn = lambda a, b, c: full_attention(a, b, c, causal=causal,
+                                                window=window)
+        else:
+            fn = lambda a, b, c: chunked_attention(a, b, c, causal=causal,
+                                                   window=window, chunk=chunk)
+        o = sharding.local_rows(fn, 1, q, k, v, split_dims=(0, 2))
     B, S = x.shape[:2]
     y = o.reshape(B, S, num_heads * head_dim) @ params["wo"]
     if return_kv:
@@ -187,18 +228,47 @@ def gqa_decode(params, x, cache_k, cache_v, positions, *, num_heads,
                                  kind=rope_kind)
     Sc = cache_k.shape[1]
     idx = Sc - 1 if cache_index is None else int(cache_index)
+    if sharding.is_dtensor(q):
+        # each rank writes its cache shard in place: q, k1 and v1 take the
+        # cache's placements, which must be those attention on a rank's
+        # shard takes (`_heads`)
+        mesh, pl = cache_k.device_mesh, tuple(cache_k.placements)
+        G = cache_k.shape[2]
+        for i, p in enumerate(pl):
+            w = mesh.size(i)
+            ok = (w == 1 or p.is_replicate() or p == Shard(0)
+                  or (p == Shard(2) and num_heads % w == 0 and G % w == 0))
+            if not ok or tuple(cache_v.placements) != pl:
+                raise ValueError(
+                    f"decode on a mesh writes each rank's cache shard in "
+                    f"place: the caches must be split on batch (Shard(0)) or "
+                    f"whole KV heads (Shard(2)), alike; got {pl} and "
+                    f"{tuple(cache_v.placements)}")
+        q, k1, v1 = (t.redistribute(mesh, pl) for t in (q, k1, v1))
+        fn = lambda *a: _decode_attend(*a, idx=idx, masked=masked)
+        o = sharding.local_rows(fn, 1, q, k1, v1, cache_k, cache_v,
+                                split_dims=range(4))
+    else:
+        o = _decode_attend(q, k1, v1, cache_k, cache_v, idx=idx,
+                           masked=masked)
+    y = o.reshape(B, 1, num_heads * head_dim) @ params["wo"]
+    return y, cache_k, cache_v
+
+
+def _decode_attend(q, k1, v1, cache_k, cache_v, *, idx: int, masked: bool):
+    """Write the new token's k1, v1 into slot `idx` of the caches in place
+    and attend q to them -> o (B, 1, H, hd)."""
+    B, _, num_heads, head_dim = q.shape
+    num_kv_heads, Sc = cache_k.shape[2], cache_k.shape[1]
     cache_k[:, idx] = k1[:, 0].to(cache_k.dtype)
     cache_v[:, idx] = v1[:, 0].to(cache_v.dtype)
     if masked:
         s = torch.einsum("bqghd,bkgd->bgqhk", _scaled_q(q, num_kv_heads),
                          cache_k.float())
-        valid = torch.arange(Sc, device=x.device) <= idx
+        valid = torch.arange(Sc, device=q.device) <= idx
         s = s.masked_fill(~valid[None, None, None, None, :], NEG_INF)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bgqhk,bkgd->bgqhd", p, cache_v.float())
         o = o.permute(0, 2, 1, 3, 4).reshape(B, 1, num_heads, head_dim)
-        o = o.to(q.dtype)
-    else:
-        o = full_attention(q, cache_k, cache_v, causal=False)
-    y = o.reshape(B, 1, num_heads * head_dim) @ params["wo"]
-    return y, cache_k, cache_v
+        return o.to(q.dtype)
+    return full_attention(q, cache_k, cache_v, causal=False)

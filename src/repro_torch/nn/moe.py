@@ -14,8 +14,18 @@ exact). The expert products are batched matrix products over the stacked
 kernel. Train mode runs the same code under autograd: the router's
 softmax and top-k, the `scatter_add_` into a fresh buffer (gathered back in
 the backward) and the aux, whose gradient reaches the router through the
-mean probabilities, as in the reference. The reference's sharding hints
-come with the multi-device slice.
+mean probabilities, as in the reference.
+
+On a mesh (DTensor parameters) the router and the aux propagate as DTensor
+ops, with the reference's sharding hints at its points
+(`sharding.constrain` of the dispatch buffer and the expert outputs: over
+experts under "moe_ep", batch-local under "moe_dp"). The top-k (its
+backward scatters, which PyTorch 2.11's DTensor mixes a plain tensor
+into), the dispatch (one-hot cumsum and `scatter_add_`, which have no
+DTensor sharding rule) and the combine (a gather by slot) are token- or
+row-local, so they run on each rank's batch rows through `local_map`
+(`sharding.local_rows`); the expert products too (`_experts`), with the gradients'
+placements declared.
 
 Stacked expert weight names end in `_e`, as in the reference.
 """
@@ -26,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.nn import layers
 
 
@@ -61,13 +72,21 @@ def route(router_w, x, k: int):
     probability, as `jax.lax.top_k`), aux_loss scalar f32."""
     logits = x.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)                     # (B,S,E)
-    top_p, top_i = torch.topk(probs, k, dim=-1, sorted=True)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     E = router_w.shape[-1]
+    top_p, top_i, hits = sharding.local_rows(
+        lambda p: _top_k(p, k, E), 3, probs)
     me = probs.mean(dim=(0, 1))                               # mean prob/expert
-    ce = F.one_hot(top_i, E).float().sum(2).mean(dim=(0, 1)) / k
+    ce = hits.mean(dim=(0, 1)) / k
     aux = E * torch.sum(me * ce)
     return top_p, top_i, aux
+
+
+def _top_k(probs, k: int, E: int):
+    """Each token's top-k experts (descending), their renormalised
+    probabilities and its one-hot hits (B, S, E): token-local."""
+    top_p, top_i = torch.topk(probs, k, dim=-1, sorted=True)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return top_p, top_i, F.one_hot(top_i, E).float().sum(2)
 
 
 def dispatch(x, top_i, cap: int, E: int):
@@ -88,6 +107,73 @@ def dispatch(x, top_i, cap: int, E: int):
     return buf[:, :-1], slot.reshape(B, S, k), valid.reshape(B, S, k)
 
 
+def experts(buf, w_gate, w_up, w_down):
+    """buf (B, E, cap, d) through each expert's SwiGLU -> (B, E, cap, d)."""
+    g = torch.einsum("becd,edf->becf", buf, w_gate)
+    u = torch.einsum("becd,edf->becf", buf, w_up)
+    return torch.einsum("becf,efd->becd", F.silu(g) * u, w_down)
+
+
+def _experts(buf, w_gate, w_up, w_down):
+    """`experts`, on each rank's shard when buf is a DTensor, through
+    `local_map` (DTensor's own backward of these einsums over a split ffn
+    dim fails on a non-contiguous view). On each mesh dim, by the weights'
+    placements: the ffn dim split (`Shard(2)`, `Shard(2)`, `Shard(1)`, "tp")
+    takes the buffer whole and gives a `Partial` sum; the experts split
+    (`Shard(0)`, "moe_ep") takes the buffer split on experts and gives it
+    so; otherwise the weights are made whole, and the buffer keeps a batch
+    split."""
+    if not sharding.is_dtensor(buf):
+        return experts(buf, w_gate, w_up, w_down)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = buf.device_mesh
+    # per mesh dim: placements of (buf, w_gate, w_up, w_down), of the
+    # output, and of the four gradients
+    ins, outs, grads = [], [], []
+    for i in range(mesh.ndim):
+        have = (w_gate.placements[i], w_up.placements[i],
+                w_down.placements[i])
+        if have == (Shard(2), Shard(2), Shard(1)):
+            # whole rows, a slice of the ffn dim: the rank's share of the
+            # output and of buf's gradient is a partial sum
+            ins.append((Replicate(),) + have)
+            outs.append(Partial())
+            grads.append((Partial(),) + have)
+        elif have == (Shard(0),) * 3:
+            ins.append((Shard(1),) + have)
+            outs.append(Shard(1))
+            grads.append(ins[-1])
+        else:
+            b = Shard(0) if buf.placements[i] == Shard(0) else Replicate()
+            ins.append((b,) + (Replicate(),) * 3)
+            outs.append(b)
+            # the weights' gradients from a rank's rows are partial sums
+            wg = Partial() if b == Shard(0) else Replicate()
+            grads.append((b,) + (wg,) * 3)
+    col = lambda rows, j: tuple(r[j] for r in rows)
+    args = [t.redistribute(mesh, col(ins, j))
+            for j, t in enumerate((buf, w_gate, w_up, w_down))]
+    return local_map(experts, out_placements=(tuple(outs),),
+                     in_placements=tuple(col(ins, j) for j in range(4)),
+                     in_grad_placements=tuple(col(grads, j)
+                                              for j in range(4)),
+                     device_mesh=mesh)(*args)
+
+
+def combine(out, slot, top_p, valid):
+    """out (B, E*cap, d) expert outputs; slot, top_p, valid (B, S, k) -> y
+    (B, S, d): each token's k outputs gathered back and weighted (0 for a
+    dropped pair)."""
+    B, S, k = slot.shape
+    d = out.shape[-1]
+    safe = torch.clamp(slot.reshape(B, S * k), max=out.shape[1] - 1)
+    y_k = out.gather(1, safe[..., None].expand(B, S * k, d)).reshape(
+        B, S, k, d)
+    w = (top_p * valid.to(top_p.dtype))[..., None].to(y_k.dtype)
+    return (y_k * w).sum(2)
+
+
 def moe_block(p, x, *, num_experts: int, k: int, cf: float,
               num_shared: int):
     """x (B,S,d) -> (y (B,S,d), aux_loss f32)."""
@@ -95,17 +181,23 @@ def moe_block(p, x, *, num_experts: int, k: int, cf: float,
     E = num_experts
     cap = capacity(S, k, E, cf)
     top_p, top_i, aux = route(p["router"], x, k)
-    buf, slot, valid = dispatch(x, top_i, cap, E)
+    buf, slot, valid = sharding.local_rows(
+        lambda a, b: dispatch(a, b, cap, E), 3, x, top_i)
     buf = buf.reshape(B, E, cap, d)
-    g = torch.einsum("becd,edf->becf", buf, p["w_gate_e"])
-    u = torch.einsum("becd,edf->becf", buf, p["w_up_e"])
-    out = torch.einsum("becf,efd->becd", F.silu(g) * u, p["w_down_e"])
-    out = out.reshape(B, E * cap, d)
-    safe = torch.clamp(slot.reshape(B, S * k), max=E * cap - 1)
-    y_k = out.gather(1, safe[..., None].expand(B, S * k, d)).reshape(
-        B, S, k, d)
-    w = (top_p * valid.to(top_p.dtype))[..., None].to(y_k.dtype)
-    y = (y_k * w).sum(2)
+    if sharding.hint("moe_ep"):
+        # expert-parallel: dispatch buffer and expert compute sharded over
+        # experts on the model axis
+        buf = sharding.constrain(buf, "data", "model", None, None)
+    elif sharding.hint("moe_dp"):
+        # dp_only/zero1: keep the dispatch fully batch-local
+        buf = sharding.constrain(buf, ("data", "model"), None, None, None)
+    out = _experts(buf, p["w_gate_e"], p["w_up_e"], p["w_down_e"])
+    if sharding.hint("moe_ep"):
+        out = sharding.constrain(out, "data", "model", None, None)
+    elif sharding.hint("moe_dp"):
+        out = sharding.constrain(out, ("data", "model"), None, None, None)
+    y = sharding.local_rows(combine, 1, out.reshape(B, E * cap, d), slot,
+                            top_p, valid)
     if num_shared:
         y = y + layers.swiglu(p["shared"], x)
     return y, aux.float()

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding
+
 # M-RoPE frequency-band split across (t, h, w), in units of freq indices of
 # the half-dim, scaled to the actual rot_dim at call time.
 MROPE_FRACTIONS = (0.25, 0.375, 0.375)
@@ -48,9 +50,16 @@ def rot_dim_for(kind: str, head_dim: int) -> int:
 
 def apply_rope(x, positions, *, theta: float, kind: str):
     """x: (B, S, H, D). Returns the same shape and dtype with rotary
-    applied."""
+    applied. A DTensor x (with positions placed as its batch rows,
+    `sharding.rows_like`) is rotated on each rank's shard through
+    `local_map`: the rotation is elementwise in (batch, position, head),
+    and needs whole head dims, which a split of D is gathered to first."""
     if kind == "none":
         return x
+    if sharding.is_dtensor(x):
+        fn = lambda xl, pl: apply_rope(xl, pl, theta=theta, kind=kind)
+        return sharding.local_rows(fn, 1, x, positions,
+                                   split_dims=range(x.dim() - 1))
     d = x.shape[-1]
     r = rot_dim_for(kind, d)
     half = r // 2
@@ -69,3 +78,4 @@ def default_positions(batch: int, seq: int, kind: str, offset: int = 0,
     if kind == "mrope":
         return pos[..., None].expand(batch, seq, 3)
     return pos
+

@@ -18,6 +18,14 @@ collectives go through host memory. Every rank calls
 ranks' intra-op pools would otherwise contend for the same cores. Nothing
 here falls back to a single process: a rank that fails raises in the
 caller of `spawn`.
+
+Ranks sharing a card over gloo: gloo's own collectives take CUDA tensors,
+but the functional collectives through which DTensor redistributes
+(`torch.ops._c10d_functional`) crashed the process on CUDA tensors over
+gloo (PyTorch 2.11 on the H100). `stage_functional_collectives()` gives
+their CUDA kernels a named host-staged form: copy to host memory, the same
+collective over gloo on the CPU, copy back. It is installed only by a
+program whose ranks share a card over gloo, and `STAGED` counts its calls.
 """
 from __future__ import annotations
 
@@ -54,6 +62,39 @@ def under_launcher() -> bool:
 def cpu_threads() -> None:
     """One intra-op thread: W ranks share the host's cores."""
     torch.set_num_threads(1)
+
+
+# Calls of each host-staged functional collective (see the module's
+# docstring), by op name.
+STAGED = {}
+_STAGED_LIB = []
+_STAGED_OPS = ("all_reduce", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single", "broadcast")
+
+
+def stage_functional_collectives() -> None:
+    """Run the CUDA kernels of `torch.ops._c10d_functional`'s all_reduce,
+    all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single and
+    broadcast through host memory: the input copied to the CPU, the CPU
+    kernel (gloo), the result copied back to the input's device. For ranks
+    that share a card over gloo; NCCL ranks never call it. Idempotent."""
+    if _STAGED_LIB:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    fc = torch.ops._c10d_functional
+
+    def staged(name):
+        op = getattr(fc, name)
+
+        def impl(x, *args):
+            STAGED[name] = STAGED.get(name, 0) + 1
+            out = fc.wait_tensor(op(x.detach().cpu(), *args))
+            return out.to(x.device)
+        return impl
+
+    for name in _STAGED_OPS:
+        lib.impl(name, staged(name), "CUDA")
+    _STAGED_LIB.append(lib)
 
 
 def _rank_main(rank, world, backend, init_method, fn, args):

@@ -29,12 +29,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs import get_arch
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as serve_lib
 from repro_torch.models import encdec, lm
 from repro_torch.tree import leaves
+from repro_torch.types import ShapeConfig
 
 PROMPT_STRIDE = 100            # prompt i starts at token i * 100 of the stream
 
@@ -83,14 +85,18 @@ def greedy_tokens(step: int, logits):
     return {"tokens": logits[:, -1].argmax(-1)[:, None]}
 
 
-def serve(params, cfg, prompts, tokens: int, next_batch=greedy_tokens):
+def serve(params, cfg, prompts, tokens: int, next_batch=greedy_tokens,
+          mesh=None):
     """Prefill `prompts` and decode `tokens` steps into a cache of S + tokens
     slots (written at cache_index, attention masked to the slots written so
     far). `prompts` is (B, S) token ids, or a batch dict as
     `serve_batch_specs` shapes it (an embeddings model's embeddings and
     M-RoPE positions; an encoder-decoder's tokens and frames). Step i
     decodes `next_batch(i, logits)`, `logits` the last step's: by default
-    the greedy tokens fed back.
+    the greedy tokens fed back. With a `mesh` (a `DeviceMesh`; `params`
+    placed on it, `sharding.place` by `launch.serve.params_shardings`), each
+    step's batch and the grown caches are placed by the serve shardings,
+    and the ids and logits come back whole.
 
     -> dict(ids (B, tokens) int64 on the CPU: the tokens decoded, none for
     embeddings batches; logits (tokens + 1, B, V) float32: the prefill's
@@ -106,9 +112,20 @@ def serve(params, cfg, prompts, tokens: int, next_batch=greedy_tokens):
     decode = serve_lib.make_decode_step(cfg)
     B, S = batch["tokens" if "tokens" in batch else "embeddings"].shape[:2]
 
+    def put(tree, specs):
+        return tree if mesh is None else sharding.place(tree, specs, mesh,
+                                                        src_data_rank=None)
+
+    def bspec(b):
+        return None if mesh is None else serve_lib.batch_shardings(b, mesh)
+
     t0 = time.perf_counter()
-    out = prefill(params, batch)
+    out = prefill(params, put(batch, bspec(batch)))
     caches = _grow_caches(cfg, out["caches"], tokens)
+    if mesh is not None:
+        shape = ShapeConfig("serve", S + tokens, B, "decode")
+        caches = put(caches, serve_lib.cache_shardings(caches, cfg, mesh,
+                                                       shape))
     logits = out["logits"]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -119,14 +136,17 @@ def serve(params, cfg, prompts, tokens: int, next_batch=greedy_tokens):
         step = next_batch(i, logits)
         if "tokens" in step:
             generated.append(step["tokens"][:, 0])
-        out = decode(params, step, caches, cache_index=S + i, masked=True)
+        out = decode(params, put(step, bspec(step)), caches,
+                     cache_index=S + i, masked=True)
         logits, caches = out["logits"], out["caches"]
         all_logits.append(logits[:, -1].float())
     _sync(dev)
     t_decode = time.perf_counter() - t0
     ids = (torch.stack(generated, 1) if generated
            else torch.zeros(B, 0, dtype=torch.long, device=dev))
-    return {"ids": ids.cpu(), "logits": torch.stack(all_logits),
+    return {"ids": sharding.full(ids).cpu(),
+            "logits": sharding.full(torch.stack(all_logits)),
+            "caches": caches,
             "prefill_s": t_prefill, "decode_s": t_decode}
 
 

@@ -1,23 +1,46 @@
-"""The client mesh; the port of the client half of `repro/sharding.py`.
+"""Sharding rules, the port of `repro/sharding.py`: the client mesh of the
+fleet engine, and the LM launch path's rules.
+
+Mesh axes (see launch/mesh.py):
+  - "clients": the vectorized collab engine's client axis (`client_mesh`).
+  - "pod"    : CoRS client axis of the LM launch mesh (multi-pod only).
+  - "data"   : batch / FSDP axis.
+  - "model"  : tensor-parallel axis (heads / d_ff / vocab / experts).
 
 The reference is single-controller: one process holds every device, and
-GSPMD turns placement declarations into shardings and collectives. The port
-is multi-controller, in PyTorch's own model: one process a rank under
-`torch.distributed`, each holding its block of the fleet's clients. The
-mesh is a `torch.distributed.device_mesh.DeviceMesh` with one axis,
-"clients", built over the caller's process group, and a placement is a
-DTensor placement tuple: `(Shard(0),)` for a leading client axis split over
-the ranks, `(Replicate(),)` for a value every rank holds whole.
+GSPMD turns `PartitionSpec`s into shardings and collectives. The port is
+multi-controller, in PyTorch's own model: one process a rank under
+`torch.distributed`, a mesh a `torch.distributed.device_mesh.DeviceMesh`,
+and a placed tensor a DTensor, whose ops propagate shardings and issue the
+collectives much as GSPMD does.
 
-The LM launch path's rules (`param_spec`, `tree_param_specs`, `batch_spec`,
-`head_axis_plan`, `set_hints`/`constrain`) are not here: they come with the
-LM multi-device slice (ROADMAP.md).
+A spec is a plain tuple with one entry a tensor dim, as the reference's
+`PartitionSpec`: None (replicated), one axis name, or a tuple of axis
+names (the dim split over several axes, the first one major). `placements`
+turns a spec into DTensor placements on a mesh; the rules read only the
+mesh's axis names and sizes, so a `launch.mesh.MeshShape` serves them as
+well as a `DeviceMesh` (the dry-run reckons a 512-rank mesh in one
+process).
+
+All rules degrade gracefully: a dimension is only sharded when divisible
+by the axis size, otherwise left replicated.
+
+The port's layers are separate tensors where the reference stacks a
+segment's layers on a leading axis (`models/blocks.py`). `tree_param_specs`
+computes a layer's spec as the reference's for the stacked leaf with the
+layer entry dropped: where the reference's FSDP rule shards that layer
+axis (no other dim divides), each port layer is held whole over that axis.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import List, Optional, Sequence, Tuple
 
 import torch.distributed as dist
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch.tree import tree_map
 
 CLIENTS = "clients"
 
@@ -47,22 +70,397 @@ def client_mesh(n: Optional[int] = None):
 
 def axis_size(mesh, name: str) -> int:
     """The number of ranks along mesh axis `name`, 1 for an axis the mesh
-    does not have."""
+    does not have (a `DeviceMesh` or a `launch.mesh.MeshShape`)."""
     names = mesh.mesh_dim_names or ()
     return mesh.size(names.index(name)) if name in names else 1
 
 
 def replicated(mesh) -> Tuple:
     """Every rank holds the whole value: `Replicate()` on every mesh axis."""
-    from torch.distributed.tensor import Replicate
     return (Replicate(),) * mesh.ndim
 
 
 def leading_axis(mesh, axis: str) -> Tuple:
     """The leading dim split over mesh axis `axis` in contiguous blocks, one
     a rank in rank order (`Shard(0)`), replicated over any other axis."""
-    from torch.distributed.tensor import Replicate, Shard
     names = mesh.mesh_dim_names or ()
     if axis not in names:
         raise ValueError(f"mesh has no axis {axis!r} (axes {names})")
     return tuple(Shard(0) if a == axis else Replicate() for a in names)
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+# ---------------------------------------------------------------------------
+# the LM launch path's rules
+# ---------------------------------------------------------------------------
+def dp_axes(mesh) -> tuple:
+    """Axes over which the batch is sharded ("pod" folds into batch)."""
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+
+
+def dp_size(mesh) -> int:
+    return _prod(mesh, dp_axes(mesh))
+
+
+def _prod(mesh, axes: Sequence[str]) -> int:
+    n = 1
+    for a in axes:
+        n *= axis_size(mesh, a)
+    return n
+
+
+def maybe(axis: Optional[str], dim: int, size: int):
+    """Return `axis` if `dim` is divisible by `size`, else None."""
+    return axis if (axis is not None and size > 1 and dim % size == 0) else None
+
+
+def batch_spec(mesh, batch: int, *rest) -> tuple:
+    """Shard the leading batch dim over (pod, data) as far as divisible."""
+    axes: List[str] = []
+    for a in dp_axes(mesh):
+        if batch % (axis_size(mesh, a) * _prod(mesh, axes)) == 0:
+            axes.append(a)
+    # one axis as its name, as `PartitionSpec` normalises ('data',)
+    lead = (axes[0] if len(axes) == 1 else tuple(axes)) if axes else None
+    return (lead, *rest)
+
+
+def head_axis_plan(num_heads: int, head_dim: int, tp: int) -> str:
+    """Which per-head axis the model axis shards: 'heads' | 'head_dim' | 'none'."""
+    if tp <= 1:
+        return "none"
+    if num_heads % tp == 0:
+        return "heads"
+    if head_dim % tp == 0:
+        return "head_dim"
+    return "none"
+
+
+def param_spec(path: str, shape: tuple, mesh, *, fsdp: bool) -> tuple:
+    """Heuristic parameter sharding from the param-tree path (the reference's
+    rule, entry for entry).
+
+    Conventions used by the model code (nn/ + models/):
+      - 'embed'               : (vocab, d_model)        -> vocab over model
+      - 'lm_head' / 'w_out'   : (d_model, vocab)        -> vocab over model
+      - 'wq','wk','wv'        : (d_model, heads*hd)     -> out dim over model
+      - 'wo'                  : (heads*hd, d_model)     -> in dim over model
+      - 'w_gate','w_up'       : (d_model, d_ff)         -> d_ff over model
+      - 'w_down'              : (d_ff, d_model)         -> d_ff over model
+      - experts '..._e'       : (E, d, f)               -> f over model
+      - everything else       : replicated (biases, norms, small projs)
+    FSDP additionally shards the *other* matrix dim over data when divisible.
+    """
+    tp = axis_size(mesh, "model")
+    dp = axis_size(mesh, "data")
+    leaf = path.split("/")[-1]
+    ndim = len(shape)
+    spec: List = [None] * ndim
+
+    model_dim = None  # index sharded by "model"
+    if ndim >= 2:
+        if leaf in ("embed", "proto"):
+            model_dim = 0
+        elif leaf in ("lm_head", "w_out"):
+            model_dim = ndim - 1
+        elif leaf in ("wq", "wk", "wv", "w_gate", "w_up", "wkv_b", "wq_b",
+                      "w_in", "w_qkv"):
+            model_dim = ndim - 1
+        elif leaf in ("wo", "w_down"):
+            model_dim = ndim - 2
+        elif leaf.endswith("_e"):      # stacked expert weights (E, d, f)
+            # "tp": shard the per-expert ffn dim; "ep": shard the expert dim
+            model_dim = 0 if _HINTS.get("moe_ep") else ndim - 1
+
+    if model_dim is not None and maybe("model", shape[model_dim], tp):
+        spec[model_dim] = "model"
+
+    if fsdp and ndim >= 2:
+        # shard one remaining large dim over data
+        for d in range(ndim - 1, -1, -1):
+            if spec[d] is None and shape[d] % dp == 0 and shape[d] >= dp:
+                spec[d] = "data"
+                break
+    return tuple(spec)
+
+
+def _is_layer_list(node) -> bool:
+    """A segment's (or an encoder's, a decoder's) list of per-layer dicts,
+    which the reference stacks on a leading layer axis."""
+    return (isinstance(node, list) and len(node) > 0
+            and all(isinstance(x, dict) for x in node))
+
+
+def map_params(fn, tree, path: str = "", n_layers: int = 0):
+    """`fn(path, leaf, n_layers)` over a parameter tree's tensor leaves, in
+    the tree's structure: `path` is the leaf's path in the reference's
+    layout ('segments/0/attn/wq', the layer index left out), `n_layers` the
+    length of the layer list the leaf is in (0 outside one)."""
+    join = lambda k: f"{path}/{k}" if path else str(k)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v, join(k), n_layers)
+                for k, v in tree.items()}
+    if _is_layer_list(tree):
+        return [map_params(fn, x, path, len(tree)) for x in tree]
+    if isinstance(tree, (list, tuple)):
+        out = [map_params(fn, v, join(i), n_layers)
+               for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(path, tree, n_layers)
+
+
+def layer_spec(rule, path: str, shape: tuple, n_layers: int) -> tuple:
+    """`rule(path, shape)` for one leaf of the port's tree: on the stacked
+    shape (n_layers, *shape) with the layer entry dropped inside a layer
+    list (see the module's docstring), on `shape` outside one."""
+    if not n_layers:
+        return tuple(rule(path, tuple(shape)))
+    return tuple(rule(path, (n_layers, *shape)))[1:]
+
+
+def tree_param_specs(params, mesh, *, fsdp: bool):
+    """The spec tree matching `params` (the port's layout)."""
+    rule = lambda path, shape: param_spec(path, shape, mesh, fsdp=fsdp)
+    return map_params(lambda path, leaf, n: layer_spec(rule, path,
+                                                       leaf.shape, n),
+                      params)
+
+
+def placements(spec: Sequence, mesh) -> Tuple:
+    """A spec as DTensor placements on `mesh`: `Shard(d)` on each mesh dim
+    that tensor dim d names, `Replicate()` on the others. A dim named by a
+    tuple of axes is split over them in the tuple's order, the first one
+    major, as JAX splits it; DTensor shards one tensor dim over several
+    mesh dims in mesh order, so the tuple must follow the mesh's order."""
+    names = axis_names(mesh)
+    out: List = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {tuple(spec)} names axis {a!r}; the "
+                                 f"mesh has {names}")
+            i = names.index(a)
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {tuple(spec)} uses axis {a!r} twice")
+            out[i] = Shard(d)
+            idx.append(i)
+        if idx != sorted(idx):
+            raise ValueError(f"spec {tuple(spec)} splits dim {d} over {axes}"
+                             f" out of the mesh's order {names}")
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def place(tree, specs, mesh, *, src_data_rank: Optional[int] = 0):
+    """`tree`'s tensors as DTensors on `mesh`, each placed by its spec in
+    `specs` (a tree of the same structure with a spec at each tensor): the
+    counterpart of `jax.device_put(tree, shardings)`. Each rank keeps its
+    shard of rank `src_data_rank`'s tensor (broadcast from it), or with
+    `src_data_rank=None` of its own, without communication (every rank
+    made the same tree). A leaf that is a DTensor already is redistributed
+    to its spec."""
+
+    def walk(node, spec):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            out = [walk(v, s) for v, s in zip(node, spec)]
+            if isinstance(node, list):
+                return out
+            return (type(node)(*out) if hasattr(node, "_fields")
+                    else tuple(out))
+        pl = placements(spec, mesh)
+        if is_dtensor(node):
+            return (node if tuple(node.placements) == pl
+                    else node.redistribute(mesh, pl))
+        d = distribute_tensor(node, mesh, pl, src_data_rank=src_data_rank)
+        local = d.to_local()
+        if local.untyped_storage().nbytes() > local.numel() * \
+                local.element_size():
+            # a view of the whole tensor would keep it alive: own the shard
+            d = DTensor.from_local(local.clone(), mesh, pl, run_check=False,
+                                   shape=d.shape, stride=d.stride())
+        return d
+    return walk(tree, specs)
+
+
+def rows_like(t, x):
+    """`t`, a plain tensor whose leading dim is `x`'s batch dim (positions
+    made on every rank alike), placed as `x`'s batch: its leading dim split
+    where `x`'s is, replicated elsewhere. The identity when `x` is not a
+    DTensor."""
+    if not is_dtensor(x):
+        return t
+    pl = tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+    return distribute_tensor(t, x.device_mesh, pl, src_data_rank=None)
+
+
+def replicated_like(t, x):
+    """`t`, a plain tensor every rank holds alike (draws, masks), as a
+    DTensor replicated on `x`'s mesh; the identity when `x` is not a
+    DTensor or `t` is None."""
+    if t is None or not is_dtensor(x) or is_dtensor(t):
+        return t
+    return distribute_tensor(t, x.device_mesh, replicated(x.device_mesh),
+                             src_data_rank=None)
+
+
+def replicate(x):
+    """A DTensor replicated on every rank of its mesh (a `Partial` sum or
+    mean reduced, a split gathered), still a DTensor; anything else as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, replicated(x.device_mesh))
+
+
+def full(x):
+    """A DTensor's whole value as a plain tensor (a collective: every rank
+    of its mesh calls it); anything else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def local_rows(fn, n_out: int, *tensors, split_dims: Sequence[int] = (0,)):
+    """`fn(*tensors)` for an op that DTensor has no rule for but that reads
+    only the rows it writes (MoE's top-k, dispatch and combine, rope,
+    attention on whole heads, a cache's pad): on plain tensors as it is, on
+    DTensors through `local_map`, on each rank's shard. The first input
+    keeps its splits of the dims in `split_dims` (by default the batch
+    rows) and is made whole on every other mesh dim; an input of its rank
+    is placed alike, one of another rank (positions beside activations)
+    keeps only the batch split. The `n_out` outputs are placed as the first
+    input."""
+    lead = tensors[0]
+    if not is_dtensor(lead):
+        return fn(*tensors)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = lead.device_mesh
+    keep = tuple(p if isinstance(p, Shard) and p.dim in split_dims
+                 else Replicate() for p in lead.placements)
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in keep)
+    pls = tuple(keep if t.dim() == lead.dim() else rows for t in tensors)
+    args = [t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
+            for t, pl in zip(tensors, pls)]
+    return local_map(fn, out_placements=(keep,) * n_out, in_placements=pls,
+                     device_mesh=mesh)(*args)
+
+
+def placed_like(tree, like):
+    """Every DTensor of `tree` redistributed to the placements of the tensor
+    at the same place in `like` (a step hands its state back placed as it
+    took it: a `Partial` sum is reduced, a gathered leaf cut again); plain
+    tensors pass as they are."""
+    def one(t, ref):
+        if not is_dtensor(t) or tuple(t.placements) == tuple(ref.placements):
+            return t
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return tree_map(one, tree, like)
+
+
+def lookup(table, idx):
+    """`table[idx]`: rows of `table` (V, ...) by integer ids `idx`. On a
+    mesh (DTensors), through `local_map`: DTensor's own index rule refuses
+    ids split over two mesh dims in PyTorch 2.11, and a table split on its
+    rows needs a masked lookup. On each mesh dim, a table split on rows
+    (`Shard(0)`: the vocab over "model") meets ids whole there, each rank
+    looks up its own block with zero rows elsewhere, and the result is a
+    `Partial` sum (exactly one rank adds a nonzero row, so the sum is
+    exact); a whole table takes the ids as they are split, the result rows
+    likewise; any other split of the table is gathered first. The table's
+    gradient from a rank's own ids is a partial sum."""
+    if not is_dtensor(table):
+        return table[idx.long()]
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    idx = replicated_like(idx, table)
+    tab, ids, out, grad, blocks = [], [], [], [], []
+    for i in range(mesh.ndim):
+        if table.placements[i] == Shard(0):
+            tab.append(Shard(0))
+            ids.append(Replicate())
+            out.append(Partial())
+            grad.append(Shard(0))
+            blocks.append(i)
+        else:
+            split = idx.placements[i] == Shard(0)
+            tab.append(Replicate())
+            ids.append(Shard(0) if split else Replicate())
+            out.append(ids[-1])
+            grad.append(Partial() if split else Replicate())
+    table = table.redistribute(mesh, tab)
+    idx = idx.redistribute(mesh, ids)
+    V, v0 = table.shape[0], 0
+    for i in blocks:
+        chunk = -(-V // mesh.size(i))
+        v0 += mesh.get_local_rank(i) * chunk
+        V = chunk
+
+    def rows(w, t):
+        t = t.long()
+        if not blocks:
+            return w[t]
+        t = t - v0
+        hit = (t >= 0) & (t < w.shape[0])
+        return w[t.clamp(0, w.shape[0] - 1)] * hit[..., None].to(w.dtype)
+
+    return local_map(rows, out_placements=(tuple(out),),
+                     in_placements=(tuple(tab), tuple(ids)),
+                     in_grad_placements=(tuple(grad), tuple(ids)),
+                     device_mesh=mesh)(table, idx)
+
+
+# ---------------------------------------------------------------------------
+# Sharding hints: knobs the launcher sets before a step is built, so deep
+# layers (the MoE dispatch buffers) can apply mesh-aware constraints
+# without threading the mesh through every call signature.
+# ---------------------------------------------------------------------------
+_HINTS = {"mesh": None, "moe_ep": False, "moe_dp": False}
+
+
+def set_hints(**kw):
+    _HINTS.update(kw)
+
+
+@contextlib.contextmanager
+def hints_restored():
+    """Every hint as it was on entry, restored on exit."""
+    saved = dict(_HINTS)
+    try:
+        yield
+    finally:
+        _HINTS.clear()
+        _HINTS.update(saved)
+
+
+def hint(name: str):
+    return _HINTS.get(name)
+
+
+def constrain(x, *spec):
+    """`x` redistributed to `spec` on its mesh when a mesh is hinted and `x`
+    is a DTensor (the reference's `with_sharding_constraint`); the identity
+    otherwise. An axis name the mesh lacks reads as None, as in the
+    reference."""
+    m = _HINTS.get("mesh")
+    if m is None or not is_dtensor(x):
+        return x
+    names = axis_names(x.device_mesh)
+    cleaned = tuple(None if isinstance(s, str) and s not in names else s
+                    for s in spec)
+    return x.redistribute(x.device_mesh, placements(cleaned, x.device_mesh))
