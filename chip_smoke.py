@@ -209,11 +209,12 @@ Phases (each failure raises, so the process exits non-zero):
      Whisper and the four kinds, reduced, on the card against the CPU;
   14. the LM launch path on a mesh (`launch/mesh.py`, `sharding.py`'s LM
      half, the serve and train shardings on DTensor): 14a, one NCCL rank,
-     mesh (1, 1) over ("data", "model"), TinyLlama-1.1B at full depth:
+     mesh (1, 1) over ("data", "model"), TinyLlama-1.1B at full width
+     and 11 of 22 layers:
      phase 7's serving and phase 10b's training (2 steps of each of "tp",
      "dp_only" and "zero1") on trees placed by the shardings, bit-equal to
      the unsharded path (logits, tokens, caches; parameters, moments,
-     ProtoState, metrics), 22 flash launches a prefill and one
+     ProtoState, metrics), one flash launch a layer a prefill and one
      proto_accum launch a step (`ops` runs DTensors through `local_map`),
      prefill ms, decode ms a step and s/step beside the unsharded ones;
      14b, four gloo ranks sharing the card (DTensor's functional
@@ -221,7 +222,19 @@ Phases (each failure raises, so the process exits non-zero):
      stage_functional_collectives`), mesh (2, 2), full width and 4 of 22
      layers in float32: serving and one train step of each strategy
      against the unsharded runs on the card, within MESH_LM_* (a bf16
-     prefill's difference reported only).
+     prefill's difference reported only);
+  15. the LM train step with its clients split over "pod" (each rank
+     trains only its own; the prototype merge, or fedavg's parameter
+     mean, is the only exchange across pods), gloo ranks sharing the card,
+     every collective counted by mesh axis: 15a, two ranks, mesh (2, 1,
+     1), phase 10b's TinyLlama-1.1B run, a client a rank: 2 cors steps
+     bit-equal to 10b's (by a digest of every leaf), one proto_accum
+     launch a rank a step, C (d'+1) 4 bytes over pod a step, then a step
+     without the merge and `make_round_sync` on client-sharded stats; s/step
+     and each rank's peak; 15b, four ranks, mesh (2, 1, 2), full width and
+     4 of 22 layers in float32: cors, fd, fedavg, il, zero1 and an absent
+     client against the unsharded steps by phase 14b's bounds, the three
+     round syncs bit-equal by digest, each mode's exact payload over pod.
 Phase 5h-a also runs the MLP stack check (clients 0-1's features and
 gradients within the 8-client MLP stack against a 2-client stack, and the
 first layer's batched GEMM at batch 8 against batch 2). Phases 10b and 13
@@ -239,7 +252,7 @@ also on a (k, ...) block gathered by `index_select` from an N-client stack
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12, 13 and 14) before the last line,
+phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12, 13, 14 and 15) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -2803,7 +2816,7 @@ def phase_lm_train(dev):
           f"client, {LM_CLIENTS} clients x batch {LM_BATCH} x {LM_SEQ} tokens, "
           f"set up in {time.perf_counter() - t0:.2f} s")
     ops.reset_launches()
-    secs, mets = [], []
+    secs, mets, pod_ref = [], [], []
     for s in range(LM_STEPS):
         t0 = time.perf_counter()
         state, m = step(state, batches[s], negs[s])
@@ -2811,6 +2824,8 @@ def phase_lm_train(dev):
         secs.append(time.perf_counter() - t0)
         mets.append({k: float(v) for k, v in m.items()})
         print(f"[train] step {s + 1}: {secs[-1]:.3f} s, {mets[-1]}")
+        if s < POD_STEPS:               # phase 15a's reference, untimed
+            pod_ref.append(pod_step_reference(state, mets[-1]))
     launches, batched = dict(ops.LAUNCHES), dict(ops.LAUNCHES_BATCHED)
     peak = torch.cuda.max_memory_allocated()
     want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": LM_STEPS,
@@ -2872,7 +2887,8 @@ def phase_lm_train(dev):
             "model_share_of_bf16_peak": model_flops / s_step / BF16_FLOPS,
             "busy_share": busy / 1e6 / wall, "device_ops": launched,
             "proto_accum_us": us_pa, "launches": launches,
-            "launches_batched": batched, "steps_s": secs}
+            "launches_batched": batched, "steps_s": secs,
+            "pod_ref": pod_ref}
 
 
 def phase_lm_twin(dev):
@@ -3424,7 +3440,9 @@ def phase_train_kinds(dev):
 
 # Phase 14: the LM launch path on a mesh (launch/mesh.py, the LM half of
 # sharding.py, the serve and train shardings on DTensor). 14a: one NCCL
-# rank, mesh (1, 1) over ("data", "model"), TinyLlama-1.1B at full depth:
+# rank, mesh (1, 1) over ("data", "model"), TinyLlama-1.1B at full width
+# and MESH_LM_ONE_RANK_LAYERS of 22 layers (cut from 22 when phase 15 came,
+# to keep the script's time; bit-equality does not depend on depth):
 # phase 7's serving (SERVE_BATCH x SERVE_PROMPT, SERVE_TOKENS tokens) and
 # phase 10b's training (LM_CLIENTS x LM_BATCH x LM_SEQ, MESH_LM_STEPS steps
 # of each strategy) on placed trees, bit-equal to the unsharded path. 14b:
@@ -3442,6 +3460,7 @@ MESH_LM_STRATEGIES = ("tp", "dp_only", "zero1")
 MESH_LM_STEPS = 2
 MESH_LM_SHAPE = (2, 2)
 MESH_LM_LAYERS = 4
+MESH_LM_ONE_RANK_LAYERS = 11
 MESH_LM_PROMPT, MESH_LM_TOKENS = 256, 4
 # one client (14a holds the two-client loop); its batch divides over the 4
 # ranks of (data, model) (dp_only)
@@ -3495,7 +3514,7 @@ def phase_mesh_lm_one_rank(dev, smi):
     out = {"mesh": "data:1xmodel:1", "backend": "nccl"}
     try:
         mesh = lmesh.device_mesh(lmesh.make_host_mesh())
-        cfg = get_arch(MESH_LM_ARCH)
+        cfg = family_depth(get_arch(MESH_LM_ARCH), MESH_LM_ONE_RANK_LAYERS)
         params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
                             device=dev)
         placed = sharding.place(params, serve.params_shardings(
@@ -3869,6 +3888,573 @@ def phase_mesh_lm_four_ranks(dev, smi):
     return res
 
 
+# Phase 15: the LM train step with its client axis split over "pod" (each
+# rank trains only its own clients; the prototype merge, or fedavg's
+# parameter mean, is the only exchange across pods), ranks sharing the card
+# over gloo with DTensor's functional collectives staged, every collective
+# counted by mesh axis (`launch/roofline.CollectiveBytes`). 15a: two ranks,
+# mesh (2, 1, 1), phase 10b's TinyLlama-1.1B run (full width and depth,
+# bf16, 2 clients, one a rank, 2 x 2048 tokens each): POD_STEPS cors steps,
+# each rank's client held against 10b's same client by a digest of every
+# leaf's bits (parameters and both moments), metrics and proto counts
+# equal, proto sums bit-equal or within POD_PROTO_TOL x max(1, |sum|); then
+# one step with the merge left to the round and `make_round_sync` on the
+# ranks' upload stats. 15b: four ranks, mesh (2, 1, 2), full width and
+# MESH_LM_LAYERS layers in float32: POD_CASES against the unsharded
+# 2-client steps on the card by phase 14b's bounds (client 0's gradients
+# in cors), an absent client's leaves unchanged bit for bit, and the three
+# round syncs on client-sharded stats bit-equal (by digest) to the
+# unsharded ones. Bytes over "pod" beyond the metric scalars: exactly each
+# mode's payload.
+POD_STEPS = 2
+POD_PROTO_TOL = 1e-6
+POD_SAMPLE = 4096          # elements a leaf kept for step 2's bounds
+POD_CASES = (("cors", "cors", "tp", False), ("fd", "fd", "tp", False),
+             ("fedavg", "fedavg", "tp", False), ("il", "il", "tp", False),
+             ("zero1", "cors", "zero1", False), ("absent", "cors", "tp", True))
+POD_MASK = (True, False)
+POD_D_MAX, POD_H_MAX = 1, 2
+
+
+def bit_digest(t):
+    """Two wrapping int64 sums of a tensor's raw bits, one plain and one
+    weighted by position (mod 65521): two leaves with equal digests are
+    taken as bit-equal (phase 15 holds a rank's client against an
+    unsharded run's, on other processes, without moving the leaves)."""
+    x = t.detach().contiguous().reshape(-1)
+    b = x.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[x.element_size()]).long()
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return [int(b.sum()), int((b * w).sum())]
+
+
+def leaf_sample(t):
+    x = t.detach().reshape(-1)
+    return x[::max(1, x.numel() // POD_SAMPLE)][:POD_SAMPLE].float().cpu()
+
+
+def pod_step_reference(state, metrics):
+    """A step of phase 10b as 15a reads it: each client's digest and sample
+    of every parameter and Adam moment, the metrics and the ProtoState (on
+    the host)."""
+    from repro_torch.tree import leaves
+    ls = leaves((state.params, state.opt.m, state.opt.v))
+    n = state.opt.step.shape[0]
+    return {"digests": [[bit_digest(a[i]) for i in range(n)] for a in ls],
+            "samples": [[leaf_sample(a[i]) for i in range(n)] for a in ls],
+            "metrics": metrics,
+            "proto": (state.proto.sum.cpu(), state.proto.count.cpu())}
+
+
+def pod_setup(shape):
+    """A rank of phase 15: cuda:0 over gloo, the functional collectives
+    staged, the ("pod", "data", "model") mesh of `shape`."""
+    from repro_torch import ranks
+    from repro_torch.launch import mesh as lmesh
+    torch.set_num_threads(2)
+    quiet_redistribute()
+    phase_precision()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ranks.stage_functional_collectives()
+    return dev, lmesh.device_mesh(lmesh.MeshShape(("pod", "data", "model"),
+                                                  shape), "cuda")
+
+
+def pod_bytes(cb):
+    """(payload over "pod", scalars over "pod", payload over "model") of a
+    counter's collectives, in bytes."""
+    every, payload = cb.by_axis(), cb.by_axis(2)
+    return (payload["pod"]["total"],
+            every["pod"]["total"] - payload["pod"]["total"],
+            payload["model"]["total"])
+
+
+def pod_rank_main(rank, world, tmp):
+    """One of 15a's two ranks: its client of phase 10b's run, held against
+    tmp/ref.pt; writes tmp/result_<rank>.json."""
+    from repro_torch import ranks, sharding
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prototypes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline, train
+    from repro_torch.tree import leaves, tree_map
+    from repro_torch.types import CollabConfig
+    from torch.distributed.tensor import DTensor
+    dev, mesh = pod_setup((2, 1, 1))
+    ref = torch.load(os.path.join(tmp, "ref.pt"), mmap=True)
+    cfg = get_arch("tinyllama-1.1b")
+    ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
+                        d_feature=cfg.d_feature)
+    N, C, d = LM_CLIENTS, cfg.vocab_size, cfg.d_feature
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    specs = train.state_shardings(train.init_state_shapes(cfg, N), cfg, mesh,
+                                  N)
+    pod = mesh.get_local_rank("pod")
+    lo, hi = pod * N // 2, (pod + 1) * N // 2
+    # this rank builds its own client alone (the other one drawn and
+    # dropped), as 10b's whole state would hold it
+    state = sharding.place_block(train.init_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), N, device=dev,
+        clients=(lo, hi)), specs, mesh)
+    batches = [sharding.place(b, train.batch_shardings(b, mesh, N), mesh,
+                              src_data_rank=None)
+               for b in (_to(x, dev) for x in lm_train_batches(
+                   cfg.vocab_size, N, LM_BATCH, LM_SEQ, LM_STEPS + 1,
+                   seed=0))]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    negs = [train.draw_negatives(gen, cfg, ccfg, N)
+            for _ in range(LM_STEPS + 1)]
+    step = train.make_train_step(cfg, ccfg, n_clients=N,
+                                 disc_tokens=LM_DISC_TOKENS)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "clients": [lo, hi], "setup_s":
+           time.perf_counter() - t0, "steps": []}
+    for s in range(POD_STEPS):
+        want = ref["steps"][s]
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with roofline.CollectiveBytes(mesh) as cb:
+            state, m = step(state, batches[s], negs[s])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.LAUNCHES["proto_accum"]
+        mets = {k: float(sharding.full(v)) for k, v in m.items()}
+        ls = leaves((state.params, state.opt.m, state.opt.v))
+        equal, far, n_all, e_max = 0, 0, 0, 0.0
+        for j, a in enumerate(ls):
+            for i in range(lo, hi):
+                x = a.to_local()[i - lo]
+                if bit_digest(x) == want["digests"][j][i]:
+                    equal += 1
+                dd = (leaf_sample(x) - want["samples"][j][i]).abs()
+                e_max = max(e_max, float(dd.max()))
+                far += int((dd > PARITY_PARAM_TOL).sum())
+                n_all += dd.numel()
+        p_sum, p_cnt = (sharding.full(t).cpu() for t in state.proto)
+        w_sum, w_cnt = want["proto"]
+        pod_b, scalars, model_b = pod_bytes(cb)
+        res["steps"].append({
+            "s": secs, "proto_accum_launches": launches,
+            "metrics": mets, "metrics_equal": mets == want["metrics"],
+            "metrics_rel": max(abs(mets[k] - v) / abs(v)
+                               for k, v in want["metrics"].items()),
+            "leaves_equal": equal, "leaves": len(ls) * (hi - lo),
+            "sample_max": e_max, "sample_far": far, "sample_n": n_all,
+            "counts_equal": bool(torch.equal(p_cnt, w_cnt)),
+            "sums_equal": bool(torch.equal(p_sum, w_sum)),
+            "sums_max": float((p_sum - w_sum).abs().max()),
+            "sums_scale": max(1.0, float(w_sum.abs().max())),
+            "pod_bytes": pod_b, "pod_scalar_bytes": scalars,
+            "model_bytes": model_b})
+        del ls, p_sum, w_sum
+    # the paper's cadence: the step keeps its stats, the round merges them
+    step_r = train.make_train_step(cfg, ccfg, n_clients=N,
+                                   disc_tokens=LM_DISC_TOKENS,
+                                   sync_in_step=False)
+    ops.reset_launches()
+    state, _ = step_r(state, batches[POD_STEPS], negs[POD_STEPS])
+    blk = sharding.client_block(state.opt.step, N)
+    with torch.no_grad(), sharding.hints_restored():
+        sharding.set_hints(mesh=blk.sub)
+        feats, labels = [], []
+        for i in range(lo, hi):
+            b = {k: sharding.client_of(v, i, blk)
+                 for k, v in batches[POD_STEPS].items()}
+            f = train._lm_outputs(cfg, tree_map(
+                lambda a: sharding.client_of(a, i, blk), state.params),
+                {k: v for k, v in b.items() if k != "labels"})["features"]
+            feats.append(sharding.full(f).reshape(-1, d))
+            labels.append(sharding.full(b["labels"]).reshape(-1))
+        local = prototypes.accumulate(
+            prototypes.init_state(C, d, dev, clients=hi - lo),
+            torch.stack(feats), torch.stack(labels))
+    _, stats_pl = train.round_sync_shardings(mesh, N)
+    stats = prototypes.ProtoState(*(DTensor.from_local(
+        t, mesh, stats_pl, run_check=False) for t in local))
+    with roofline.CollectiveBytes(mesh) as cb:
+        state = train.make_round_sync(ccfg)(state, stats)
+    count = int(sharding.full(state.proto.count).sum())
+    pod_b, scalars, _ = pod_bytes(cb)
+    res["fedavg_bytes"] = sum(a.to_local()[0].numel() * 4
+                              for a in leaves(state.params))
+    res["round"] = {"proto_accum_launches": ops.LAUNCHES["proto_accum"],
+                    "count": count, "pod_bytes": pod_b,
+                    "pod_scalar_bytes": scalars}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["staged"] = dict(ranks.STAGED)
+    with open(os.path.join(tmp, f"result_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_pod_two_ranks(dev, smi, ref):
+    """15a: two gloo ranks on the card, a client each, against phase 10b."""
+    from repro_torch import ranks
+    tmp = tempfile.mkdtemp(prefix="pod-lm-")
+    try:
+        t0 = time.perf_counter()
+        torch.save({"steps": ref}, os.path.join(tmp, "ref.pt"))
+        del ref
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks.spawn(pod_rank_main, 2, "gloo", tmp)
+        wall = time.perf_counter() - t0
+        res = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"result_{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    from repro_torch.configs import get_arch
+    cfg = get_arch("tinyllama-1.1b")
+    payload = cfg.vocab_size * (cfg.d_feature + 1) * 4
+    tokens = LM_CLIENTS * LM_BATCH * LM_SEQ
+    which = []
+    for s in range(POD_STEPS):
+        rows = [r["steps"][s] for r in res]
+        bits = all(t["leaves_equal"] == t["leaves"] for t in rows)
+        ok = (all(t["counts_equal"] and t["proto_accum_launches"] == 1
+                  and t["pod_bytes"] == payload for t in rows))
+        sums_ok = all(t["sums_equal"] or t["sums_max"]
+                      <= POD_PROTO_TOL * t["sums_scale"] for t in rows)
+        if s == 0:
+            # step 1: bit-equal to 10b's unsharded step
+            ok = ok and bits and all(t["metrics_equal"] for t in rows)
+        else:
+            # step 2: bit-equal, or within phase 14b's bounds on the samples
+            ok = ok and (bits or all(
+                t["metrics_rel"] <= MESH_LM_LOSS_TOL
+                and t["sample_max"] <= 2 * 1e-3
+                and t["sample_far"] <= PARITY_PARAM_FRAC * t["sample_n"]
+                for t in rows))
+        if not (ok and sums_ok):
+            raise AssertionError(f"[pod] 15a step {s + 1}: {rows}")
+        how = ("bit-equal" if bits and all(t["metrics_equal"] for t in rows)
+               else "within 14b's bounds (sampled)")
+        sums = ("bit-equal" if all(t["sums_equal"] for t in rows) else
+                f"within {POD_PROTO_TOL} x max(1, |sum|)")
+        which.append({"step": s + 1, "state": how, "proto_sums": sums})
+        t = rows[0]
+        print(f"[pod] 15a step {s + 1} tinyllama-1.1b on pod:2xdata:1x"
+              f"model:1 (2 gloo ranks, one card, a client each, "
+              f"{LM_BATCH} x {LM_SEQ} tokens): parameters and moments "
+              f"{how} to 10b's unsharded step ({t['leaves_equal']} of "
+              f"{t['leaves']} leaf digests equal a rank), metrics "
+              f"{'equal' if t['metrics_equal'] else t['metrics_rel']}, "
+              f"proto counts equal, sums {sums} (max {t['sums_max']:.3e}); "
+              f"over pod {t['pod_bytes']} B (C (d'+1) 4 = {payload}) + "
+              f"{t['pod_scalar_bytes']} B of metric scalars (fedavg's "
+              f"D 4 would be {res[0]['fedavg_bytes']} B); s/step "
+              f"{[round(r['steps'][s]['s'], 4) for r in res]} (10b "
+              f"unsharded 1.836-1.985); proto_accum launches a rank "
+              f"{[r['steps'][s]['proto_accum_launches'] for r in res]} "
+              f"[{smi}]")
+    rnd = [r["round"] for r in res]
+    if not all(t["count"] == (POD_STEPS + 1) * tokens
+               and t["proto_accum_launches"] == 1
+               and t["pod_bytes"] == payload for t in rnd):
+        raise AssertionError(f"[pod] 15a round: {rnd}")
+    peaks = [r["peak_bytes"] for r in res]
+    print(f"[pod] 15a round (sync_in_step=False, then make_round_sync on "
+          f"client-sharded stats): counts {rnd[0]['count']} = "
+          f"{POD_STEPS + 1} x {tokens}, one proto_accum launch a rank, "
+          f"{rnd[0]['pod_bytes']} B over pod; peak memory a rank "
+          f"{[round(p / 1e9, 2) for p in peaks]} GB; setup "
+          f"{[round(r['setup_s'], 2) for r in res]} s; staged "
+          f"{res[0]['staged']}; {wall:.1f} s the two ranks, {t_ref:.1f} s "
+          f"the reference's file [{smi}]")
+    return {"ranks": 2, "mesh": "pod:2xdata:1xmodel:1", "wall_s": wall,
+            "held": which,
+            "s_per_step": [[r["steps"][s]["s"] for r in res]
+                           for s in range(POD_STEPS)],
+            "pod_bytes_a_step": res[0]["steps"][0]["pod_bytes"],
+            "pod_scalar_bytes_a_step": res[0]["steps"][0]["pod_scalar_bytes"],
+            "peak_bytes": peaks,
+            "proto_accum_launches_a_step": [
+                [r["steps"][s]["proto_accum_launches"] for r in res]
+                for s in range(POD_STEPS)]}
+
+
+def pod_four_inputs(cfg, ccfg, dev):
+    """15b's batch (2 clients x MESH_LM_TRAIN_BATCH x MESH_LM_TRAIN_SEQ),
+    negatives and round-sync stats, alike on every process."""
+    from repro_torch.core import prototypes
+    from repro_torch.launch import train
+    batch = _to(lm_train_batches(cfg.vocab_size, LM_CLIENTS,
+                                 MESH_LM_TRAIN_BATCH, MESH_LM_TRAIN_SEQ, 1,
+                                 seed=0)[0], dev)
+    neg = train.draw_negatives(torch.Generator(device=dev).manual_seed(1),
+                               cfg, ccfg, LM_CLIENTS)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    stats = prototypes.ProtoState(
+        torch.randn(LM_CLIENTS, cfg.vocab_size, cfg.d_feature, generator=gen,
+                    device=dev),
+        torch.randint(0, 5, (LM_CLIENTS, cfg.vocab_size), generator=gen,
+                      device=dev).float())
+    return batch, neg, stats
+
+
+def pod_ccfg(cfg, mode="cors"):
+    from repro_torch.types import CollabConfig
+    return CollabConfig(mode=mode, num_classes=cfg.vocab_size,
+                        d_feature=cfg.d_feature)
+
+
+def pod_syncs(ccfg, C, d, dev):
+    """(name, fn(state, stats) -> what 15b holds) of the three round
+    syncs: the merged ProtoState, with the pending slots (delays (0, 1))
+    or the history ring."""
+    from repro_torch.launch import train
+    init_pending, async_sync = train.make_async_round_sync(ccfg, POD_D_MAX)
+    init_hist, lag_sync, _ = train.make_download_lag_round_sync(ccfg,
+                                                                POD_H_MAX)
+
+    def lagged(st, s):
+        out, hist = lag_sync(st, init_hist(C, d, dev), s)
+        return out.proto, hist
+
+    def delayed(st, s):
+        out, pending = async_sync(st, init_pending(C, d, dev),
+                                  torch.tensor([0, 1], device=dev), s)
+        return out.proto, pending
+
+    return (("round", lambda st, s: train.make_round_sync(ccfg)(st, s).proto),
+            ("async", delayed), ("lag", lagged))
+
+
+def pod_four_reference(dev, path):
+    """15b's unsharded 2-client runs on the card, saved to `path`: each
+    case's parameters (a client's leaf stored once where the clients agree,
+    one tensor for cases that agree on the present clients), client 0's
+    gradients in cors, metrics, counts, and the round syncs' digests."""
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+    cfg = mesh_lm_cfg()
+    batch, neg, stats = pod_four_inputs(cfg, pod_ccfg(cfg), dev)
+    init = lambda: train.init_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), LM_CLIENTS,
+        device=dev)
+    ref = {"params": {}, "cases": {}}
+    for name, mode, _, masked in POD_CASES:
+        ccfg = pod_ccfg(cfg, mode)
+        state = init()
+        if name == "cors":
+            g, _ = mesh_lm_grads(cfg, ccfg, state, batch, neg)
+            ref["grads"] = [t.cpu() for t in leaves(g)]
+            del g
+        mask = torch.tensor(POD_MASK, device=dev) if masked else None
+        new, met = train.make_train_step(cfg, ccfg, n_clients=LM_CLIENTS)(
+            state, batch, neg, mask)
+        present = [i for i in range(LM_CLIENTS) if not masked or POD_MASK[i]]
+        params = [t.cpu() for t in leaves(new.params)]
+        key = next((k for k, v in ref["params"].items() if all(
+            torch.equal(a[present], b[present]) for a, b in zip(v, params))),
+            name)
+        if key == name:
+            ref["params"][key] = [
+                t[:1].clone().expand(t.shape) if all(
+                    torch.equal(t[0], t[i]) for i in range(1, len(t)))
+                else t for t in params]
+        ref["cases"][name] = {
+            "key": key, "present": present, "loss": float(met["total"]),
+            "count": new.proto.count.cpu()}
+        del state, new, params
+        torch.cuda.empty_cache()
+    ref["syncs"] = {}
+    state = init()
+    for name, fn in pod_syncs(pod_ccfg(cfg), cfg.vocab_size, cfg.d_feature,
+                              dev):
+        ref["syncs"][name] = [bit_digest(t) for t in leaves(fn(state, stats))]
+    del state
+    torch.save(ref, path)
+    torch.cuda.empty_cache()
+
+
+def pod_four_rank_main(rank, world, tmp):
+    """One of 15b's four ranks on the (2, 1, 2) mesh, held by phase 14b's
+    bounds against tmp/ref.pt; rank 0 writes tmp/result.json."""
+    import torch.distributed as dist
+    from repro_torch import ranks, sharding
+    from repro_torch.core import prototypes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline, train
+    from repro_torch.tree import leaves, tree_map
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    dev, mesh = pod_setup((2, 1, 2))
+    ref = torch.load(os.path.join(tmp, "ref.pt"), mmap=True)
+    cfg = mesh_lm_cfg()
+    N = LM_CLIENTS
+    batch, neg, stats = pod_four_inputs(cfg, pod_ccfg(cfg), dev)
+    shapes = train.init_state_shapes(cfg, N)
+    specs = {st: train.state_shardings(shapes, cfg, mesh, N, strategy=st)
+             for st in ("tp", "zero1")}
+    pod = mesh.get_local_rank("pod")
+    blk = (pod * N // 2, (pod + 1) * N // 2)
+
+    def fresh(strategy):
+        return sharding.place_block(train.init_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), N, device=dev,
+            clients=blk), specs[strategy], mesh)
+
+    res = {"cases": {}}
+    for name, mode, strategy, masked in POD_CASES:
+        t0 = time.perf_counter()
+        want = ref["cases"][name]
+        ccfg = pod_ccfg(cfg, mode)
+        step = train.make_train_step(cfg, ccfg, n_clients=N)
+        sharding.set_hints(mesh=mesh, moe_ep=False,
+                           moe_dp=strategy in ("dp_only", "zero1"))
+        e_g = []
+        try:
+            state = fresh(strategy)
+            pb = sharding.place(batch, train.batch_shardings(
+                batch, mesh, N, strategy=strategy), mesh, src_data_rank=None)
+            if name == "cors" and pod == 0:
+                # client 0's gradients on its (data, model) sub-mesh
+                cb_ = sharding.client_block(state.opt.step, N)
+                with sharding.hints_restored():
+                    sharding.set_hints(mesh=cb_.sub)
+                    g, _, _, _ = train.client_grads(
+                        train.make_loss_fn(cfg, ccfg),
+                        tree_map(lambda a: sharding.client_of(a, 0, cb_),
+                                 state.params),
+                        {k: sharding.client_of(v, 0, cb_)
+                         for k, v in pb.items()},
+                        sharding.client_sub(prototypes.means(state.proto),
+                                            cb_), neg[0])
+                for a, b in zip(leaves(g), ref["grads"]):
+                    x, r, _ = mesh_lm_local(a, b)
+                    e_g.append(float((x - r).abs().max())
+                               / max(float(r.abs().max()), 1e-30))
+                del g
+            mask = torch.tensor(POD_MASK, device=dev) if masked else None
+            ops.reset_launches()
+            with roofline.CollectiveBytes(mesh) as cb:
+                new, met = step(state, pb, neg, mask)
+            launches = ops.LAUNCHES["proto_accum"]
+        finally:
+            sharding.set_hints(mesh=None)
+        loss = float(sharding.full(met["total"]))
+        e_p, n_far, n_all, frozen = 0.0, 0, 0, True
+        for a, old, b in zip(leaves(new.params), leaves(state.params),
+                             ref["params"][want["key"]]):
+            if blk[0] not in want["present"]:
+                frozen = frozen and torch.equal(a.to_local(), old.to_local())
+                continue
+            x, r, own = mesh_lm_local(a, b)
+            dd = (x.float() - r.float()).abs()
+            e_p = max(e_p, float(dd.max()))
+            if own:
+                n_far += int((dd > PARITY_PARAM_TOL).sum())
+                n_all += dd.numel()
+        red = torch.tensor([e_p, max(e_g, default=0.0)], dtype=torch.float64)
+        dist.all_reduce(red, op=dist.ReduceOp.MAX)
+        ints = torch.tensor([n_far, n_all, int(not frozen)])
+        dist.all_reduce(ints)
+        count = sharding.full(new.proto.count).cpu()
+        pod_b, scalars, model_b = pod_bytes(cb)
+        fedavg_b = sum(p.to_local()[0].numel() * 4
+                       for p in leaves(state.params))
+        res["cases"][name] = {
+            "loss_rel": abs(loss - want["loss"]) / abs(want["loss"]),
+            "grads_rel": float(red[1]), "params": float(red[0]),
+            "params_far": int(ints[0]), "params_n": int(ints[1]),
+            "frozen_moved": int(ints[2]),
+            "counts_equal": bool(torch.equal(count, want["count"])),
+            "proto_accum_launches": launches, "pod_bytes": pod_b,
+            "pod_scalar_bytes": scalars, "model_bytes": model_b,
+            "fedavg_bytes": fedavg_b, "wall_s": time.perf_counter() - t0}
+        del state, new, pb
+        torch.cuda.empty_cache()
+    rep, stats_pl = train.round_sync_shardings(mesh, N)
+    placed = prototypes.ProtoState(*(
+        DTensor.from_local(
+            distribute_tensor(t, mesh, stats_pl,
+                              src_data_rank=None).to_local().clone(),
+            mesh, stats_pl, run_check=False, shape=t.shape, stride=t.stride())
+        for t in stats))
+    del stats
+    state = fresh("tp")
+    res["syncs"] = {}
+    for name, fn in pod_syncs(pod_ccfg(cfg), cfg.vocab_size, cfg.d_feature,
+                              dev):
+        with roofline.CollectiveBytes(mesh) as cb:
+            out = fn(state, placed)
+        digs = [bit_digest(sharding.full(t)) for t in leaves(out)]
+        pod_b, scalars, _ = pod_bytes(cb)
+        res["syncs"][name] = {"equal": digs == ref["syncs"][name],
+                              "pod_bytes": pod_b,
+                              "pod_scalar_bytes": scalars}
+    res["staged"] = dict(ranks.STAGED)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        with open(os.path.join(tmp, "result.json"), "w") as f:
+            json.dump(res, f)
+
+
+def phase_pod_four_ranks(dev, smi):
+    """15b: four gloo ranks sharing cuda:0 on the (2, 1, 2) mesh against the
+    unsharded runs on the card."""
+    from repro_torch import ranks
+    tmp = tempfile.mkdtemp(prefix="pod-lm-")
+    try:
+        t0 = time.perf_counter()
+        pod_four_reference(dev, os.path.join(tmp, "ref.pt"))
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks.spawn(pod_four_rank_main, 4, "gloo", tmp)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "result.json")) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = mesh_lm_cfg()
+    block = cfg.vocab_size // 2 * (cfg.d_feature + 1) * 4
+    lim = 2 * 1e-3
+    for name, t in res["cases"].items():
+        want = {"fedavg": t["fedavg_bytes"], "il": 0}.get(name, block)
+        launches = 0 if name in ("fedavg", "il") else 1
+        ok = (t["loss_rel"] <= MESH_LM_LOSS_TOL
+              and t["grads_rel"] <= MESH_LM_GRAD_TOL
+              and t["params"] <= lim
+              and t["params_far"] <= PARITY_PARAM_FRAC * t["params_n"]
+              and t["frozen_moved"] == 0 and t["counts_equal"]
+              and t["proto_accum_launches"] == launches
+              and t["pod_bytes"] == want)
+        if not ok:
+            raise AssertionError(f"[pod] 15b {name}: {t} (pod bytes want "
+                                 f"{want})")
+        print(f"[pod] 15b {name} on pod:2xdata:1xmodel:2 (4 gloo ranks, one "
+              f"card; {t['wall_s']:.1f} s), {MESH_LM_LAYERS} of 22 layers, "
+              f"float32: loss {t['loss_rel']:.3e} relative, parameters "
+              f"{t['params']:.3e} ({t['params_far']} of {t['params_n']} "
+              f"beyond {PARITY_PARAM_TOL})"
+              + (f", client 0's gradients {t['grads_rel']:.3e} of max|g|"
+                 if name == "cors" else "")
+              + (", the absent client's leaves unchanged" if name == "absent"
+                 else "")
+              + f", counts equal, {launches} proto_accum launch a rank; a "
+              f"rank sends {t['pod_bytes']} B over pod (+ "
+              f"{t['pod_scalar_bytes']} B of scalars), {t['model_bytes']} "
+              f"B over model")
+    payload = {"round": block, "async": (POD_D_MAX + 1) * 2 * block,
+               "lag": block}
+    for name, t in res["syncs"].items():
+        if not (t["equal"] and t["pod_bytes"] == payload[name]):
+            raise AssertionError(f"[pod] 15b sync {name}: {t}")
+    print(f"[pod] 15b round syncs on client-sharded stats (round, async "
+          f"with delays (0, 1), download lag): bit-equal to unsharded by "
+          f"digest, over pod {[t['pod_bytes'] for t in res['syncs'].values()]}"
+          f" B a rank; host-staged collectives {res['staged']}; peak rank 0 "
+          f"{res['peak_bytes'] / 1e9:.2f} GB; {t_ref:.1f} s unsharded, "
+          f"{wall:.1f} s the four ranks [{smi}]")
+    res.update(ranks=4, backend="gloo", wall_s=wall, reference_s=t_ref)
+    return res
+
+
 def mlp_stack_check(stack, block, dev):
     """Clients [0, block)'s MLP features, and the gradients of their
     squares' sum with respect to both hidden weights, within the whole
@@ -3962,6 +4548,7 @@ def main():
     torch.cuda.empty_cache()
     lm_parity = phase_lm_parity(dev)
     lm_train = phase_lm_train(dev)
+    pod_ref = lm_train.pop("pod_ref")
     torch.cuda.empty_cache()
     lm_twin_s = phase_lm_twin(dev)
     torch.cuda.empty_cache()
@@ -3973,6 +4560,11 @@ def main():
     mesh_lm = {"one_rank": phase_mesh_lm_one_rank(dev, smi)}
     torch.cuda.empty_cache()
     mesh_lm["four_ranks"] = phase_mesh_lm_four_ranks(dev, smi)
+    torch.cuda.empty_cache()
+    pod = {"two_ranks": phase_pod_two_ranks(dev, smi, pod_ref)}
+    del pod_ref
+    torch.cuda.empty_cache()
+    pod["four_ranks"] = phase_pod_four_ranks(dev, smi)
     launches["flash_attention"] = serve_launches["flash_attention"]
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         launches[name + "_batched"] = launches_vec[name]
@@ -4030,6 +4622,12 @@ def main():
                 {f"mesh lm train {st} (4 ranks, a rank a step)": t[
                     "proto_accum_launches"]
                  for st, t in mesh_lm["four_ranks"]["train"].items()})
+            k["launches_by_path"]["lm pod train (2 ranks, a rank a step)"] = (
+                pod["two_ranks"]["proto_accum_launches_a_step"][0][0])
+            k["launches_by_path"].update(
+                {f"lm pod {name} (4 ranks, a rank a step)": t[
+                    "proto_accum_launches"]
+                 for name, t in pod["four_ranks"]["cases"].items()})
         if name == "flash_attention":
             k["launches_by_path"]["serve tinyllama-1.1b"] = launches[name]
             k["launches_by_path"]["mesh lm serve (1 rank, a prefill)"] = (
@@ -4063,7 +4661,7 @@ def main():
           f"{json.dumps(mesh_four)}; lm train parity "
           f"{json.dumps(lm_parity)}; lm train "
           f"{json.dumps({k: v for k, v in lm_train.items() if 'launches' not in k})}"
-          f"; mesh lm {json.dumps(mesh_lm)}"
+          f"; mesh lm {json.dumps(mesh_lm)}; lm pod {json.dumps(pod)}"
           f"; lm twin 2 rounds {lm_twin_s:.2f} s; families "
           f"{json.dumps(families)}; whisper serve {json.dumps(whisper)}; "
           f"train kinds {json.dumps(train_rows)}")

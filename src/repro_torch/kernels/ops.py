@@ -325,13 +325,23 @@ def proto_accum(features, labels, num_classes: int):
 def proto_accum_placements(features, labels):
     """The placements `proto_accum` declares for DTensor `features` (..., n,
     d) and `labels` (..., n): on each mesh dim both `Shard` on the row dim
-    n where both are split there, else both `Replicate()`."""
+    n where both are split there; with a client axis (N, n, d), both
+    `Shard(0)` where both split the clients there (the LM step's "pod"
+    axis); else both `Replicate()`."""
     from torch.distributed.tensor import Replicate, Shard
     fd, ld = features.dim() - 2, labels.dim() - 1
-    rows = [pf == Shard(fd) and pl == Shard(ld)
-            for pf, pl in zip(features.placements, labels.placements)]
-    return (tuple(Shard(fd) if r else Replicate() for r in rows),
-            tuple(Shard(ld) if r else Replicate() for r in rows))
+    out_f, out_l = [], []
+    for pf, pl in zip(features.placements, labels.placements):
+        if pf == Shard(fd) and pl == Shard(ld):
+            out_f.append(Shard(fd))
+            out_l.append(Shard(ld))
+        elif fd == 1 and pf == Shard(0) and pl == Shard(0):
+            out_f.append(Shard(0))
+            out_l.append(Shard(0))
+        else:
+            out_f.append(Replicate())
+            out_l.append(Replicate())
+    return tuple(out_f), tuple(out_l)
 
 
 def proto_accum_placed(features, labels):
@@ -349,9 +359,12 @@ def _proto_accum_dtensor(features, labels, num_classes: int):
 
     Declared placements (`proto_accum_placements`): on every mesh dim,
     `features` (..., n, d) and `labels` (..., n) are both `Shard` on the
-    row dim n, or both `Replicate()`. A rank's sums and counts are then
-    `Partial` over the mesh dims that split the rows (each rank adds its
-    own rows; the caller's first read reduces them once), and on the mesh
+    row dim n, both `Shard(0)` on a client axis (N, n, d), or both
+    `Replicate()`. A rank's sums and counts are then `Shard(0)` over the
+    mesh dims that split the clients (its own clients' block: the launch
+    covers them alone, client axis N / pod), `Partial` over the mesh dims
+    that split the rows (each rank adds its own rows; the caller's first
+    read reduces them once), and on the mesh
     dims that replicate the rows the classes are split: the rank at
     coordinate r of a dim of size w (w dividing C, C / w = Cw) accumulates
     its block [r Cw, (r + 1) Cw) with labels - r Cw and C = Cw, exact by
@@ -368,8 +381,9 @@ def _proto_accum_dtensor(features, labels, num_classes: int):
     declared = proto_accum_placements(features, labels)
     if (tuple(features.placements), tuple(labels.placements)) != declared:
         raise ValueError(
-            f"proto_accum takes DTensors sharded on the row dim or "
-            f"replicated, alike for features and labels, on every mesh "
+            f"proto_accum takes DTensors sharded on the row dim, on the "
+            f"client dim or replicated, alike for features and labels, on "
+            f"every mesh "
             f"dim; got {features.placements} and {labels.placements} "
             f"(`proto_accum_placed` places them so)")
     fd, ld = features.dim() - 2, labels.dim() - 1
@@ -377,7 +391,10 @@ def _proto_accum_dtensor(features, labels, num_classes: int):
     f_out, c_out, blocks = [], [], []
     for i, p in enumerate(declared[0]):
         w = mesh.size(i)
-        if p.is_shard():
+        if p.is_shard(0) and fd == 1:
+            f_out.append(Shard(0))
+            c_out.append(Shard(0))
+        elif p.is_shard():
             f_out.append(Partial())
             c_out.append(Partial())
         elif w > 1 and C % w == 0:

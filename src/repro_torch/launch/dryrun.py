@@ -19,16 +19,22 @@ eagerly and has no compile step, so the port's counterpart has two halves:
   - run (`run_one`, `--one-step`): on a real `DeviceMesh` of this process
     group's ranks (under `torchrun`), one step on placed random weights of
     the reduced config at a small shape of the same mode: the counterpart
-    of compiling. On the card by default: NCCL with a card a rank, or
-    gloo ranks sharing the cards where the ranks outnumber them (DTensor's
-    functional collectives staged through host memory,
+    of compiling. On a mesh with "pod" a train step splits its clients over
+    it, each rank training only its own (`train.make_train_step`). The
+    record holds the collectives the run made, by kind and by mesh axis
+    (`roofline.CollectiveBytes`, every operand of a collective summed:
+    the reference's HLO reading counts a tuple all-reduce's first shape
+    only), in full and without the scalars, and the roofline terms with
+    them as the collective term. On the card by default: NCCL with a card
+    a rank, or gloo ranks sharing the cards where the ranks outnumber them
+    (DTensor's functional collectives staged through host memory,
     `ranks.stage_functional_collectives`); on the CPU only with
     `--device cpu`. Without a GPU and without `--device cpu` it raises.
 
 No counterpart: XLA's cost analysis (HLO FLOPs and bytes accessed, the
-scan-corrected depth variants) and HLO's collective bytes
-(`roofline.collective_bytes`); the records' roofline terms come from the
-analytic FLOPs and the resident bytes instead, with no collective term.
+scan-corrected depth variants); the records' roofline terms come from the
+analytic FLOPs and bytes instead. A reckoned record has no collective
+term: nothing runs.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
@@ -37,13 +43,15 @@ Usage:
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.dryrun \\
       --one-step --mesh 2x2 --arch tinyllama-1.1b --shape prefill_32k \\
       [--device cuda|cpu]
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.dryrun \\
+      --one-step --mesh 2x1x1 --arch tinyllama-1.1b --shape train_4k \\
+      --mode cors|fd|fedavg|il [--device cuda|cpu]
 
 Records: artifacts/dryrun_torch/<arch>__<shape>__<mesh>__<mode>.json
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -262,6 +270,35 @@ def run_one(cfg, shape: ShapeConfig, mesh, *, mode: str = "cors",
                           seed=seed)
 
 
+def _filler(cfg, gen):
+    """Random leaves like meta tensors from `gen`: ids below the vocab size,
+    floats from a normal."""
+    def fill(t):
+        if not t.dtype.is_floating_point:
+            return torch.randint(0, cfg.vocab_size, tuple(t.shape),
+                                 generator=gen, device=gen.device,
+                                 dtype=t.dtype)
+        return torch.randn(tuple(t.shape), generator=gen, device=gen.device
+                           ).to(t.dtype)
+    return fill
+
+
+def train_inputs(cfg, shape: ShapeConfig, n_clients: int, seed: int = 0,
+                 device="cpu"):
+    """The (state, batch, negatives) of `run_one`'s train step, as every
+    rank makes them before placing them: the batch, the clients' weights
+    and their K = 15 negatives a client, in that order from one generator
+    seeded `seed`. Plain tensors: the unsharded step takes them as they
+    are."""
+    gen = torch.Generator(device).manual_seed(seed)
+    batch = tree_map(_filler(cfg, gen),
+                     train_lib.train_batch_specs(cfg, shape, n_clients))
+    state = train_lib.init_state(cfg, gen, n_clients, device=device)
+    ccfg = CollabConfig(num_classes=cfg.vocab_size, d_feature=cfg.d_feature,
+                        num_negatives=15)
+    return state, batch, train_lib.draw_negatives(gen, cfg, ccfg, n_clients)
+
+
 def _run_built(cfg, shape, mesh, *, mode, n_clients, strategy, moe_ep,
                sync, seed):
     from repro_torch.launch.serve import decode_window
@@ -269,32 +306,16 @@ def _run_built(cfg, shape, mesh, *, mode, n_clients, strategy, moe_ep,
     dev = mesh.device_type
     step, trees = build(cfg, shape, mesh, mode=mode, n_clients=n_clients,
                         strategy=strategy, moe_ep=moe_ep, sync=sync)
-    gen = torch.Generator(dev).manual_seed(seed)
-
-    def ints(t, hi):
-        return torch.randint(0, hi, tuple(t.shape), generator=gen,
-                             device=dev, dtype=t.dtype)
-
-    def fill(t):
-        if not t.dtype.is_floating_point:
-            return ints(t, cfg.vocab_size)
-        return torch.randn(tuple(t.shape), generator=gen, device=dev
-                           ).to(t.dtype)
 
     def put(name, tree):
         return sharding.place(tree, trees[name][1], mesh, src_data_rank=None)
 
-    grad = shape.mode == "train"
-    with contextlib.nullcontext() if grad else torch.no_grad():
-        batch = put("batch", tree_map(fill, trees["batch"][0]))
-        if shape.mode == "train":
-            ccfg = CollabConfig(mode=mode, num_classes=cfg.vocab_size,
-                                d_feature=cfg.d_feature,
-                                num_negatives=15)
-            state = put("state", train_lib.init_state(
-                cfg, gen, n_clients, device=dev))
-            neg = train_lib.draw_negatives(gen, cfg, ccfg, n_clients)
-            return step(state, batch, neg)
+    if shape.mode == "train":
+        state, batch, neg = train_inputs(cfg, shape, n_clients, seed, dev)
+        return step(put("state", state), put("batch", batch), neg)
+    gen = torch.Generator(dev).manual_seed(seed)
+    with torch.no_grad():
+        batch = put("batch", tree_map(_filler(cfg, gen), trees["batch"][0]))
         init = encdec.init_encdec if cfg.is_encoder_decoder \
             else lm.init_lm
         params = put("params", init(gen, cfg, device=dev))
@@ -333,9 +354,12 @@ def fmt(rec) -> str:
         return (f"{rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:12s} "
                 f"{rec['status'].upper()}: {why[:60]}")
     if "ran" in rec:
+        pod = rec["collectives"].get("pod")
         return (f"{rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:12s} "
                 f"ran one step in {rec['run_s']:.2f}s on {rec['ran']} "
-                f"({rec['device']})")
+                f"({rec['device']})"
+                + (f", {pod['total']} B in {pod['count']} collectives over "
+                   f"pod" if pod else ""))
     t = rec["terms"]
     return (f"{rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:12s} "
             f"rank={rec['per_rank_bytes'] / 2**30:8.3f}GiB "
@@ -350,7 +374,7 @@ def main(argv=None):
     ap.add_argument("--shape", default=None)
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--mode", default="cors",
-                    choices=["cors", "fedavg", "il"])
+                    choices=["cors", "fd", "fedavg", "il"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--strategy", default="tp",
                     choices=["tp", "dp_only", "zero1"])
@@ -451,15 +475,26 @@ def _run_record(arch, shape_name, mesh, mesh_tag, args, knobs):
         if shape.mode == "train" else 1
     run = run_shape(shape, mesh, n_clients)
     t0 = time.time()
-    out = run_one(small, run, mesh, mode=args.mode, **knobs)
+    with roofline.CollectiveBytes(mesh) as cb:
+        out = run_one(small, run, mesh, mode=args.mode, **knobs)
+    run_s = time.time() - t0
     vals = [t.full_tensor() if sharding.is_dtensor(t) else t
             for t in leaves(out)]
     finite = all(bool(torch.isfinite(v.float()).all()) for v in vals
                  if v.is_floating_point())
+    coll = cb.by_axis()
+    n_dev = mesh.size()
     rec.update(status="ok" if finite else "fail", ran=describe(mesh),
                device=mesh.device_type,
                run_config=small.name, run_shape=dataclasses.asdict(run),
-               run_s=time.time() - t0, finite=finite)
+               run_s=run_s, finite=finite,
+               collectives=coll, collectives_beyond_scalars=cb.by_axis(2),
+               terms=roofline.terms(
+                   {"flops": roofline.model_flops(small, run, n_clients)
+                    / n_dev,
+                    "bytes accessed": roofline.memory_floor_bytes(
+                        small, run, n_dev, n_clients=n_clients)["total"]},
+                   {"total": sum(d["total"] for d in coll.values())}))
     if not finite:
         rec["error"] = "non-finite outputs"
     return rec

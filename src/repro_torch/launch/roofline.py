@@ -14,11 +14,14 @@ Ported: `terms`, `model_flops`, `active_params` (with `_attn_params` and
 `_cache_bytes`, and the depth-variant solver (`depth_variants`,
 `real_counts`, `solve_linear`, `evaluate_linear`).
 
-Not ported: `collective_bytes`, which parses the collectives out of XLA's
-compiled HLO text. PyTorch runs eagerly and has no compiled program to
-read, so the port's dry-run (`launch/dryrun.py`) reckons shapes and bytes
-from meta tensors and the shardings instead, and reports no collective
-bytes.
+The counterpart of `collective_bytes`, which parses the collectives out of
+XLA's compiled HLO text: PyTorch runs eagerly and has no compiled program
+to read, so `CollectiveBytes` counts the collectives a run makes, as they
+are made, by kind and by mesh axis, in the reference's dict. It sums every
+operand of a collective: the reference reads only the first shape of
+XLA's tuple all-reduces, so it counts a step's folded all-reduce over
+"pod" as its first leaf (524,288 B, where cors moves 526,352 and fedavg
+4,723,712 + 8, on the reduced TinyLlama over two pods).
 """
 from __future__ import annotations
 
@@ -26,10 +29,85 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+from torch.utils._python_dispatch import TorchDispatchMode
 
 PEAK_FLOPS = 989e12        # bf16 dense, H100 80GB HBM3 (SXM)
 HBM_BW = 3.35e12           # bytes/s, HBM3
 LINK_BW = 450e9            # bytes/s each way, NVLink 4
+
+
+# the reference's kinds, and the functional collectives that are each
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute", "broadcast")
+_FUNCTIONAL = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+}
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """The collectives a run makes while this mode is on, counted by kind
+    and by the axis of `mesh` whose process group each runs over ("other"
+    for a group of none of them): the operand bytes of every
+    `torch.ops._c10d_functional` collective (through which DTensor
+    redistributes), each of its operands summed, as the reference means
+    them (an all-gather's local shard, a reduce-scatter's whole input).
+    DTensor ops are let through first (`NotImplemented`), so that the
+    collectives they issue on their local tensors are seen; staged through
+    host memory (`ranks.stage_functional_collectives`) or not, under gloo
+    or NCCL, the op is the same.
+
+      with roofline.CollectiveBytes(mesh) as cb:
+          step(state, batch, neg)
+      cb.by_axis()            # {"pod": {"all-reduce": B, ..., "total",
+                              #          "count"}, "data": ..., "model": ...}
+      cb.by_axis(min_numel=2) # without the scalars (metric means)
+    """
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.axes = {mesh.get_group(i).group_name: name
+                     for i, name in enumerate(mesh.mesh_dim_names)}
+        self.events: List[Tuple[str, str, int, int]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        ns, _, name = str(func._schema.name).partition("::")
+        if ns == "_c10d_functional" and name in _FUNCTIONAL:
+            group = kwargs.get("group_name", args[-1])
+            ts = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
+            self.events.append((
+                self.axes.get(group, "other"), _FUNCTIONAL[name],
+                sum(t.numel() for t in ts),
+                sum(t.numel() * t.element_size() for t in ts)))
+        return func(*args, **kwargs)
+
+    def by_axis(self, min_numel: int = 1) -> Dict[str, Dict[str, int]]:
+        """{axis: {kind: operand bytes, ..., "total": their sum, "count":
+        collectives}} of the collectives with at least `min_numel`
+        elements, every axis of the mesh present."""
+        out = {a: dict({k: 0 for k in KINDS}, total=0, count=0)
+               for a in self.axes.values()}
+        for axis, kind, numel, nbytes in self.events:
+            if numel < min_numel:
+                continue
+            d = out.setdefault(axis, dict({k: 0 for k in KINDS}, total=0,
+                                          count=0))
+            d[kind] += nbytes
+            d["total"] += nbytes
+            d["count"] += 1
+        return out
 
 
 def terms(cost: Optional[dict], coll: Dict[str, int]) -> Dict[str, float]:

@@ -27,16 +27,24 @@ negative classes with `jax.random.randint`; the port takes them as an
 Shardings, as the reference's (`state_shardings` with the strategies "tp",
 "dp_only" and "zero1", `round_sync_shardings`, `batch_shardings`), give
 spec trees (`sharding.py`); `sharding.place` puts the state and batch on
-a `DeviceMesh` by them, and `make_train_step` runs unchanged on the placed
+a `DeviceMesh` by them (`sharding.place_block` a rank's own clients from
+`init_state(..., clients=)`), and `make_train_step` runs on the placed
 trees: DTensor propagates the shardings through the forward, autograd
 and Adam, and the merge's `ops.proto_accum` launches once a rank on its
-rows and vocab block. The "pod" client axis is declared and reckoned
-(the dry-run) but not run: a placed state's clients are whole on every
-rank.
+rows and vocab block. On a mesh with "pod" the client axis is split over
+it, as in the reference: each rank holds and runs only its own clients
+(`sharding.client_block`), each on the ("data", "model") sub-mesh, and
+no parameter, gradient, moment or activation crosses "pod". What does is
+each mode's exchange alone, one all-reduce over "pod" a leaf
+(`sharding.pod_sum`): the prototype sums and counts in cors and fd, the
+parameters' float32 sums in fedavg, nothing in il; beside them the
+metrics' means, one scalar each. The round syncs take client-sharded
+stats (`round_sync_shardings`) and sum them so; their pending slots and
+history ring stay replicated.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -156,82 +164,112 @@ def make_train_step(cfg: ModelConfig, ccfg: CollabConfig, *,
     device; neg_ids (N, K) (cors only); participation an optional (N,) bool
     tensor: absent clients' params and Adam state freeze for the step, their
     stats are zero-weighted in the merge, fedavg averages over present
-    clients, and the metrics are means over present clients."""
+    clients, and the metrics are means over present clients. On a state
+    split over "pod" every rank passes the same whole neg_ids and mask,
+    and the batch placed by `batch_shardings`: each reads its own
+    clients' rows."""
     loss_fn = make_loss_fn(cfg, ccfg, disc_tokens=disc_tokens)
     C = cfg.vocab_size
     merge_stats = ccfg.mode in ("cors", "fd") and sync_in_step
 
     def train_step(state: TrainState, batch, neg_ids=None,
                    participation=None):
+        # this rank's clients: all of them, or on a state split over "pod"
+        # its own block, each run on the ("data", "model") sub-mesh
+        blk = sharding.client_block(state.opt.step, n_clients)
         proto_means = prototypes.means(state.proto)
-        # on a mesh, the mask as a replicated DTensor (the loss places the
-        # draws so)
-        participation = sharding.replicated_like(participation, proto_means)
-        grads = tree_map(torch.empty_like, state.params)
+        if blk.split:
+            participation = sharding.block_rows(participation, blk)
+        else:
+            # on a mesh, the mask as a replicated DTensor (the loss places
+            # the draws so)
+            participation = sharding.replicated_like(participation,
+                                                     proto_means)
+        means_c = sharding.client_sub(proto_means, blk)
+        grads = tree_map(lambda p: sharding.client_buffer(p, blk),
+                         state.params)
         per_client, feats, labels = [], [], []
-        for i in range(n_clients):
-            g, m, f, y = client_grads(
-                loss_fn, tree_map(lambda a: a[i], state.params),
-                {k: v[i] for k, v in batch.items()}, proto_means,
-                None if neg_ids is None else neg_ids[i])
-            tree_map(lambda buf, gi: buf[i].copy_(gi), grads, g)
-            del g
-            per_client.append(m)
-            if merge_stats:
-                feats.append(f.reshape(-1, f.shape[-1]))
-                labels.append(y.reshape(-1))
+        with sharding.hints_restored():
+            if blk.split:
+                sharding.set_hints(mesh=blk.sub)
+            for i in range(blk.lo, blk.hi):
+                g, m, f, y = client_grads(
+                    loss_fn, tree_map(lambda a: sharding.client_of(a, i, blk),
+                                      state.params),
+                    {k: sharding.client_of(v, i, blk)
+                     for k, v in batch.items()}, means_c,
+                    None if neg_ids is None else neg_ids[i])
+                tree_map(lambda buf, gi, p: sharding.put_client(
+                    buf, i, gi, p, blk), grads, g, state.params)
+                del g
+                per_client.append(m)
+                if merge_stats:
+                    feats.append(f.reshape(-1, f.shape[-1]))
+                    labels.append(y.reshape(-1))
+        grads = tree_map(lambda buf, p: sharding.from_block(buf, p, blk),
+                         grads, state.params)
         params, opt = adam_update(state.params, grads, state.opt, lr=lr)
         del grads
-        metrics = {k: torch.stack([m[k] for m in per_client])
+        metrics = {k: sharding.stack_clients([m[k] for m in per_client], blk)
                    for k in per_client[0]}
-        wf = None
+        wf = n_eff = None
         if participation is not None:
             wf = participation.float()
+            n_eff = sharding.pod_sum(wf, blk).clamp(min=1.0)
             params = freeze_absent(participation, params, state.params)
             opt = freeze_absent(participation, opt, state.opt)
         if ccfg.mode == "fedavg":
-            params = tree_map(lambda p: _fedavg(p, wf), params)
+            params = tree_map(lambda p: _fedavg(p, wf, n_eff, blk), params)
             if participation is not None:
                 params = freeze_absent(participation, params, state.params)
         proto = state.proto
         if merge_stats:
-            # the paper's exchange: one launch for every client's stats
+            # the paper's exchange: one launch for this rank's clients'
+            # stats, then their sum over clients (over "pod": the step's
+            # one exchange)
+            f = sharding.stack_clients(feats, blk)
             stats = prototypes.accumulate(
-                prototypes.init_state(C, feats[0].shape[-1], feats[0].device,
+                prototypes.init_state(C, f.shape[-1], f.device,
                                       clients=n_clients),
-                torch.stack(feats), torch.stack(labels))
-            if wf is not None:
-                stats = prototypes.ProtoState(stats.sum * wf[:, None, None],
-                                              stats.count * wf[:, None])
-            proto = _decayed(ccfg, state.proto, stats.sum.sum(0),
-                             stats.count.sum(0))
-        if wf is None:
+                f, sharding.stack_clients(labels, blk))
+            proto = _decayed(ccfg, state.proto, *(
+                sharding.pod_sum(x, blk, like, weights=wf)
+                for x, like in zip(stats, state.proto)))
+        if wf is None and not blk.split:
             metrics = {k: v.mean() for k, v in metrics.items()}
         else:
-            n_eff = wf.sum().clamp(min=1.0)
-            metrics = {k: (v * wf).sum() / n_eff for k, v in metrics.items()}
+            n = n_clients if wf is None else n_eff
+            metrics = {k: sharding.pod_sum(v, blk, weights=wf) / n
+                       for k, v in metrics.items()}
         new = TrainState(params, opt, proto, state.step + 1)
         return sharding.placed_like(new, state), metrics
 
     return train_step
 
 
-def _fedavg(p, wf):
+def _fedavg(p, wf, n_eff, blk):
     """The fedavg baseline's per-step mean over clients, in float32, back
     in p's dtype and broadcast to every client; over present clients
-    (weights wf) under a participation mask."""
-    if wf is None:
+    (weights wf, their count n_eff) under a participation mask. On a
+    "pod"-split state, one all-reduce over "pod" of the parameter's float32
+    sum."""
+    if wf is None and not blk.split:
         s = p.float().mean(0)
     else:
-        s = (p.float() * bcast_mask(wf, p)).sum(0) / wf.sum().clamp(min=1.0)
-    return s.to(p.dtype).expand(p.shape).contiguous()
+        s = sharding.pod_sum(p.float(), blk, weights=wf) / (
+            p.shape[0] if wf is None else n_eff)
+    return sharding.expand_clients(s.to(p.dtype), p, blk)
 
 
 def _decayed(ccfg: CollabConfig, proto: prototypes.ProtoState, add_sum,
              add_count) -> prototypes.ProtoState:
+    """decay * proto + the merged stats, those placed as `proto` first (a
+    `Partial` sum over the rows reduced)."""
     decay = ccfg.proto_momentum or 1.0
-    return prototypes.ProtoState(decay * proto.sum + add_sum,
-                                 decay * proto.count + add_count)
+    add = sharding.placed_like(prototypes.ProtoState(add_sum, add_count),
+                               proto)
+    return prototypes.ProtoState(decay * proto.sum + add.sum,
+                                 decay * proto.count + add.count)
 
 
 def make_round_sync(ccfg: CollabConfig):
@@ -242,12 +280,21 @@ def make_round_sync(ccfg: CollabConfig):
     client axis: a mixed fleet is N_buckets train steps and one round
     sync. For stats that commit late use `make_async_round_sync`."""
     def round_sync(state: TrainState, *bucket_stats: prototypes.ProtoState):
-        merged = prototypes.merge(*[
-            prototypes.ProtoState(s.sum.sum(0), s.count.sum(0))
-            for s in bucket_stats])
+        merged = prototypes.merge(*[_client_total(s, state.proto)
+                                    for s in bucket_stats])
         return state._replace(proto=_decayed(ccfg, state.proto, merged.sum,
                                              merged.count))
     return round_sync
+
+
+def _client_total(stats: prototypes.ProtoState,
+                  like: prototypes.ProtoState) -> prototypes.ProtoState:
+    """A bucket's stats summed over its clients: on stats split over "pod"
+    (`round_sync_shardings`' CLIENT_SHARDED), each rank's own clients, then
+    one all-reduce over "pod", placed as `like`."""
+    blk = sharding.client_block(stats.count, stats.count.shape[0])
+    return prototypes.ProtoState(*(sharding.pod_sum(x, blk, ref)
+                                   for x, ref in zip(stats, like)))
 
 
 def make_async_round_sync(ccfg: CollabConfig, d_max: int):
@@ -284,16 +331,31 @@ def make_async_round_sync(ccfg: CollabConfig, d_max: int):
         dev = state.proto.sum.device
         sums = torch.zeros(slots, C, d, device=dev)
         counts = torch.zeros(slots, C, device=dev)
+        blk = None
         for b in range(0, len(delays_and_stats), 2):
-            delays = torch.as_tensor(delays_and_stats[b], device=dev).long()
             stats = delays_and_stats[b + 1]
+            # each rank scatters its own clients (all of them off "pod");
+            # placed stats are read through their local values
+            blk = sharding.client_block(stats.count, stats.count.shape[0])
+            delays = torch.as_tensor(delays_and_stats[b], device=dev).long()
+            delays = delays[blk.lo:blk.hi]
+            s_sum, s_count = (t.to_local() if sharding.is_dtensor(t) else t
+                              for t in stats)
             idx = torch.where(delays < 0, delays + slots, delays)
             keep = (idx >= 0) & (idx < slots)
             idx = idx.clamp(0, slots - 1)
             sums.index_add_(0, idx, torch.where(
-                bcast_mask(keep, stats.sum), stats.sum, 0.0))
+                bcast_mask(keep, s_sum), s_sum, 0.0))
             counts.index_add_(0, idx, torch.where(
-                bcast_mask(keep, stats.count), stats.count, 0.0))
+                bcast_mask(keep, s_count), s_count, 0.0))
+        if blk is not None and blk.split:
+            # the round's one exchange: the slots summed over "pod"
+            sums, counts = (sharding.pod_reduce(t, blk)
+                            for t in (sums, counts))
+        sums, counts = (sharding.replicated_like(t, state.proto.sum)
+                        for t in (sums, counts))
+        pending = prototypes.ProtoState(*(
+            sharding.replicated_like(t, state.proto.sum) for t in pending))
         commit_sum, commit_count = sums[0], counts[0]
         if d_max > 0:
             commit_sum = commit_sum + pending.sum[0]
@@ -334,7 +396,10 @@ def make_download_lag_round_sync(ccfg: CollabConfig, h_max: int):
     def round_sync(state: TrainState, hist: relay_history.History,
                    *bucket_stats: prototypes.ProtoState):
         state = sync(state, *bucket_stats)
-        return state, relay_history.push(hist, state.proto)
+        # the ring is replicated: pushed on every rank's whole values
+        new = relay_history.push(tree_map(sharding.full, hist),
+                                 tree_map(sharding.full, state.proto))
+        return state, tree_map(sharding.replicated_like, new, hist)
 
     return init_history, round_sync, relay_history.read_at
 
@@ -361,17 +426,30 @@ def _stack_clients(trees):
 
 
 def init_state(cfg: ModelConfig, gen: Optional[torch.Generator],
-               n_clients: int = 1, device=None) -> TrainState:
+               n_clients: int = 1, device=None, *,
+               clients: Optional[Tuple[int, int]] = None) -> TrainState:
     """N clients' random models from `gen` (one after another: `lm.init_lm`,
     or `encdec.init_encdec` for an encoder-decoder), stacked, with zero
     Adam moments (step (N,)), an empty ProtoState and step 0. With
-    `gen=None`, meta tensors: `init_state_shapes`."""
+    `gen=None`, meta tensors: `init_state_shapes`.
+
+    `clients` = (lo, hi): only that block of clients, stacked on a leading
+    axis of hi - lo (those before lo are drawn from `gen` and dropped, so
+    the block equals rows [lo, hi) of the whole state): a rank's own
+    clients on a state split over "pod", placed by `sharding.place_block`.
+    At full width no rank can build every client."""
     init = encdec.init_encdec if cfg.is_encoder_decoder else lm.init_lm
-    ps = [init(gen, cfg, device=device) for _ in range(n_clients)]
+    lo, hi = (0, n_clients) if clients is None else clients
+    ps = []
+    for i in range(hi):
+        p = init(gen, cfg, device=device)
+        if i >= lo:
+            ps.append(p)
+        del p
     p = _stack_clients(ps)
     del ps
     dev = leaves(p)[0].device
-    return TrainState(p, adam_init(p, clients=n_clients),
+    return TrainState(p, adam_init(p, clients=hi - lo),
                       prototypes.init_state(cfg.vocab_size, cfg.d_feature,
                                             dev),
                       torch.zeros((), dtype=torch.int32, device=dev))

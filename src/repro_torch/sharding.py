@@ -25,6 +25,13 @@ process).
 All rules degrade gracefully: a dimension is only sharded when divisible
 by the axis size, otherwise left replicated.
 
+The LM train step's "pod" axis splits the leading client axis: each rank
+holds and runs only its own clients (`client_block`), each on the mesh of
+the other axes (`client_of`, `put_client`, `stack_clients`), and a sum over
+clients is one all-reduce over "pod" (`pod_sum`, `pod_reduce`): the
+reference's `vmap` over a pod-sharded axis, with no DTensor indexing of
+that axis, which would gather every client to every rank.
+
 The port's layers are separate tensors where the reference stacks a
 segment's layers on a leading axis (`models/blocks.py`). `tree_param_specs`
 computes a layer's spec as the reference's for the stacked leaf with the
@@ -34,8 +41,9 @@ axis (no other dim divides), each port layer is held whole over that axis.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
@@ -274,6 +282,22 @@ def place(tree, specs, mesh, *, src_data_rank: Optional[int] = 0):
     made the same tree). A leaf that is a DTensor already is redistributed
     to its spec."""
 
+    def leaf(node, pl):
+        if is_dtensor(node):
+            return (node if tuple(node.placements) == pl
+                    else node.redistribute(mesh, pl))
+        d = distribute_tensor(node, mesh, pl, src_data_rank=src_data_rank)
+        local = d.to_local()
+        if _is_view(local):
+            # a view of the whole tensor would keep it alive: own the shard
+            d = DTensor.from_local(local.clone(), mesh, pl, run_check=False,
+                                   shape=d.shape, stride=d.stride())
+        return d
+    return _walk_specs(tree, specs, mesh, leaf)
+
+
+def _walk_specs(tree, specs, mesh, leaf):
+    """`leaf(tensor, placements)` over a tree and its spec tree."""
     def walk(node, spec):
         if node is None:
             return None
@@ -285,19 +309,52 @@ def place(tree, specs, mesh, *, src_data_rank: Optional[int] = 0):
                 return out
             return (type(node)(*out) if hasattr(node, "_fields")
                     else tuple(out))
-        pl = placements(spec, mesh)
-        if is_dtensor(node):
-            return (node if tuple(node.placements) == pl
-                    else node.redistribute(mesh, pl))
-        d = distribute_tensor(node, mesh, pl, src_data_rank=src_data_rank)
-        local = d.to_local()
-        if local.untyped_storage().nbytes() > local.numel() * \
-                local.element_size():
-            # a view of the whole tensor would keep it alive: own the shard
-            d = DTensor.from_local(local.clone(), mesh, pl, run_check=False,
-                                   shape=d.shape, stride=d.stride())
-        return d
+        return leaf(node, placements(spec, mesh))
     return walk(tree, specs)
+
+
+def _is_view(local) -> bool:
+    return (local.untyped_storage().nbytes()
+            > local.numel() * local.element_size())
+
+
+def _own(local, mesh, pl, shape):
+    """The DTensor of `local` placed `pl`, of global `shape` (contiguous); a
+    view of a larger tensor would keep it alive, so the shard is cloned."""
+    if _is_view(local):
+        local = local.clone()
+    shape = tuple(shape)
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def place_block(tree, specs, mesh):
+    """`place` for a tree that holds only this rank's block of every dim its
+    spec splits over "pod" (a rank's own clients, from
+    `train.init_state(..., clients=)`), whole on the other dims: each rank
+    keeps its shard of those, without communication. At full width no rank
+    can build every client; the result equals `place` of the whole tree
+    (`src_data_rank=None`). A leaf not split over "pod" is whole here, as
+    in `place`."""
+    names = axis_names(mesh)
+    i = names.index(POD) if POD in names else None
+    others = tuple(a for a in names if a != POD)
+    sub = mesh[others] if i is not None and others else None
+
+    def leaf(node, pl):
+        if i is None or not isinstance(pl[i], Shard):
+            d = distribute_tensor(node, mesh, pl, src_data_rank=None)
+            return _own(d.to_local(), mesh, pl, d.shape)
+        d = pl[i].dim
+        local = node
+        if sub is not None:
+            sub_pl = tuple(p for a, p in zip(names, pl) if a != POD)
+            local = distribute_tensor(node, sub, sub_pl,
+                                      src_data_rank=None).to_local()
+        shape = list(node.shape)
+        shape[d] *= mesh.size(i)
+        return _own(local, mesh, pl, shape)
+    return _walk_specs(tree, specs, mesh, leaf)
 
 
 def rows_like(t, x):
@@ -371,6 +428,228 @@ def placed_like(tree, like):
             return t
         return t.redistribute(ref.device_mesh, ref.placements)
     return tree_map(one, tree, like)
+
+
+# ---------------------------------------------------------------------------
+# the "pod" client axis: a rank holds and runs only its own clients
+# ---------------------------------------------------------------------------
+POD = "pod"
+
+
+class ClientBlock(NamedTuple):
+    """This rank's block [lo, hi) of a step's leading client axis, and where
+    its clients run: `mesh` the whole mesh and `sub` the mesh of its other
+    axes (one client's ("data", "model") mesh; None where there is none),
+    on a state whose client axis is split over "pod"; both None where the
+    clients are whole on every rank (off a mesh, or a client axis
+    replicated over it)."""
+    lo: int
+    hi: int
+    mesh: Any = None
+    sub: Any = None
+
+    @property
+    def split(self) -> bool:
+        return self.mesh is not None
+
+
+def client_block(x, n: int) -> ClientBlock:
+    """The block of an n-client leading axis this rank holds, read from `x`,
+    a leaf with that axis (the Adam step counter, say): split over "pod"
+    where `x` is a DTensor with `Shard(0)` on that mesh dim (n / pod
+    clients a rank, in rank order; pod must divide n), else all n."""
+    if not is_dtensor(x) or POD not in axis_names(x.device_mesh):
+        return ClientBlock(0, n)
+    mesh, names = x.device_mesh, axis_names(x.device_mesh)
+    i = names.index(POD)
+    if x.placements[i] != Shard(0):
+        return ClientBlock(0, n)
+    w = mesh.size(i)
+    if n % w:
+        raise ValueError(f"{n} clients do not split into {w} equal pod blocks")
+    r = mesh.get_local_rank(i)
+    others = tuple(a for a in names if a != POD)
+    sub = mesh[others] if others else None
+    return ClientBlock(r * (n // w), (r + 1) * (n // w), mesh, sub)
+
+
+def _client_placements(x, blk: ClientBlock) -> Tuple:
+    """`x`'s placements on `blk.sub`: the "pod" entry dropped, a split of
+    tensor dim d > 0 now of dim d - 1 (one client's leaf)."""
+    names = axis_names(blk.mesh)
+    out = []
+    for a, p in zip(names, x.placements):
+        if a == POD:
+            continue
+        if isinstance(p, Shard):
+            if p.dim == 0:
+                raise ValueError(f"the client axis is split over {a!r}; only "
+                                 f"'pod' may split it")
+            p = Shard(p.dim - 1)
+        out.append(p)
+    return tuple(out)
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def client_of(x, i: int, blk: ClientBlock):
+    """Client i of `x`'s leading axis (i a global client index in the
+    block): `x[i]` where the block is not split or `x` is a plain tensor
+    (inputs every rank holds whole); on a split block this rank's local row
+    i - lo as a DTensor on `blk.sub`, its other dims split as in `x`, or
+    the local row itself where the mesh has no other axis. Nothing crosses
+    "pod": DTensor's own `x[i]` would gather every client to every rank."""
+    if not blk.split or not is_dtensor(x):
+        return x[i]
+    local = x.to_local()[i - blk.lo]
+    if blk.sub is None:
+        return local
+    shape = tuple(x.shape[1:])
+    return DTensor.from_local(local, blk.sub, _client_placements(x, blk),
+                              run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def client_sub(x, blk: ClientBlock):
+    """A leaf without a client axis, replicated over "pod" (the prototype
+    means), as a DTensor on `blk.sub` with the same local values; `x` as
+    it is off a split block."""
+    if not blk.split or not is_dtensor(x):
+        return x
+    names = axis_names(blk.mesh)
+    i = names.index(POD)
+    if not isinstance(x.placements[i], Replicate):
+        raise ValueError(f"{x.placements} is not replicated over 'pod'")
+    if blk.sub is None:
+        return x.to_local()
+    pl = tuple(p for a, p in zip(names, x.placements) if a != POD)
+    return DTensor.from_local(x.to_local(), blk.sub, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def client_buffer(like, blk: ClientBlock):
+    """An uninitialized buffer for `like`'s clients in this block, filled
+    client by client with `put_client`: `like`'s shape (a DTensor placed as
+    `like` off a split block), or its local block on a split one."""
+    return torch.empty_like(like.to_local() if blk.split else like)
+
+
+def put_client(buf, i: int, value, like, blk: ClientBlock) -> None:
+    """Write client i's `value` (from `client_of`'s mesh) into `buf`, placed
+    as `like`'s client i: on a split block `value` is first redistributed to
+    `like`'s placements on `blk.sub` (a `Partial` gradient reduced over
+    "data" or "model", never over "pod")."""
+    if not blk.split:
+        buf[i].copy_(value)
+        return
+    if is_dtensor(value):
+        pl = _client_placements(like, blk)
+        if tuple(value.placements) != pl:
+            value = value.redistribute(blk.sub, pl)
+        value = value.to_local()
+    buf[i - blk.lo].copy_(value)
+
+
+def from_block(buf, like, blk: ClientBlock):
+    """`buf` (`client_buffer`'s) as a tensor placed like `like`: on a split
+    block the DTensor of the whole mesh whose local block is `buf`."""
+    if not blk.split:
+        return buf
+    return DTensor.from_local(buf, blk.mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def stack_clients(values, blk: ClientBlock):
+    """The block's clients' values (one a client, in order, on `client_of`'s
+    mesh) stacked on a new leading client axis: `torch.stack` off a split
+    block; on one, the DTensor of the whole mesh split over "pod" whose
+    local block stacks this rank's values (each placed as the first), their
+    other splits kept."""
+    if not blk.split:
+        return torch.stack(values)
+    v0 = values[0]
+    sub_pl = tuple(v0.placements) if is_dtensor(v0) else ()
+    local = torch.stack([
+        (v if tuple(v.placements) == sub_pl
+         else v.redistribute(blk.sub, sub_pl)).to_local()
+        if is_dtensor(v) else v for v in values])
+    it = iter(sub_pl)
+    pl = tuple(Shard(0) if a == POD else _shifted(next(it))
+               for a in axis_names(blk.mesh))
+    shape = (blk.mesh.size(axis_names(blk.mesh).index(POD)) * len(values),
+             *v0.shape)
+    return DTensor.from_local(local, blk.mesh, pl, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def _shifted(p):
+    return Shard(p.dim + 1) if isinstance(p, Shard) else p
+
+
+def expand_clients(x, like, blk: ClientBlock):
+    """`x`, a leaf without the client axis and whole over "pod" (`pod_sum`'s
+    result), as every client of `like`, placed as `like`: off a split block
+    `x.expand(like.shape)`, contiguous; on one, this rank's clients."""
+    if not blk.split:
+        return x.expand(like.shape).contiguous()
+    local = x.to_local()
+    return from_block(local.expand(blk.hi - blk.lo, *local.shape).contiguous(),
+                      like, blk)
+
+
+def block_rows(t, blk: ClientBlock):
+    """An input every rank holds whole with a leading client axis (the
+    participation mask), as a DTensor split over "pod" like the state's
+    clients (each rank keeps its block, no communication); `t` as it is off
+    a split block or where it is None."""
+    if t is None or not blk.split:
+        return t
+    return distribute_tensor(t, blk.mesh, leading_axis(blk.mesh, POD),
+                             src_data_rank=None)
+
+
+def pod_sum(x, blk: ClientBlock, like=None, weights=None):
+    """The sum over clients of `x`, a leaf with the block's client axis,
+    each client weighted by `weights` (N,) where given (the participation
+    mask): off a split block `x.sum(0)`; on one, each rank adds its own
+    clients, then `pod_reduce` (one all-reduce over "pod"), placed as
+    `like` (by default whole over "pod" and as `x` over the other axes)."""
+    local = x.to_local() if blk.split else x
+    if weights is not None:
+        w = weights.to_local() if blk.split else weights
+        local = local * w.reshape(w.shape + (1,) * (local.dim() - 1))
+    if not blk.split:
+        return local.sum(0)
+    return pod_reduce(local.sum(0), blk, _client_placements(x, blk),
+                      tuple(x.shape[1:]), like)
+
+
+def pod_reduce(local, blk: ClientBlock, rest=None, shape=None, like=None):
+    """`local`, this rank's sum over its own clients, summed over "pod": a
+    DTensor `Partial` over "pod" (placed `rest` over the other axes,
+    `Replicate()` by default; global `shape`, by default local's)
+    redistributed to `like`'s placements, or whole over "pod": one
+    all-reduce over "pod", nothing else across pods."""
+    names = axis_names(blk.mesh)
+    it = iter(rest if rest is not None else (Replicate(),) * (len(names) - 1))
+    src = tuple(Partial() if a == POD else next(it) for a in names)
+    dst = (tuple(like.placements) if like is not None else tuple(
+        Replicate() if a == POD else p for a, p in zip(names, src)))
+    shape = tuple(local.shape if shape is None else shape)
+    s = DTensor.from_local(local, blk.mesh, src, run_check=False,
+                           shape=shape, stride=_contiguous_stride(shape))
+    # the other axes are placed first (a split taken locally, or reduced
+    # over them), so that only this rank's block crosses "pod"
+    mid = tuple(p if a == POD else d for a, p, d in zip(names, src, dst))
+    if mid != src:
+        s = s.redistribute(blk.mesh, mid)
+    return s.redistribute(blk.mesh, dst)
 
 
 def lookup(table, idx):
