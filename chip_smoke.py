@@ -210,7 +210,7 @@ Phases (each failure raises, so the process exits non-zero):
   14. the LM launch path on a mesh (`launch/mesh.py`, `sharding.py`'s LM
      half, the serve and train shardings on DTensor): 14a, one NCCL rank,
      mesh (1, 1) over ("data", "model"), TinyLlama-1.1B at full width
-     and 11 of 22 layers:
+     and 4 of 22 layers:
      phase 7's serving and phase 10b's training (2 steps of each of "tp",
      "dp_only" and "zero1") on trees placed by the shardings, bit-equal to
      the unsharded path (logits, tokens, caches; parameters, moments,
@@ -219,7 +219,7 @@ Phases (each failure raises, so the process exits non-zero):
      prefill ms, decode ms a step and s/step beside the unsharded ones;
      14b, four gloo ranks sharing the card (DTensor's functional
      collectives staged through host memory, `ranks.
-     stage_functional_collectives`), mesh (2, 2), full width and 4 of 22
+     stage_functional_collectives`), mesh (2, 2), full width and 2 of 22
      layers in float32: serving and one train step of each strategy
      against the unsharded runs on the card, within MESH_LM_* (a bf16
      prefill's difference reported only);
@@ -232,9 +232,23 @@ Phases (each failure raises, so the process exits non-zero):
      launch a rank a step, C (d'+1) 4 bytes over pod a step, then a step
      without the merge and `make_round_sync` on client-sharded stats; s/step
      and each rank's peak; 15b, four ranks, mesh (2, 1, 2), full width and
-     4 of 22 layers in float32: cors, fd, fedavg, il, zero1 and an absent
+     2 of 22 layers in float32: cors, fd, fedavg, il, zero1 and an absent
      client against the unsharded steps by phase 14b's bounds, the three
-     round syncs bit-equal by digest, each mode's exact payload over pod.
+     round syncs bit-equal by digest, each mode's exact payload over pod;
+  16. every other LM family on a mesh (MLA's latent cache, mamba2 and
+     zamba2's shared block, the xLSTM's recurrences, ChatGLM3, Qwen2-VL,
+     DeepSeek-67B, Whisper's cross caches): 16a, one NCCL rank, mesh (1,
+     1), each family at published widths in bf16 and the least depth that
+     holds its block kinds (MESH_FAMILIES): `serve_lm.serve` of 4 x 256
+     prompts and 8 tokens (Whisper: 4 clips, 32-token prompts) and one
+     cors step of 2 clients under "tp", bit-equal to the unsharded path
+     (logits, ids, cache digests; every leaf's digest, metrics), flash
+     launches one an attention layer a prefill (and Whisper's 12 a decode
+     step), one proto_accum launch a step; prefill ms, decode ms a step,
+     s/step beside unsharded; 16b, four gloo ranks sharing the card, mesh
+     (2, 2), every family reduced in float32: serving and client 0's
+     gradients and one "tp" step against the unsharded runs on the card
+     by 14b's bounds, launches a rank exact.
 Phase 5h-a also runs the MLP stack check (clients 0-1's features and
 gradients within the 8-client MLP stack against a 2-client stack, and the
 first layer's batched GEMM at batch 8 against batch 2). Phases 10b and 13
@@ -252,7 +266,8 @@ also on a (k, ...) block gathered by `index_select` from an N-client stack
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12, 13, 14 and 15) before the last line,
+phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12, 13, 14, 15 and 16) before the last
+line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -3441,13 +3456,15 @@ def phase_train_kinds(dev):
 # Phase 14: the LM launch path on a mesh (launch/mesh.py, the LM half of
 # sharding.py, the serve and train shardings on DTensor). 14a: one NCCL
 # rank, mesh (1, 1) over ("data", "model"), TinyLlama-1.1B at full width
-# and MESH_LM_ONE_RANK_LAYERS of 22 layers (cut from 22 when phase 15 came,
-# to keep the script's time; bit-equality does not depend on depth):
+# and MESH_LM_ONE_RANK_LAYERS of 22 layers (cut from 22 to 11 when phase 15
+# came and to 4 when phase 16 came, to keep the script's time;
+# bit-equality does not depend on depth):
 # phase 7's serving (SERVE_BATCH x SERVE_PROMPT, SERVE_TOKENS tokens) and
 # phase 10b's training (LM_CLIENTS x LM_BATCH x LM_SEQ, MESH_LM_STEPS steps
 # of each strategy) on placed trees, bit-equal to the unsharded path. 14b:
 # four gloo ranks sharing the card, mesh (2, 2), full width and
-# MESH_LM_LAYERS of 22 layers in float32: serving (MESH_LM_PROMPT-token
+# MESH_LM_LAYERS of 22 layers in float32 (cut from 4 to 2 when phase 16
+# came, as 14a, for the script's time; 15b shares it): serving (MESH_LM_PROMPT-token
 # prompts, MESH_LM_TOKENS tokens) and one train step of each strategy
 # (MESH_LM_CLIENTS x MESH_LM_TRAIN_BATCH x MESH_LM_TRAIN_SEQ) held against the
 # unsharded step on the card: logits within CHECK_TOL x max(1, |logit|),
@@ -3459,8 +3476,8 @@ MESH_LM_ARCH = "tinyllama-1.1b"
 MESH_LM_STRATEGIES = ("tp", "dp_only", "zero1")
 MESH_LM_STEPS = 2
 MESH_LM_SHAPE = (2, 2)
-MESH_LM_LAYERS = 4
-MESH_LM_ONE_RANK_LAYERS = 11
+MESH_LM_LAYERS = 2
+MESH_LM_ONE_RANK_LAYERS = 4
 MESH_LM_PROMPT, MESH_LM_TOKENS = 256, 4
 # one client (14a holds the two-client loop); its batch divides over the 4
 # ranks of (data, model) (dp_only)
@@ -4487,6 +4504,382 @@ def mlp_stack_check(stack, block, dev):
             "bmm": gemm}
 
 
+# Phase 16: every other LM family on a mesh, serving and training on
+# DTensor (MLA's latent cache, mamba2 and zamba2's shared block, the xLSTM's
+# recurrences, ChatGLM3, Qwen2-VL, DeepSeek-67B, Whisper's cross caches).
+# 16a: one NCCL rank, mesh (1, 1) over ("data", "model"), each family at
+# its published widths in bf16 on seed-0 weights, at the least depth that
+# holds each of its block kinds once (MESH_FAMILIES: arch, serving layers
+# or None for all, training layers or None for no training here):
+# `serve_lm.serve` on MESH_FAM_BATCH x MESH_FAM_PROMPT prompts and
+# MESH_FAM_TOKENS tokens (Whisper: phase 12's clips and prompts), logits,
+# ids and caches bit-equal to the unsharded run, flash launches one an
+# attention layer a prefill (Whisper also 12 a decode step); one cors step
+# of LM_CLIENTS clients x 1 x MESH_FAM_TRAIN_SEQ tokens under "tp",
+# bit-equal to the unsharded step by a digest of every leaf, one
+# proto_accum launch. Training depths are phase 13's where its 70 GB gate
+# cut them (DeepSeek-V2-Lite 1 layer); DeepSeek-67B's one layer holds 2.4 B
+# parameters a client (its vocabulary of 102,400 at d 8,192, twice), about
+# 104 GB for two clients' step, so 16a serves it only (16b and the CPU test
+# train it). 16b: four gloo ranks sharing the card, one spawn for all
+# families, each reduced (2 layers, d 256, float32; zamba2's holds its
+# shared point): serving (MESH_FAM_PROMPT_B-token prompts, MESH_FAM_TOKENS_B
+# tokens) and client 0's gradients and one cors step under "tp" (14b's
+# MESH_LM_TRAIN_BATCH rows a client, which the data axis divides), against
+# the unsharded runs on the card by 14b's bounds.
+MESH_FAMILIES = (("deepseek-v2-lite-16b", 2, 1), ("minicpm3-4b", 1, 1),
+                 ("chatglm3-6b", 1, 1), ("qwen2-vl-7b", 1, 1),
+                 ("deepseek-67b", 1, None), ("zamba2-1.2b", 6, 6),
+                 ("xlstm-125m", 2, 2), ("whisper-small", None, 12))
+MESH_FAM_BATCH, MESH_FAM_PROMPT, MESH_FAM_TOKENS = 4, 256, 8
+MESH_FAM_TRAIN_SEQ = 256
+MESH_FAM_PROMPT_B, MESH_FAM_TOKENS_B = 32, 2
+
+
+def mesh_family_cfg(arch, layers=None, reduced=False):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if reduced:
+        return cfg.reduced()
+    if layers and not cfg.is_encoder_decoder:
+        cfg = family_depth(cfg, layers)
+    return cfg
+
+
+def mesh_family_flash(cfg, tokens):
+    """Flash launches of a `serve_lm.serve` of `tokens` tokens: one an
+    attention layer a prefill (zamba2's shared block at each of its
+    points; Whisper's encoder, self- and cross-attention), and Whisper's
+    cross-attention again each decode step."""
+    from repro_torch.models import lm
+    if cfg.is_encoder_decoder:
+        return (cfg.num_encoder_layers + 2 * cfg.num_layers
+                + cfg.num_layers * tokens)
+    return (sum(k == "attn" for k in cfg.block_pattern)
+            + len(lm.shared_points(cfg)))
+
+
+def mesh_family_serve_inputs(cfg, B, S, tokens, dev):
+    """(prefill batch, next_batch) of `serve_lm.serve` from seed 0: tokens,
+    Qwen2-VL's embeddings with M-RoPE positions (and its decode steps'),
+    Whisper's tokens and frames."""
+    from repro_torch import serve_lm
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if cfg.is_encoder_decoder:
+        return whisper_inputs(cfg, B, S, dev, gen), serve_lm.greedy_tokens
+    batch = family_inputs(cfg, B, S, dev, gen)
+    if cfg.input_kind == "tokens":
+        return batch, serve_lm.greedy_tokens
+    steps = [family_inputs(cfg, B, 1, dev, gen, offset=S + i)
+             for i in range(tokens)]
+    return batch, lambda i, logits: steps[i]
+
+
+def mesh_family_train_inputs(cfg, rows, seq, dev):
+    """(ccfg, batch, negatives) of one cors step of LM_CLIENTS clients x
+    rows x seq tokens: the synthetic stream's tokens and labels, Qwen2-VL's
+    seeded embeddings and M-RoPE positions in place of tokens, Whisper's
+    seeded frames beside them."""
+    from repro_torch.launch import train
+    from repro_torch.nn import rope
+    from repro_torch.types import CollabConfig
+    ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
+                        d_feature=cfg.d_feature)
+    batch = _to(lm_train_batches(cfg.vocab_size, LM_CLIENTS, rows, seq, 1,
+                                 seed=0)[0], dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    add_frames(cfg, [batch], rows, gen)
+    if cfg.input_kind != "tokens":
+        del batch["tokens"]
+        batch["embeddings"] = torch.randn(
+            LM_CLIENTS, rows, seq, cfg.d_model, generator=gen,
+            device=dev).to(getattr(torch, cfg.dtype))
+        batch["positions"] = rope.default_positions(
+            rows, seq, cfg.rope_kind, device=dev)[None].expand(
+            LM_CLIENTS, rows, seq, 3).contiguous()
+    return ccfg, batch, train.draw_negatives(gen, cfg, ccfg, LM_CLIENTS)
+
+
+def mesh_family_one_rank(dev, mesh, arch, s_layers, t_layers, smi):
+    """16a for one family: serving and (where `t_layers`) one train step,
+    unsharded and on the placed trees, bit-equal, launches exact."""
+    from repro_torch import serve_lm, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import encdec, lm
+    from repro_torch.tree import leaves
+    cfg = mesh_family_cfg(arch, s_layers)
+    init = encdec.init_encdec if cfg.is_encoder_decoder else lm.init_lm
+    out = {"arch": arch, "serve_layers": cfg.num_layers}
+    params = init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    placed = sharding.place(params, serve.params_shardings(params, cfg, mesh),
+                            mesh, src_data_rank=None)
+    S = WHISPER_PROMPT if cfg.is_encoder_decoder else MESH_FAM_PROMPT
+    batch, next_batch = mesh_family_serve_inputs(
+        cfg, MESH_FAM_BATCH, S, MESH_FAM_TOKENS, dev)
+    runs = {}
+    with torch.no_grad():
+        for tag, p, m in (("unsharded", params, None), ("mesh", placed, mesh)):
+            serve_lm.serve(p, cfg, batch, 2, next_batch, mesh=m)  # warm-up
+            ops.reset_launches()
+            r = serve_lm.serve(p, cfg, batch, MESH_FAM_TOKENS, next_batch,
+                               mesh=m)
+            r["launches"] = dict(ops.LAUNCHES)
+            r["caches"] = [bit_digest(sharding.full(t))
+                           for t in leaves(r["caches"])]
+            runs[tag] = r
+    del params, placed
+    a, b = runs["mesh"], runs["unsharded"]
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": 0,
+            "flash_attention": mesh_family_flash(cfg, MESH_FAM_TOKENS)}
+    if a["launches"] != want or b["launches"] != want:
+        raise AssertionError(f"[mesh families] {arch} serving launches "
+                             f"{a['launches']} / {b['launches']} != {want}")
+    if not (torch.equal(a["logits"], b["logits"])
+            and torch.equal(a["ids"], b["ids"]) and a["caches"] == b["caches"]
+            and bool(torch.isfinite(a["logits"]).all())):
+        raise AssertionError(f"[mesh families] {arch}: placed serving logits,"
+                             f" ids or caches differ from the unsharded path")
+    out["serve"] = {t: {"prefill_ms": r["prefill_s"] * 1e3,
+                        "decode_ms_step": r["decode_s"] * 1e3
+                        / MESH_FAM_TOKENS} for t, r in runs.items()}
+    out["flash_launches"] = want["flash_attention"]
+    print(f"[mesh families] 16a {arch} serving, {cfg.num_layers} layers "
+          f"bf16 on data:1xmodel:1 (nccl), {MESH_FAM_BATCH}x{S} prompts, "
+          f"{MESH_FAM_TOKENS} tokens: logits, ids and caches bit-equal to "
+          f"unsharded, {want['flash_attention']} flash launches; prefill "
+          f"{a['prefill_s'] * 1e3:.2f} ms (unsharded "
+          f"{b['prefill_s'] * 1e3:.2f}), decode "
+          f"{a['decode_s'] * 1e3 / MESH_FAM_TOKENS:.3f} ms/step (unsharded "
+          f"{b['decode_s'] * 1e3 / MESH_FAM_TOKENS:.3f}) [{smi}]")
+    del runs, a, b
+    torch.cuda.empty_cache()
+    if not t_layers:
+        return out
+    tcfg = mesh_family_cfg(arch, t_layers)
+    ccfg, batch, neg = mesh_family_train_inputs(tcfg, 1, MESH_FAM_TRAIN_SEQ,
+                                                dev)
+    step = train.make_train_step(tcfg, ccfg, n_clients=LM_CLIENTS,
+                                 disc_tokens=LM_DISC_TOKENS)
+    runs = {}
+    for tag in ("unsharded", "mesh"):
+        state = train.init_state(tcfg, torch.Generator(device=dev).manual_seed(
+            0), LM_CLIENTS, device=dev)
+        b = batch
+        if tag == "mesh":
+            state = mesh_lm_place_state(tcfg, state, mesh, "tp")
+            b = mesh_lm_place_batch(batch, mesh, "tp")
+        ops.reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, b, neg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            sharding.set_hints(mesh=None)
+        runs[tag] = {"digests": [bit_digest(sharding.full(t))
+                                 for t in leaves(state)],
+                     "metrics": {k: float(sharding.full(v))
+                                 for k, v in met.items()},
+                     "s": secs, "launches": dict(ops.LAUNCHES),
+                     "batched": dict(ops.LAUNCHES_BATCHED)}
+        del state
+        torch.cuda.empty_cache()
+    a, b = runs["mesh"], runs["unsharded"]
+    want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": 1,
+            "flash_attention": 0}
+    for r in (a, b):
+        if r["launches"] != want or r["batched"]["proto_accum"] != 1:
+            raise AssertionError(f"[mesh families] {arch} train launches "
+                                 f"{r['launches']}, batched {r['batched']}")
+    if a["digests"] != b["digests"] or a["metrics"] != b["metrics"]:
+        raise AssertionError(f"[mesh families] {arch} train: the placed step "
+                             f"differs from the unsharded step")
+    if not all(math.isfinite(v) for v in a["metrics"].values()):
+        raise AssertionError(f"[mesh families] {arch}: metrics {a['metrics']}")
+    out["train"] = {"layers": tcfg.num_layers, "s_per_step": {
+        "unsharded": b["s"], "mesh": a["s"]}, "proto_accum_launches": 1}
+    print(f"[mesh families] 16a {arch} train tp, {tcfg.num_layers} layers "
+          f"bf16, {LM_CLIENTS} clients x 1 x {MESH_FAM_TRAIN_SEQ} tokens: "
+          f"{len(a['digests'])} leaf digests, metrics and counts bit-equal to "
+          f"unsharded, one proto_accum launch; s/step {a['s']:.4f} "
+          f"(unsharded {b['s']:.4f}) [{smi}]")
+    return out
+
+
+def phase_mesh_families_one_rank(dev, smi):
+    """16a: every family of MESH_FAMILIES on one NCCL rank."""
+    import torch.distributed as dist
+    from repro_torch import ranks
+    from repro_torch.launch import mesh as lmesh
+    tmp = tempfile.mkdtemp(prefix="mesh-fam-")
+    t0 = time.perf_counter()
+    quiet_redistribute()
+    ranks.init(0, 1, "nccl", f"file://{tmp}/rendezvous")
+    try:
+        mesh = lmesh.device_mesh(lmesh.make_host_mesh())
+        rows = [mesh_family_one_rank(dev, mesh, arch, s, t, smi)
+                for arch, s, t in MESH_FAMILIES]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"[mesh families] 16a: {wall:.1f} s in all")
+    return {"mesh": "data:1xmodel:1", "backend": "nccl", "families": rows,
+            "wall_s": wall}
+
+
+def mesh_family_reduced_runs(cfg, dev, mesh=None):
+    """16b's runs of one reduced family, unsharded or on `mesh`: serving,
+    client 0's gradients and one cors step under "tp", on the card, every
+    output whole on the host, and the launches of each."""
+    from repro_torch import serve_lm, sharding
+    from repro_torch.core import prototypes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import encdec, lm
+    from repro_torch.tree import leaves, tree_map
+    init = encdec.init_encdec if cfg.is_encoder_decoder else lm.init_lm
+    host = lambda t: sharding.full(t).cpu()
+    out = {}
+    with torch.no_grad():
+        p = init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        if mesh is not None:
+            p = sharding.place(p, serve.params_shardings(p, cfg, mesh), mesh,
+                               src_data_rank=None)
+        batch, next_batch = mesh_family_serve_inputs(
+            cfg, MESH_FAM_BATCH, MESH_FAM_PROMPT_B, MESH_FAM_TOKENS_B, dev)
+        ops.reset_launches()
+        r = serve_lm.serve(p, cfg, batch, MESH_FAM_TOKENS_B, next_batch,
+                           mesh=mesh)
+        out["serve_launches"] = dict(ops.LAUNCHES)
+        out["logits"], out["ids"] = r["logits"].cpu(), r["ids"]
+        out["caches"] = [host(t) for t in leaves(r["caches"])]
+        del p, r
+    ccfg, batch, neg = mesh_family_train_inputs(
+        cfg, MESH_LM_TRAIN_BATCH, MESH_FAM_PROMPT_B, dev)
+    state = train.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             LM_CLIENTS, device=dev)
+    if mesh is not None:
+        state = mesh_lm_place_state(cfg, state, mesh, "tp")
+        batch = mesh_lm_place_batch(batch, mesh, "tp")
+    try:
+        g, _ = mesh_lm_grads(cfg, ccfg, state, batch, neg)
+        out["grads"] = [host(t) for t in leaves(g)]
+        del g
+        ops.reset_launches()
+        step = train.make_train_step(cfg, ccfg, n_clients=LM_CLIENTS)
+        state, met = step(state, batch, neg)
+        out["train_launches"] = dict(ops.LAUNCHES)
+    finally:
+        sharding.set_hints(mesh=None)
+    out["loss"] = float(sharding.full(met["total"]))
+    out["params"] = [host(t) for t in leaves((state.params, state.opt.m))]
+    out["proto_count"] = host(state.proto.count)
+    return out
+
+
+def mesh_family_rank_main(rank, world, tmp):
+    """One of 16b's ranks, all on cuda:0 over gloo (functional collectives
+    staged): every reduced family on the (2, 2) mesh, held by rank 0
+    against the unsharded runs in tmp/ref.pt; rank 0 writes
+    tmp/result.json."""
+    from repro_torch import ranks
+    from repro_torch.launch import mesh as lmesh
+    torch.set_num_threads(2)          # 8 host cores, 4 ranks
+    quiet_redistribute()
+    phase_precision()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ranks.stage_functional_collectives()
+    mesh = lmesh.device_mesh(lmesh.MeshShape(("data", "model"),
+                                             MESH_LM_SHAPE), "cuda")
+    ref = torch.load(os.path.join(tmp, "ref.pt"))
+    res = {}
+    for arch, _, _ in MESH_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = mesh_family_cfg(arch, reduced=True)
+        got = mesh_family_reduced_runs(cfg, dev, mesh)
+        want = ref[arch]
+        rel = lambda a, b: float(((a.double() - b.double()).abs()
+                                  / b.double().abs().clamp(min=1.0)).max())
+        far = n_all = 0
+        e_p = 0.0
+        for a, b in zip(got["params"], want["params"]):
+            d = (a.double() - b.double()).abs()
+            e_p = max(e_p, float(d.max()))
+            far += int((d > PARITY_PARAM_TOL).sum())
+            n_all += d.numel()
+        res[arch] = {
+            "serve_launches": got["serve_launches"],
+            "want_flash": mesh_family_flash(cfg, MESH_FAM_TOKENS_B),
+            "logits": rel(got["logits"], want["logits"]),
+            "ids_equal": bool(torch.equal(got["ids"], want["ids"])),
+            "caches": max(rel(a, b) for a, b in zip(got["caches"],
+                                                    want["caches"])),
+            "loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grads_rel": max(float((a - b).abs().max())
+                             / max(float(b.abs().max()), 1e-30)
+                             for a, b in zip(got["grads"], want["grads"])),
+            "params": e_p, "params_far": far, "params_n": n_all,
+            "counts_equal": bool(torch.equal(got["proto_count"],
+                                             want["proto_count"])),
+            "proto_accum_launches": got["train_launches"]["proto_accum"],
+            "wall_s": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    res["staged"] = dict(ranks.STAGED)
+    if rank == 0:
+        with open(os.path.join(tmp, "result.json"), "w") as f:
+            json.dump(res, f)
+
+
+def phase_mesh_families_four_ranks(dev, smi):
+    """16b: four gloo ranks sharing cuda:0 on the (2, 2) mesh, every
+    reduced family against its unsharded runs on the card."""
+    from repro_torch import ranks
+    tmp = tempfile.mkdtemp(prefix="mesh-fam-")
+    try:
+        t0 = time.perf_counter()
+        torch.save({arch: mesh_family_reduced_runs(
+            mesh_family_cfg(arch, reduced=True), dev)
+            for arch, _, _ in MESH_FAMILIES}, os.path.join(tmp, "ref.pt"))
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks.spawn(mesh_family_rank_main, 4, "gloo", tmp)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "result.json")) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    staged = res.pop("staged")
+    for arch, t in res.items():
+        want = {"disc_loss_fwd": 0, "disc_loss_bwd": 0, "proto_accum": 0,
+                "flash_attention": t["want_flash"]}
+        ok = (t["serve_launches"] == want and t["logits"] <= CHECK_TOL
+              and t["ids_equal"] and t["loss_rel"] <= MESH_LM_LOSS_TOL
+              and t["grads_rel"] <= MESH_LM_GRAD_TOL
+              and t["params"] <= 2 * 1e-3
+              and t["params_far"] <= PARITY_PARAM_FRAC * t["params_n"]
+              and t["counts_equal"] and t["proto_accum_launches"] == 1)
+        if not ok:
+            raise AssertionError(f"[mesh families] 16b {arch}: {t}")
+        print(f"[mesh families] 16b {arch} reduced float32 on data:2xmodel:2 "
+              f"(4 gloo ranks, one card; {t['wall_s']:.1f} s): logits "
+              f"{t['logits']:.3e} relative, ids equal, caches "
+              f"{t['caches']:.3e} (reported), {t['want_flash']} flash "
+              f"launches a rank; train tp: loss {t['loss_rel']:.3e} "
+              f"relative, client 0's gradients {t['grads_rel']:.3e} of "
+              f"max|g|, parameters and moments {t['params']:.3e} "
+              f"({t['params_far']} of {t['params_n']} beyond "
+              f"{PARITY_PARAM_TOL}), counts equal, one proto_accum launch a "
+              f"rank")
+    print(f"[mesh families] 16b: {t_ref:.1f} s unsharded, {wall:.1f} s the "
+          f"four ranks; host-staged collectives {staged} [{smi}]")
+    return {"ranks": 4, "backend": "gloo", "families": res, "wall_s": wall,
+            "reference_s": t_ref}
+
+
 def memory_floor(cfg, batch, seq):
     """`launch/roofline.memory_floor_bytes` of a train step of LM_CLIENTS
     clients x batch x seq tokens on one device: the bytes the state,
@@ -4565,6 +4958,10 @@ def main():
     del pod_ref
     torch.cuda.empty_cache()
     pod["four_ranks"] = phase_pod_four_ranks(dev, smi)
+    torch.cuda.empty_cache()
+    fam_mesh = {"one_rank": phase_mesh_families_one_rank(dev, smi)}
+    torch.cuda.empty_cache()
+    fam_mesh["four_ranks"] = phase_mesh_families_four_ranks(dev, smi)
     launches["flash_attention"] = serve_launches["flash_attention"]
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         launches[name + "_batched"] = launches_vec[name]
@@ -4628,6 +5025,14 @@ def main():
                 {f"lm pod {name} (4 ranks, a rank a step)": t[
                     "proto_accum_launches"]
                  for name, t in pod["four_ranks"]["cases"].items()})
+            k["launches_by_path"].update(
+                {f"mesh train {f['arch']} (1 rank, a step)": f["train"][
+                    "proto_accum_launches"]
+                 for f in fam_mesh["one_rank"]["families"] if "train" in f})
+            k["launches_by_path"].update(
+                {f"mesh train {a} (4 ranks, a rank a step)": t[
+                    "proto_accum_launches"]
+                 for a, t in fam_mesh["four_ranks"]["families"].items()})
         if name == "flash_attention":
             k["launches_by_path"]["serve tinyllama-1.1b"] = launches[name]
             k["launches_by_path"]["mesh lm serve (1 rank, a prefill)"] = (
@@ -4639,6 +5044,14 @@ def main():
                 {f"serve {f['arch']}": f["flash_launches"] for f in families})
             k["launches_by_path"]["serve whisper-small"] = whisper[
                 "flash_launches"]
+            k["launches_by_path"].update(
+                {f"mesh serve {f['arch']} (1 rank, {MESH_FAM_TOKENS} "
+                 f"tokens)": f["flash_launches"]
+                 for f in fam_mesh["one_rank"]["families"]})
+            k["launches_by_path"].update(
+                {f"mesh serve {a} (4 ranks, a rank, {MESH_FAM_TOKENS_B} "
+                 f"tokens)": t["serve_launches"]["flash_attention"]
+                 for a, t in fam_mesh["four_ranks"]["families"].items()})
             k["share_of_prefill_device_time"] = prof["flash_share"]
             k["controls_times_limit"] = {
                 where: {n: c[0] for n, c in cs.items()}
@@ -4662,6 +5075,7 @@ def main():
           f"{json.dumps(lm_parity)}; lm train "
           f"{json.dumps({k: v for k, v in lm_train.items() if 'launches' not in k})}"
           f"; mesh lm {json.dumps(mesh_lm)}; lm pod {json.dumps(pod)}"
+          f"; mesh families {json.dumps(fam_mesh)}"
           f"; lm twin 2 rounds {lm_twin_s:.2f} s; families "
           f"{json.dumps(families)}; whisper serve {json.dumps(whisper)}; "
           f"train kinds {json.dumps(train_rows)}")

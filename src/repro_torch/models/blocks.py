@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import sharding
 from repro_torch.nn import attention, layers, mla, moe, ssm, xlstm
 from repro_torch.tree import tree_map
 
@@ -189,6 +190,16 @@ def init_segments(gen: torch.Generator, cfg, dtype) -> List[List[Dict[str, Any]]
             for kind, n in segments_of(cfg)]
 
 
+def _write(dst, src):
+    """A recurrent state written into its slice of the stacked cache; on a
+    mesh placed as that slice first (a state computed whole over a mesh dim
+    that splits the cache is cut there, no communication)."""
+    if sharding.is_dtensor(src) and tuple(src.placements) != tuple(
+            dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
 def run_segment(seg_params, cfg, kind: str, x, positions, *, window: int,
                 mode: str, cache=None, cache_index=None, masked: bool = False):
     """Run a segment's layers in order. In train mode each layer is
@@ -214,7 +225,7 @@ def run_segment(seg_params, cfg, kind: str, x, positions, *, window: int,
         if mode == "prefill":
             new.append(nc)
         elif kind != "attn":               # attention wrote in place
-            tree_map(lambda a, n: a[i].copy_(n), cache, nc)
+            tree_map(lambda a, n: _write(a[i], n), cache, nc)
     if mode == "prefill":
         return x, aux, tree_map(lambda *ls: torch.stack(ls), *new)
     return x, aux, cache

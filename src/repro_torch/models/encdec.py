@@ -17,6 +17,15 @@ of per-layer dicts, the port's convention for `lm`'s segments; stacked on a
 layer axis in the reference), `enc_norm`, `dec_norm`, `lm_head`. Prefill
 caches are `{"self": (k, v), "cross": (xk, xv)}`, each leaf stacked
 (L, B, S, G, hd) as in the reference.
+
+On a mesh (DTensor parameters, frames and tokens placed by the serve or
+train shardings) the model runs as the decoder-only ones do: the token
+embedding through `sharding.lookup`, the sinusoids (made whole on every
+rank) placed beside the activations (`replicated_like`, `rows_like`),
+attention on each rank's rows and heads (`nn/attention.py`), the cross
+caches split on KV heads over "model" as `serve.cache_shardings` places
+them, and the self cache padded on each rank's shard (`lm.pad_seq`:
+DTensor's own pad has no plan in PyTorch 2.11).
 """
 from __future__ import annotations
 
@@ -24,7 +33,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.device import resolve_device
+from repro_torch.models import lm
 from repro_torch.nn import attention, layers
 from repro_torch.tree import tree_map
 
@@ -108,7 +119,8 @@ def encode(params, cfg, frames, *, mode: str = "prefill"):
     the plain functions under autograd, any other mode with the kernel."""
     dt = _dtype(cfg)
     B, T, _ = frames.shape
-    x = frames.to(dt) + _sinusoid(T, cfg.d_model, dt, frames.device)[None]
+    x = frames.to(dt) + sharding.replicated_like(
+        _sinusoid(T, cfg.d_model, dt, frames.device)[None], frames)
     for lp in params["enc_layers"]:
         h = layers.layernorm(lp["norm1"], x, cfg.norm_eps)
         x = x + attention.gqa_block(lp["attn"], h, None, causal=False,
@@ -148,7 +160,7 @@ def decode_forward(params, cfg, tokens, enc_out, *, mode: str = "train",
     dt = _dtype(cfg)
     B, S = tokens.shape
     kw = _kw(cfg)
-    x = params["embed"][tokens.long()]
+    x = sharding.lookup(params["embed"], tokens)
     if positions is None:
         offset = 0
         if mode == "decode":
@@ -156,7 +168,7 @@ def decode_forward(params, cfg, tokens, enc_out, *, mode: str = "train",
                       else int(cache_index))
         positions = (offset + torch.arange(S, device=x.device))[None]
         positions = positions.expand(B, S)
-    x = x + _sinusoid_at(positions, cfg.d_model, dt)
+    x = x + sharding.rows_like(_sinusoid_at(positions, cfg.d_model, dt), x)
 
     caches = None
     if mode == "decode":
@@ -220,5 +232,5 @@ def pad_cache_for_decode(caches, extra: int = 1):
     axis; the cross caches are read-only and passed on as they are.
     Padding a prefill(S-1) cache by one makes decode an exact append, as
     `lm.pad_cache_for_decode`; serving grows it by its generation budget."""
-    pad = lambda a: torch.nn.functional.pad(a, [0, 0, 0, 0, 0, extra])
+    pad = lambda a: lm.pad_seq(a, 2, extra)
     return {"self": tree_map(pad, caches["self"]), "cross": caches["cross"]}

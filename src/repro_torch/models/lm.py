@@ -221,7 +221,7 @@ def init_cache(cfg, batch_size: int, ctx_len: int, *, window: int = 0,
     return caches
 
 
-def _pad_seq(a, axis: int, extra: int):
+def pad_seq(a, axis: int, extra: int):
     """a with `extra` zero slots appended on `axis` (a new tensor). A
     DTensor is padded on each rank's shard through `local_map` (DTensor's
     own pad fails to plan its redistribution in PyTorch 2.11), gathered
@@ -246,8 +246,8 @@ def pad_cache_for_decode(cfg, caches, extra: int = 1):
     out = {"segments": [], "shared": []}
     for (kind, _), cache in zip(blocks.segments_of(cfg), caches["segments"]):
         out["segments"].append(
-            tree_map(lambda a: _pad_seq(a, 2, extra), cache)
+            tree_map(lambda a: pad_seq(a, 2, extra), cache)
             if kind == "attn" else cache)
     for cache in caches["shared"]:
-        out["shared"].append(tree_map(lambda a: _pad_seq(a, 1, extra), cache))
+        out["shared"].append(tree_map(lambda a: pad_seq(a, 1, extra), cache))
     return out

@@ -24,8 +24,8 @@ v split on heads, `wo`'s rows give a `Partial` sum that the residual add
 reduces. Attention itself runs on each rank's batch rows and whole heads
 (`_heads`): in prefill through the kernel's own `local_map`
 (`ops.flash_attention`), in train mode and decode through `local_map` of
-the plain functions here, the decode writing its rank's cache shard in
-place.
+the plain functions here (`attend`, which `nn/mla.py` shares), the decode
+writing its rank's cache shard in place.
 """
 from __future__ import annotations
 
@@ -163,6 +163,20 @@ def full_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hv).to(q.dtype)
 
 
+def attend(q, k, v, *, causal: bool = True, plain=None):
+    """Attention over a full sequence: the prefill kernel (through
+    `_prefill_attention`), or `plain(q, k, v)` (train mode's plain
+    function, under autograd). On a mesh q, k and v are placed alike first
+    (`_heads`), and either runs on each rank's batch rows and whole heads:
+    the kernel through its own `local_map`, `plain` through
+    `sharding.local_rows`."""
+    if sharding.is_dtensor(q):
+        q, k, v = _heads(q, k, v)
+    if plain is None:
+        return _prefill_attention(q, k, v, causal=causal)
+    return sharding.local_rows(plain, 1, q, k, v, split_dims=(0, 2))
+
+
 def gqa_block(params, x, positions, *, num_heads, num_kv_heads, head_dim,
               rope_kind, rope_theta, causal=True, window=0,
               return_kv=False, kv=None, mode: str = "prefill",
@@ -187,18 +201,14 @@ def gqa_block(params, x, positions, *, num_heads, num_kv_heads, head_dim,
         B, S = x.shape[:2]
         q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
         k, v = kv
-    if sharding.is_dtensor(q):
-        q, k, v = _heads(q, k, v)
     if mode != "train":
-        o = _prefill_attention(q, k, v, causal=causal)
+        o = attend(q, k, v, causal=causal)
+    elif k.shape[1] <= 2 * chunk or k.shape[1] % chunk != 0:
+        o = attend(q, k, v, plain=lambda a, b, c: full_attention(
+            a, b, c, causal=causal, window=window))
     else:
-        if k.shape[1] <= 2 * chunk or k.shape[1] % chunk != 0:
-            fn = lambda a, b, c: full_attention(a, b, c, causal=causal,
-                                                window=window)
-        else:
-            fn = lambda a, b, c: chunked_attention(a, b, c, causal=causal,
-                                                   window=window, chunk=chunk)
-        o = sharding.local_rows(fn, 1, q, k, v, split_dims=(0, 2))
+        o = attend(q, k, v, plain=lambda a, b, c: chunked_attention(
+            a, b, c, causal=causal, window=window, chunk=chunk))
     B, S = x.shape[:2]
     y = o.reshape(B, S, num_heads * head_dim) @ params["wo"]
     if return_kv:

@@ -13,12 +13,28 @@ update; the conv state is the last cw - 1 *pre-conv* inputs. Train mode
 runs `mamba2_block` under autograd; nothing here writes in place into a
 tensor autograd saved, and the intra-chunk decay is masked before its exp
 so that its gradient stays finite at full width (`ssd_chunked`).
+
+On a mesh (DTensor parameters) the two projections are DTensor ops, and
+the block between them runs through `sharding.local_axes` (`local_map`)
+on each rank's batch rows: DTensor has no rule for the SSD's mask and
+ones (plain tensors beside DTensors, refused in PyTorch 2.11 and 2.13
+alike) nor a plan for the conv's `F.pad` in 2.11, and one `local_map`
+spares the chunk loop DTensor's dispatch op by op. Its channels are made
+whole there over "model" (an all-gather of the projection's output, of
+its gradient in train mode): `w_in`'s even split over "model" does not
+fall on the uneven boundaries of z, xBC and dt, B and C feed every head's
+state, and the out norm normalises over all of d_inner. Decode keeps the
+state (B, H, P, N) where `serve.cache_shardings` places it, split on P
+(or H) over "model": each rank updates its own block (`_state_update`,
+elementwise in H and P), and only the one-token inputs, the conv state's
+cw - 1 rows and the new token's y are made whole.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.nn import layers, xlstm
 
 # the reference keeps two copies of one depthwise causal conv + SiLU
@@ -44,9 +60,10 @@ def init_mamba2(gen, cfg, dtype):
     }
 
 
-def _split_proj(p, cfg, x):
+def _split(zxbcdt, cfg):
+    """The input projection's output -> z, xBC, dt: uneven slices of its
+    channels."""
     di, N = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ p["w_in"]
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * N],
             zxbcdt[..., 2 * di + 2 * N:])                     # z, xbc, dt (B,S,H)
 
@@ -102,49 +119,99 @@ def ssd_chunked(xh, Bm, Cm, dt, A, Q: int, h0=None):
     return (y_intra + y_inter).reshape(Bsz, S, H, P), h
 
 
-def _gate_out(p, cfg, y, xs, z, x_dtype):
-    """D skip, the z gate, the out norm and projection (prefill and
-    decode alike): y, xs (B,S,H,P) -> (B,S,d)."""
+def _gated(y, xs, z, D, norm_scale, cfg):
+    """D skip, the z gate and the out norm (prefill and decode alike): y, xs
+    (B,S,H,P) -> (B,S,di) in z's dtype, before `w_out`."""
     B, S = y.shape[:2]
-    y = y + p["D"][None, None, :, None] * xs.float()
-    y = y.reshape(B, S, cfg.d_inner).to(x_dtype) * F.silu(z)
-    y = layers.rmsnorm(p["out_norm"], y, cfg.norm_eps)
-    return y @ p["w_out"]
+    y = y + D[None, None, :, None] * xs.float()
+    y = y.reshape(B, S, cfg.d_inner).to(z.dtype) * F.silu(z)
+    return layers.rmsnorm({"scale": norm_scale}, y, cfg.norm_eps)
+
+
+def _block_core(zxbcdt, conv_w, conv_b, dt_bias, A_log, D, norm_scale, *,
+                cfg, return_cache: bool):
+    """The block between its two projections, on whole channels: the
+    split into z, xBC and dt, the conv, the SSD and `_gated` -> y
+    (B,S,di) [, the conv state (B,cw-1,C), the final state (B,H,P,N)]."""
+    B, S, _ = zxbcdt.shape
+    di, N, H, P = (cfg.d_inner, cfg.ssm_state, cfg.mamba_heads,
+                   cfg.mamba_head_dim)
+    z, xbc, dt = _split(zxbcdt, cfg)
+    xbc_conv = _causal_conv(conv_w, conv_b, xbc)
+    xs = xbc_conv[..., :di].reshape(B, S, H, P)
+    dt = F.softplus(dt.float() + dt_bias[None, None, :])
+    y, h_final = ssd_chunked(xs, xbc_conv[..., di:di + N],
+                             xbc_conv[..., di + N:], dt, -torch.exp(A_log),
+                             cfg.ssm_chunk)
+    y = _gated(y, xs, z, D, norm_scale, cfg)
+    if return_cache:
+        return y, xbc[:, -(cfg.ssm_conv - 1):, :], h_final
+    return y
+
+
+def _params(p):
+    return (p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], p["D"],
+            p["out_norm"]["scale"])
 
 
 def mamba2_block(p, cfg, x, *, return_cache: bool = False):
-    """x (B,S,d) -> y (B,S,d) [, cache=(conv_state, ssm_state)]."""
-    B, S, _ = x.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.mamba_heads, cfg.mamba_head_dim
-    z, xbc, dt = _split_proj(p, cfg, x)
-    xbc_conv = _causal_conv(p["conv_w"], p["conv_b"], xbc)
-    xs = xbc_conv[..., :di].reshape(B, S, H, P)
-    dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
-    y, h_final = ssd_chunked(xs, xbc_conv[..., di:di + N],
-                             xbc_conv[..., di + N:], dt, -torch.exp(p["A_log"]),
-                             cfg.ssm_chunk)
-    y = _gate_out(p, cfg, y, xs, z, x.dtype)
+    """x (B,S,d) -> y (B,S,d) [, cache=(conv_state, ssm_state)]. On a mesh
+    the block's core runs on each rank's batch rows, its channels whole
+    (see the module's docstring)."""
+    fn = lambda *a: _block_core(*a, cfg=cfg, return_cache=return_cache)
+    out = sharding.local_axes(
+        fn, ("b..",) + (".",) * 6,
+        ("b..", "b..", "b...") if return_cache else ("b..",),
+        x @ p["w_in"], *_params(p))
     if return_cache:
-        conv_state = xbc[:, -(cfg.ssm_conv - 1):, :]          # last cw-1 inputs
-        return y, (conv_state, h_final)
-    return y
+        y, conv_state, h_final = out
+        return y @ p["w_out"], (conv_state, h_final)
+    return out @ p["w_out"]
+
+
+def _decode_in(zxbcdt, conv_state, conv_w, conv_b, dt_bias, A_log, *, cfg):
+    """Decode's inputs to the state update from the new token's projection
+    (B,1,.) and the conv state: z, xs (B,1,H,P), dt and the decay (B,H),
+    B and C (B,N), and the new conv state."""
+    B = zxbcdt.shape[0]
+    di, N, H, P = (cfg.d_inner, cfg.ssm_state, cfg.mamba_heads,
+                   cfg.mamba_head_dim)
+    z, xbc, dt = _split(zxbcdt, cfg)
+    conv, new_conv_state = xlstm._conv_step(conv_w, conv_b, conv_state, xbc)
+    xs = conv[..., :di].reshape(B, 1, H, P)
+    dt = F.softplus(dt[:, 0, :].float() + dt_bias[None, :])     # (B,H)
+    decay = torch.exp(dt * -torch.exp(A_log)[None, :])         # (B,H)
+    return (z, xs, dt, decay, conv[:, 0, di:di + N].float(),
+            conv[:, 0, di + N:].float(), new_conv_state)
+
+
+def _state_update(h, xs, dt, decay, Bm, Cm):
+    """h (B,H,P,N) -> (the new state, y (B,1,H,P)): elementwise in H and
+    P, so a rank updates its own block of the state."""
+    h_new = (decay[:, :, None, None] * h
+             + torch.einsum("bh,bn,bhp->bhpn", dt, Bm, xs[:, 0].float()))
+    return h_new, torch.einsum("bn,bhpn->bhp", Cm, h_new)[:, None]
 
 
 def mamba2_decode(p, cfg, x, cache):
     """One-token decode. x (B,1,d); cache=(conv_state (B,cw-1,C), h
-    (B,H,P,N) float32) -> (y, (new conv_state, new h)), new tensors."""
-    B = x.shape[0]
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.mamba_heads, cfg.mamba_head_dim
+    (B,H,P,N) float32) -> (y, (new conv_state, new h)), new tensors. On a
+    mesh the state is updated on the block of H or P its placement gives
+    each rank; the one-token inputs are whole (see the module's
+    docstring)."""
     conv_state, h = cache
-    z, xbc, dt = _split_proj(p, cfg, x)                       # (B,1,.)
-    conv, new_conv_state = xlstm._conv_step(p["conv_w"], p["conv_b"],
-                                            conv_state, xbc)
-    xs = conv[..., :di].reshape(B, 1, H, P)
-    Bm = conv[:, 0, di:di + N].float()
-    Cm = conv[:, 0, di + N:].float()
-    dt = F.softplus(dt[:, 0, :].float() + p["dt_bias"][None, :])  # (B,H)
-    decay = torch.exp(dt * -torch.exp(p["A_log"])[None, :])   # (B,H)
-    h_new = (decay[:, :, None, None] * h
-             + torch.einsum("bh,bn,bhp->bhpn", dt, Bm, xs[:, 0].float()))
-    y = torch.einsum("bn,bhpn->bhp", Cm, h_new)[:, None]      # (B,1,H,P)
-    return _gate_out(p, cfg, y, xs, z, x.dtype), (new_conv_state, h_new)
+    z, xs, dt, decay, Bm, Cm, new_conv_state = sharding.local_axes(
+        lambda *a: _decode_in(*a, cfg=cfg), ("b..", "b..", "..", ".", ".",
+                                             "."),
+        ("b..", "b...", "b.", "b.", "b.", "b.", "b.."),
+        x @ p["w_in"], conv_state, p["conv_w"], p["conv_b"], p["dt_bias"],
+        p["A_log"])
+    H = cfg.mamba_heads
+    h_new, y = sharding.local_axes(
+        _state_update, ("bhp.", "b.hp", "bh", "bh", "b.", "b."),
+        ("bhp.", "b.hp"), h, xs, dt, decay, Bm, Cm,
+        units={"h": H, "p": cfg.mamba_head_dim})
+    y = sharding.local_axes(
+        lambda *a: _gated(*a, cfg), ("b...", "b...", "b..", ".", "."),
+        ("b..",), y, xs, z, p["D"], p["out_norm"]["scale"])
+    return y @ p["w_out"], (new_conv_state, h_new)

@@ -14,6 +14,22 @@ reference's stabiliser (m_t = max(f_pre + m_{t-1}, i_pre)), its -30.0
 initial m and its float32 state. The mLSTM's cache is (conv_state (B,
 cw-1, 2d), C (B, H, P+1, P) float32), the sLSTM's its (c, n, m, h) state;
 decode returns new tensors.
+
+On a mesh (DTensor parameters) the projections are DTensor ops and the
+rest runs through `sharding.local_axes` (`local_map`), each on the block
+of the rows, heads or channels that its inputs' placements give a rank:
+the up projection's halves (its even split over "model" falls at the
+halves' boundary, so the output is made whole first), the causal conv
+(channel-local: on the conv state's split of channels in decode; `F.pad`
+has no plan in PyTorch 2.11), the mLSTM cell (`mlstm_chunked` or the
+decode step on the rank's heads; its forget gate's log-sigmoid inside,
+as DTensor has no strategy for `aten.log_sigmoid_backward` in 2.11 or
+2.13, and its mask and ones column are plain tensors, which DTensor
+refuses beside DTensors), the whole sLSTM scan of S steps under one
+`local_map` (DTensor's dispatch would be paid at every step; on the
+state's split of heads in decode, as `serve.cache_shardings` places it,
+else on the rows) and the out norms, which normalise over every channel,
+so that y is made whole over "model" there.
 """
 from __future__ import annotations
 
@@ -22,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.nn import layers
 
 
@@ -116,44 +133,80 @@ def mlstm_chunked(q, k, v, logf, logi, Q: int, state=None):
     return y, C
 
 
+def _mlstm_step(q, k, v, logf, logi, C):
+    """The mLSTM's O(1) recurrent update: q, k, v (B,1,H,P), logf, logi
+    (B,1,H), C (B,H,P+1,P) -> y (B,1,H,P) f32, the new C."""
+    B, _, H, P = q.shape
+    ones = torch.ones(B, H, 1, dtype=torch.float32, device=q.device)
+    va = torch.cat([v[:, 0].float(), ones], dim=-1)           # (B,H,P+1)
+    C_new = (torch.exp(logf[:, 0])[:, :, None, None] * C
+             + torch.exp(logi[:, 0])[:, :, None, None]
+             * torch.einsum("bhp,bhn->bhpn", va, k[:, 0].float()))
+    ya = torch.einsum("bhn,bhpn->bhp", q[:, 0].float() * P ** -0.5, C_new)
+    return (ya[..., :P] / torch.clamp(torch.abs(ya[..., P:]), min=1.0)
+            )[:, None], C_new
+
+
+def _gated_norm(y, z, norm_scale, eps):
+    """y * silu(z), then the out norm over all of its channels."""
+    return layers.rmsnorm({"scale": norm_scale}, y.to(z.dtype) * F.silu(z),
+                          eps)
+
+
+def _halves(up, n: int):
+    return up[..., :n], up[..., n:]
+
+
 def mlstm_block(p, cfg, x, *, return_cache: bool = False, cache=None,
                 decode: bool = False):
     """x (B,S,d) -> y, or (y, cache) with `return_cache` (prefill) or
-    `decode` (one token against `cache`)."""
+    `decode` (one token against `cache`). On a mesh (see the module's
+    docstring) the conv runs on each rank's rows and channels, the cell on
+    its rows and heads, the norm on its rows."""
     B, S, d = x.shape
     H = cfg.num_heads
     di = 2 * d
     P = di // H
-    up = x @ p["w_up"]
-    xm, z = up[..., :di], up[..., di:]
+    xm, z = sharding.local_axes(lambda u: _halves(u, di), ("b..",),
+                                ("b..", "b.."), x @ p["w_up"])
     if decode:
         conv_state, C = cache
-        conv, new_conv_state = _conv_step(p["conv_w"], p["conv_b"],
-                                          conv_state, xm)
+        conv, new_conv_state = sharding.local_axes(
+            lambda s, xn, w, b: _conv_step(w, b, s, xn),
+            ("b.c", "b.c", ".c", "c"), ("b.c", "b.c"),
+            conv_state, xm, p["conv_w"], p["conv_b"])
     else:
-        conv = _conv_silu(p["conv_w"], p["conv_b"], xm)
+        conv = sharding.local_axes(
+            lambda xx, w, b: _conv_silu(w, b, xx), ("b.c", ".c", "c"),
+            ("b.c",), xm, p["conv_w"], p["conv_b"])
     q = (conv @ p["wq"]).reshape(B, S, H, P)
     k = (conv @ p["wk"]).reshape(B, S, H, P)
     v = (xm @ p["wv"]).reshape(B, S, H, P)
     gates = (conv @ p["w_gates"]).float()
+    # the forget gate's log-sigmoid is taken inside the cell's function
+    # (DTensor has no rule for its backward)
     logi, fpre = gates[..., :H], gates[..., H:]
-    logf = F.logsigmoid(fpre)
+    heads = {"h": H}
     new_cache = None
     if decode:                             # the O(1) recurrent update
-        ones = torch.ones(B, H, 1, dtype=torch.float32, device=x.device)
-        va = torch.cat([v[:, 0].float(), ones], dim=-1)       # (B,H,P+1)
-        C_new = (torch.exp(logf[:, 0])[:, :, None, None] * C
-                 + torch.exp(logi[:, 0])[:, :, None, None]
-                 * torch.einsum("bhp,bhn->bhpn", va, k[:, 0].float()))
-        ya = torch.einsum("bhn,bhpn->bhp", q[:, 0].float() * P ** -0.5, C_new)
-        y = (ya[..., :P] / torch.clamp(torch.abs(ya[..., P:]), min=1.0))[:, None]
+        y, C_new = sharding.local_axes(
+            lambda c, q, k, v, f, i: _mlstm_step(q, k, v, F.logsigmoid(f),
+                                                 i, c),
+            ("bh..", "b.h.", "b.h.", "b.h.", "b.h", "b.h"),
+            ("b.h.", "bh.."), C, q, k, v, fpre, logi, units=heads)
         new_cache = (new_conv_state, C_new)
     else:
-        y, C_final = mlstm_chunked(q, k, v, logf, logi, cfg.ssm_chunk)
+        y, C_final = sharding.local_axes(
+            lambda q, k, v, f, i: mlstm_chunked(q, k, v, F.logsigmoid(f), i,
+                                                cfg.ssm_chunk),
+            ("b.h.", "b.h.", "b.h.", "b.h", "b.h"), ("b.h.", "bh.."),
+            q, k, v, fpre, logi, units=heads)
         if return_cache:
             new_cache = (xm[:, -(cfg.ssm_conv - 1):, :], C_final)
-    y = y.reshape(B, S, di).to(x.dtype) * F.silu(z)
-    y = layers.rmsnorm(p["out_norm"], y, cfg.norm_eps) @ p["w_down"]
+    y = sharding.local_axes(
+        lambda *a: _gated_norm(*a, cfg.norm_eps), ("b..", "b..", "."),
+        ("b..",), y.reshape(B, S, di), z, p["out_norm"]["scale"])
+    y = y @ p["w_down"]
     if return_cache or decode:
         return y, new_cache
     return y
@@ -203,20 +256,40 @@ def slstm_scan(gx, r, state):
     return torch.stack(hs, dim=1), (c, n, m, h)
 
 
+def _flat_scan(gx, r, state):
+    hs, state = slstm_scan(gx, r, state)
+    return (hs, *state)
+
+
 def slstm_block(p, cfg, x, *, return_cache: bool = False, cache=None,
                 decode: bool = False):
     """x (B,S,d) -> y, or (y, state) with `return_cache` or `decode`; the
     scan starts from `cache` when one is given, else from zeros with m at
-    -30."""
+    -30. On a mesh (see the module's docstring) the whole scan runs on each
+    rank's rows, and on its block of heads where the state is split so."""
     B, S, d = x.shape
     gx = (x @ p["w_gates"]).reshape(B, S, 4, d)
+    heads = {"h": cfg.num_heads}
+    outs = ("b.h",) + ("bh",) * 4
     if cache is None:
-        z = torch.zeros(B, d, dtype=torch.float32, device=x.device)
-        cache = (z, z, torch.full((B, d), -30.0, device=x.device), z)
-    hs, state = slstm_scan(gx, p["r_gates"], cache)
-    hs = layers.rmsnorm(p["out_norm"], hs.to(x.dtype), cfg.norm_eps)
+        def fresh(g, r):
+            z = torch.zeros(g.shape[0], g.shape[3], dtype=torch.float32,
+                            device=g.device)
+            return _flat_scan(g, r, (z, z, torch.full_like(z, -30.0), z))
+        hs, *state = sharding.local_axes(
+            fresh, ("b..h", ".h.."), outs, gx, p["r_gates"], units=heads)
+    else:
+        hs, *state = sharding.local_axes(
+            lambda c, n, m, h, g, r: _flat_scan(g, r, (c, n, m, h)),
+            ("bh",) * 4 + ("b..h", ".h.."), outs, *cache, gx, p["r_gates"],
+            units=heads)
+    state = tuple(state)
+    hs = sharding.local_axes(
+        lambda a, s: layers.rmsnorm({"scale": s}, a, cfg.norm_eps),
+        ("b..", "."), ("b..",), hs.to(x.dtype), p["out_norm"]["scale"])
     up = hs @ p["w_up"]
-    g, u = up[..., :d], up[..., d:]
+    g, u = sharding.local_axes(lambda t: _halves(t, d), ("b..",),
+                               ("b..", "b.."), up)
     y = (F.silu(g) * u) @ p["w_down"]
     if return_cache or decode:
         return y, state

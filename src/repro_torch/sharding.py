@@ -397,25 +397,75 @@ def local_rows(fn, n_out: int, *tensors, split_dims: Sequence[int] = (0,)):
     """`fn(*tensors)` for an op that DTensor has no rule for but that reads
     only the rows it writes (MoE's top-k, dispatch and combine, rope,
     attention on whole heads, a cache's pad): on plain tensors as it is, on
-    DTensors through `local_map`, on each rank's shard. The first input
-    keeps its splits of the dims in `split_dims` (by default the batch
-    rows) and is made whole on every other mesh dim; an input of its rank
-    is placed alike, one of another rank (positions beside activations)
-    keeps only the batch split. The `n_out` outputs are placed as the first
-    input."""
+    DTensors through `local_map` (`local_axes`), on each rank's shard. The
+    first input keeps its splits of the dims in `split_dims` (by default
+    the batch rows) and is made whole on every other mesh dim; an input of
+    its rank is placed alike, one of another rank (positions beside
+    activations) keeps only the batch split. The `n_out` outputs are
+    placed as the first input."""
+    n = tensors[0].dim()
+    lead = "".join(chr(ord("a") + d) if d in split_dims else "."
+                   for d in range(n))
+    ins = tuple(lead if t.dim() == n else lead[0] + "." * (t.dim() - 1)
+                for t in tensors)
+    return local_axes(fn, ins, (lead,) * n_out, *tensors)
+
+
+def local_axes(fn, ins: Sequence[str], outs: Sequence[str], *tensors,
+               units: Optional[dict] = None):
+    """`fn(*tensors)` on each rank's block through `local_map`, the blocks
+    named by letters, for an op DTensor has no rule for (a recurrence, a
+    chunked scan, a conv over the sequence): on plain tensors as it is.
+
+    `ins` holds one string a tensor and `outs` one an output, a letter a
+    dim ("b" the batch rows, "h" heads, ...; "." a dim that is never
+    split). On each mesh dim the first tensor's placement chooses: its
+    `Shard(d)` splits the letter at d, where that letter is not "." and,
+    for a letter in `units` (a flattened axis, d = H x P, split on whole
+    heads only), the mesh dims that split it divide `units[letter]`;
+    anything else splits nothing there, and the first tensor is gathered
+    on that mesh dim. Every tensor and output is then `Shard` of its own
+    dim with the split letter, or `Replicate()` where it has none; the
+    gradient of an input without it is a `Partial` sum (the share of its
+    rank's block), with it the same `Shard`. Plain tensors pass as they
+    are."""
     lead = tensors[0]
     if not is_dtensor(lead):
         return fn(*tensors)
     from torch.distributed.tensor.experimental import local_map
     mesh = lead.device_mesh
-    keep = tuple(p if isinstance(p, Shard) and p.dim in split_dims
-                 else Replicate() for p in lead.placements)
-    rows = tuple(p if p.is_shard(0) else Replicate() for p in keep)
-    pls = tuple(keep if t.dim() == lead.dim() else rows for t in tensors)
-    args = [t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
-            for t, pl in zip(tensors, pls)]
-    return local_map(fn, out_placements=(keep,) * n_out, in_placements=pls,
-                     device_mesh=mesh)(*args)
+    split = [ins[0][p.dim] if isinstance(p, Shard) and ins[0][p.dim] != "."
+             else None for p in lead.placements]
+    for letter, n in (units or {}).items():
+        dims = [i for i, s in enumerate(split) if s == letter]
+        if n % _prod_sizes(mesh, dims):
+            for i in dims:
+                split[i] = None
+
+    def pl(spec, grad=False):
+        return tuple(Shard(spec.index(s)) if s is not None and s in spec
+                     else Partial() if s is not None and grad
+                     else Replicate() for s in split)
+
+    args = []
+    for t, spec in zip(tensors, ins):
+        if is_dtensor(t) and tuple(t.placements) != pl(spec):
+            t = t.redistribute(mesh, pl(spec))
+        args.append(t)
+    return local_map(
+        fn, out_placements=tuple(pl(s) for s in outs),
+        in_placements=tuple(pl(s) if is_dtensor(t) else None
+                            for t, s in zip(args, ins)),
+        in_grad_placements=tuple(pl(s, grad=True) if is_dtensor(t) else None
+                                 for t, s in zip(args, ins)),
+        device_mesh=mesh)(*args)
+
+
+def _prod_sizes(mesh, dims) -> int:
+    n = 1
+    for i in dims:
+        n *= mesh.size(i)
+    return n
 
 
 def placed_like(tree, like):

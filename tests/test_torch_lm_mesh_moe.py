@@ -4,13 +4,14 @@ and the expert products (`nn/moe.py` on a mesh), at the same bounds."""
 import pytest
 
 import torch_lm_mesh_ranks as lmr
-from test_torch_lm_mesh import check_serving, check_train, run_four_ranks
+from test_torch_lm_mesh import check_serving, check_train, run_four_ranks_many
 
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
-    return run_four_ranks("granite-moe-1b-a400m",
-                          tmp_path_factory.mktemp("lm_moe"))
+    return run_four_ranks_many(("granite-moe-1b-a400m",),
+                               tmp_path_factory.mktemp("lm_moe"))[
+        "granite-moe-1b-a400m"]
 
 
 def test_prefill_and_decode_match_the_reference(four_ranks):
