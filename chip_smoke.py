@@ -248,7 +248,30 @@ Phases (each failure raises, so the process exits non-zero):
      s/step beside unsharded; 16b, four gloo ranks sharing the card, mesh
      (2, 2), every family reduced in float32: serving and client 0's
      gradients and one "tp" step against the unsharded runs on the card
-     by 14b's bounds, launches a rank exact.
+     by 14b's bounds, launches a rank exact; then Granite (MESH_EP_ARCH)
+     once more under the expert-parallel hint ("moe_ep"): each rank holds
+     2 of the 4 experts of every `_e` leaf, the same checks;
+  17. sliding-window prefill through the windowed flash kernel: 17a both
+     kernels (bf16 on the tensor cores, float32 on the CUDA cores) against
+     the plain version at WINDOW_SHAPE (TinyLlama's heads, 4096 tokens)
+     with windows 1, 63, 64 and 1000, at MLA's split dims and one
+     non-causal window, by phase 4's limits; a window of S or more
+     bit-equal to none, a window of 1 returning v's rows; kernel, plain
+     and SDPA-with-a-band-mask times at (1, 4096, 32, 4, 64) window 1000;
+     17b TinyLlama-1.1B's windowed prefill (1 x 4096 tokens, window 1024)
+     through the kernel against plain attention (`prefill_attention`),
+     bf16 at full depth within WINDOW_BF16_TOL x max(1, |logit|) and below
+     the window's own effect, float32 at 2 layers within CHECK_TOL; 17c
+     the timed run at 32768 tokens and window 8192 (`swa_window`): the
+     windowed kernel's first and last WINDOW_ROWS rows against plain
+     attention over every key, its ms a launch beside the unwindowed
+     kernel's, its bound (S W - W^2 / 2 pairs a head) and SDPA with a band
+     mask, then the prefill with and without the window in turns, 22
+     flash launches a prefill asserted, peak memory; 17d the float32
+     2-layer windowed prefill on a (1, 1) NCCL mesh, bit-equal to
+     unsharded.
+Each stretch of phases prints its wall seconds as it ends (`[time]`
+lines; the 1,200 s limit is the whole run's).
 Phase 5h-a also runs the MLP stack check (clients 0-1's features and
 gradients within the 8-client MLP stack against a 2-client stack, and the
 first layer's batched GEMM at batch 8 against batch 2). Phases 10b and 13
@@ -266,8 +289,8 @@ also on a (k, ...) block gathered by `index_select` from an N-client stack
 kernel symbol a wrapper call.
 It prints a JSON line of per-kernel results (with share_of_bound, bound_ms
 over ms, device_us_per_launch from the profiles, and launches_by_path from
-phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12, 13, 14, 15 and 16) before the last
-line,
+phases 5c, 5d, 5e, 5f, 5g, 10b, 11, 12, 13, 14, 15, 16 and 17; flash's
+"window" entry holds phase 17's numbers) before the last line,
 and as the last line {"ok": true, ...}.
 """
 import dataclasses
@@ -537,10 +560,10 @@ FLASH_MLA_SHAPES = ((4, 256, 256, 16, 16, 192, 128),
                     (2, 100, 100, 4, 4, 80, 64))
 # (hd, hv) pairs that the tensor-core kernel takes in bf16 (ops.py)
 FLASH_TC_MLA_DIMS = ((192, 128), (96, 64))
-# the bf16 kernel instances that ptxas may report spilling: hd 64 causal's
-# 12 bytes stored and 36 loaded, since the kernel's first version; phase 2
-# fails on any other
-FLASH_KNOWN_SPILLS = {"hd64 causal"}
+# the bf16 kernel instances that ptxas may report spilling: none since the
+# window's range test (hd 64 causal spilled 12 bytes stored and 36 loaded
+# before); phase 2 fails on any
+FLASH_KNOWN_SPILLS = set()
 # ... and at the other families' equal head dims (B, S, H, G, hd), bf16 and
 # causal as phase 11 serves them, on the tensor-core kernel: Qwen2-VL,
 # ChatGLM3, DeepSeek-67B, Granite, Zamba2's shared block
@@ -3494,10 +3517,10 @@ def quiet_redistribute():
         logging.ERROR)
 
 
-def mesh_lm_place_state(cfg, state, mesh, strategy):
+def mesh_lm_place_state(cfg, state, mesh, strategy, moe_ep=False):
     from repro_torch import sharding
     from repro_torch.launch import train
-    sharding.set_hints(mesh=mesh, moe_ep=False,
+    sharding.set_hints(mesh=mesh, moe_ep=moe_ep,
                        moe_dp=strategy in ("dp_only", "zero1"))
     return sharding.place(state, train.state_shardings(
         state, cfg, mesh, state.opt.step.shape[0], strategy=strategy), mesh,
@@ -4534,6 +4557,9 @@ MESH_FAMILIES = (("deepseek-v2-lite-16b", 2, 1), ("minicpm3-4b", 1, 1),
 MESH_FAM_BATCH, MESH_FAM_PROMPT, MESH_FAM_TOKENS = 4, 256, 8
 MESH_FAM_TRAIN_SEQ = 256
 MESH_FAM_PROMPT_B, MESH_FAM_TOKENS_B = 32, 2
+# 16b also runs this MoE arch under the expert-parallel hint ("moe_ep"):
+# its expert leaves split on the expert dim over "model"
+MESH_EP_ARCH = "granite-moe-1b-a400m"
 
 
 def mesh_family_cfg(arch, layers=None, reduced=False):
@@ -4730,10 +4756,12 @@ def phase_mesh_families_one_rank(dev, smi):
             "wall_s": wall}
 
 
-def mesh_family_reduced_runs(cfg, dev, mesh=None):
+def mesh_family_reduced_runs(cfg, dev, mesh=None, moe_ep=False):
     """16b's runs of one reduced family, unsharded or on `mesh`: serving,
     client 0's gradients and one cors step under "tp", on the card, every
-    output whole on the host, and the launches of each."""
+    output whole on the host, and the launches of each. With `moe_ep`, all
+    of it under the expert-parallel hint, and the experts a rank holds of
+    each `_e` leaf ("local_experts")."""
     from repro_torch import serve_lm, sharding
     from repro_torch.core import prototypes
     from repro_torch.kernels import ops
@@ -4746,8 +4774,14 @@ def mesh_family_reduced_runs(cfg, dev, mesh=None):
     with torch.no_grad():
         p = init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
         if mesh is not None:
+            sharding.set_hints(mesh=mesh if moe_ep else None, moe_ep=moe_ep,
+                               moe_dp=False)
             p = sharding.place(p, serve.params_shardings(p, cfg, mesh), mesh,
                                src_data_rank=None)
+            held = []
+            sharding.map_params(lambda path, t, n: held.append(
+                t.to_local().shape[0]) if path.endswith("_e") else None, p)
+            out["local_experts"] = sorted(set(held))
         batch, next_batch = mesh_family_serve_inputs(
             cfg, MESH_FAM_BATCH, MESH_FAM_PROMPT_B, MESH_FAM_TOKENS_B, dev)
         ops.reset_launches()
@@ -4762,7 +4796,7 @@ def mesh_family_reduced_runs(cfg, dev, mesh=None):
     state = train.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
                              LM_CLIENTS, device=dev)
     if mesh is not None:
-        state = mesh_lm_place_state(cfg, state, mesh, "tp")
+        state = mesh_lm_place_state(cfg, state, mesh, "tp", moe_ep)
         batch = mesh_lm_place_batch(batch, mesh, "tp")
     try:
         g, _ = mesh_lm_grads(cfg, ccfg, state, batch, neg)
@@ -4773,7 +4807,7 @@ def mesh_family_reduced_runs(cfg, dev, mesh=None):
         state, met = step(state, batch, neg)
         out["train_launches"] = dict(ops.LAUNCHES)
     finally:
-        sharding.set_hints(mesh=None)
+        sharding.set_hints(mesh=None, moe_ep=False)
     out["loss"] = float(sharding.full(met["total"]))
     out["params"] = [host(t) for t in leaves((state.params, state.opt.m))]
     out["proto_count"] = host(state.proto.count)
@@ -4797,10 +4831,12 @@ def mesh_family_rank_main(rank, world, tmp):
                                              MESH_LM_SHAPE), "cuda")
     ref = torch.load(os.path.join(tmp, "ref.pt"))
     res = {}
-    for arch, _, _ in MESH_FAMILIES:
+    cases = [(arch, arch, False) for arch, _, _ in MESH_FAMILIES]
+    cases.append((f"{MESH_EP_ARCH} moe_ep", MESH_EP_ARCH, True))
+    for key, arch, moe_ep in cases:
         t0 = time.perf_counter()
         cfg = mesh_family_cfg(arch, reduced=True)
-        got = mesh_family_reduced_runs(cfg, dev, mesh)
+        got = mesh_family_reduced_runs(cfg, dev, mesh, moe_ep=moe_ep)
         want = ref[arch]
         rel = lambda a, b: float(((a.double() - b.double()).abs()
                                   / b.double().abs().clamp(min=1.0)).max())
@@ -4811,8 +4847,10 @@ def mesh_family_rank_main(rank, world, tmp):
             e_p = max(e_p, float(d.max()))
             far += int((d > PARITY_PARAM_TOL).sum())
             n_all += d.numel()
-        res[arch] = {
+        res[key] = {
             "serve_launches": got["serve_launches"],
+            "local_experts": got["local_experts"],
+            "experts": cfg.num_experts,
             "want_flash": mesh_family_flash(cfg, MESH_FAM_TOKENS_B),
             "logits": rel(got["logits"], want["logits"]),
             "ids_equal": bool(torch.equal(got["ids"], want["ids"])),
@@ -4843,7 +4881,8 @@ def phase_mesh_families_four_ranks(dev, smi):
         t0 = time.perf_counter()
         torch.save({arch: mesh_family_reduced_runs(
             mesh_family_cfg(arch, reduced=True), dev)
-            for arch, _, _ in MESH_FAMILIES}, os.path.join(tmp, "ref.pt"))
+            for arch in [a for a, _, _ in MESH_FAMILIES] + [MESH_EP_ARCH]},
+            os.path.join(tmp, "ref.pt"))
         t_ref = time.perf_counter() - t0
         t0 = time.perf_counter()
         ranks.spawn(mesh_family_rank_main, 4, "gloo", tmp)
@@ -4862,6 +4901,9 @@ def phase_mesh_families_four_ranks(dev, smi):
               and t["params"] <= 2 * 1e-3
               and t["params_far"] <= PARITY_PARAM_FRAC * t["params_n"]
               and t["counts_equal"] and t["proto_accum_launches"] == 1)
+        if arch.endswith("moe_ep"):
+            # the experts split over "model" (2): E / 2 a rank of each leaf
+            ok = ok and t["local_experts"] == [t["experts"] // 2]
         if not ok:
             raise AssertionError(f"[mesh families] 16b {arch}: {t}")
         print(f"[mesh families] 16b {arch} reduced float32 on data:2xmodel:2 "
@@ -4873,11 +4915,328 @@ def phase_mesh_families_four_ranks(dev, smi):
               f"max|g|, parameters and moments {t['params']:.3e} "
               f"({t['params_far']} of {t['params_n']} beyond "
               f"{PARITY_PARAM_TOL}), counts equal, one proto_accum launch a "
-              f"rank")
+              f"rank; experts a rank of each _e leaf {t['local_experts']}")
     print(f"[mesh families] 16b: {t_ref:.1f} s unsharded, {wall:.1f} s the "
           f"four ranks; host-staged collectives {staged} [{smi}]")
     return {"ranks": 4, "backend": "gloo", "families": res, "wall_s": wall,
             "reference_s": t_ref}
+
+
+# phase 17: sliding-window prefill through the windowed flash kernel
+WINDOW_SHAPE = (1, 4096, 32, 4, 64, 64)    # TinyLlama's heads, 4096 tokens
+WINDOW_WIDTHS = (1, 63, 64, 1000)          # 1, tile-ragged, a tile, many
+WINDOW_MLA_SHAPES = ((1, 1024, 16, 16, 192, 128),   # DeepSeek-V2-Lite
+                     (1, 1024, 40, 40, 96, 64))     # MiniCPM3
+WINDOW_MLA_WIDTHS = (65, 300)
+WINDOW_FULL = 1000                         # the non-causal case's window
+WINDOW_CHECK = (4096, 1024)                # 17b: tokens, window
+# 17b in bf16, the whole model: max |kernel path - plain| over the logits
+# <= WINDOW_BF16_TOL x max(1, |logit|), and below the window's own effect
+# (the same prefill without the window), so that the check can tell them
+# apart; float32 at 2 layers within CHECK_TOL
+WINDOW_BF16_TOL = 5e-2
+WINDOW_RUN = (32768, 8192)                 # 17c: prefill_32k's length, swa_window
+WINDOW_ROWS = 256                          # 17c: rows held against plain
+WINDOW_TURNS = 3                           # 17c: prefills of each, in turns
+
+
+def window_inputs(shape, dtype, dev, gen):
+    B, S, H, G, hd, hv = shape
+    return (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(B, S, G, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(B, S, G, hv, generator=gen, device=dev).to(dtype))
+
+
+def window_pairs(S, W):
+    """The (query, key) pairs a causal window of W keys leaves a head: the
+    sum over rows of min(i + 1, W), S W - W^2 / 2 + W / 2 for S >= W."""
+    W = min(W, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def window_bound(shape, W, dtype):
+    """The least time of a causal windowed flash call: q, k, v read once
+    and the output written once, 2 (hd + hv) operations a pair a head."""
+    B, S, H, G, hd, hv = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    return bound_ms((B * S * H + B * S * G) * (hd + hv) * size,
+                    2 * B * H * window_pairs(S, W) * (hd + hv),
+                    BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+
+
+def sdpa_band(q, k, v, W):
+    """`scaled_dot_product_attention` of the same function with a boolean
+    band mask (causal, q_pos - k_pos < W), KV heads repeated to the query
+    heads: the yardstick. -> a function of no arguments, or None with the
+    reason printed where no memory-bounded backend takes it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(rep, 2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, 2).transpose(1, 2)
+    i = torch.arange(q.shape[1], device=q.device)
+    diff = i[:, None] - i[None, :]
+    mask = (diff >= 0) & (diff < W)
+
+    def run():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    try:
+        run()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"[window] scaled_dot_product_attention with a band mask at "
+              f"{tuple(q.shape)}: no memory-bounded backend ({e})"[:400])
+        return None
+    return run
+
+
+def check_window(shape, dtype, causal, W, dev, gen):
+    """The windowed kernel against its plain version, one bf16 step (or
+    FLASH_F32_TOL) element by element, as phase 4."""
+    from repro_torch.kernels import ops, ref
+    q, k, v = window_inputs(shape, dtype, dev, gen)
+    out = ops.flash_attention(q, k, v, causal=causal, window=W)
+    want = ref.flash_attention(q, k, v, causal=causal, window=W)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    excess = flash_excess(out, want)
+    tag = (f"flash_attention {shape} {str(dtype).split('.')[-1]} "
+           f"{'causal' if causal else 'full'} window {W}")
+    if not excess <= 1:
+        raise AssertionError(f"{tag}: max error {err:.3e}, {excess:.3f} x the "
+                             f"limit")
+    return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            "causal": causal, "window": W, "max_abs_err": err,
+            "limit_used": excess}
+
+
+def phase_window_kernels(dev):
+    """17a: both windowed kernels against the plain version, at TinyLlama's
+    heads over 4096 tokens (windows 1, 63, 64, 1000), at MLA's split dims,
+    one non-causal window; a window past the sequence bit-equal to none,
+    a window of 1 returning v's rows; the kernel, plain and SDPA-band
+    times at the first shape in bf16."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        for W in WINDOW_WIDTHS:
+            rows.append(check_window(WINDOW_SHAPE, dtype, True, W, dev, gen))
+        rows.append(check_window(WINDOW_SHAPE, dtype, False, WINDOW_FULL, dev,
+                                 gen))
+        for shape in WINDOW_MLA_SHAPES:
+            for W in WINDOW_MLA_WIDTHS:
+                rows.append(check_window(shape, dtype, True, W, dev, gen))
+        q, k, v = window_inputs(WINDOW_SHAPE, dtype, dev, gen)
+        S, rep = q.shape[1], q.shape[2] // k.shape[2]
+        for causal in (True, False):
+            none = ops.flash_attention(q, k, v, causal=causal)
+            for W in (S, S + 7):
+                if not torch.equal(ops.flash_attention(
+                        q, k, v, causal=causal, window=W), none):
+                    raise AssertionError(f"window {W} >= S {S} is not "
+                                         f"bit-equal to no window ({dtype}, "
+                                         f"causal {causal})")
+        if not torch.equal(ops.flash_attention(q, k, v, window=1),
+                           v.repeat_interleave(rep, 2)):
+            raise AssertionError(f"window 1 does not return v's rows ({dtype})")
+    worst = max(rows, key=lambda r: r["limit_used"])
+    print(f"[window] 17a: {len(rows)} windowed shapes against plain, worst "
+          f"{worst['limit_used']:.3f} x the limit ({worst['dtype']} "
+          f"{worst['shape']} window {worst['window']}, max_abs_err "
+          f"{worst['max_abs_err']:.3e}); window >= S bit-equal to none and "
+          f"window 1 = v in bf16 and float32 ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    W = WINDOW_FULL
+    q, k, v = window_inputs(WINDOW_SHAPE, torch.bfloat16, dev, gen)
+    band = sdpa_band(q, k, v, W)
+    timed = {"shape": list(WINDOW_SHAPE), "window": W,
+             "ms": time_ms(lambda: ops.flash_attention(q, k, v, window=W), 20),
+             "causal_ms": time_ms(lambda: ops.flash_attention(q, k, v), 20),
+             "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v,
+                                                             window=W), 20),
+             "library_ms": None if band is None else time_ms(band, 20)}
+    timed["bound_ms"], timed["bound_by"] = window_bound(WINDOW_SHAPE, W,
+                                                        torch.bfloat16)
+    print(f"[window] 17a bf16 {WINDOW_SHAPE} window {W}: kernel "
+          f"{timed['ms']:.4f} ms (causal, no window {timed['causal_ms']:.4f})"
+          f", plain {timed['plain_ms']:.4f}, SDPA band mask "
+          f"{timed['library_ms']}, bound {timed['bound_ms']:.6f} ms "
+          f"({timed['bound_by']})")
+    return {"rows": rows, "timed": timed}
+
+
+def phase_window_model(dev, smi):
+    """17b-d: TinyLlama-1.1B's windowed prefill. 17b full width and depth
+    in bf16 (1 x 4096 tokens, window 1024), the kernel path against plain
+    attention, and at 2 layers in float32; 17c the timed run at 32768
+    tokens and window 8192 (swa_window): 22 flash launches, the kernel's
+    ms a launch beside its bound and SDPA's, the prefill with and without
+    the window in turns, peak memory; 17d the 2-layer float32 prefill on a
+    (1, 1) NCCL mesh, bit-equal to unsharded."""
+    import torch.distributed as dist
+    from repro_torch import ranks, serve_lm, sharding
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as lmesh, serve
+    from repro_torch.models import lm
+    from repro_torch.nn import attention
+    from repro_torch.tree import leaves
+    out = {}
+    cfg = get_arch("tinyllama-1.1b")
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    S, W = WINDOW_CHECK
+    toks = check_toks = torch.as_tensor(serve_lm.make_prompts(cfg, 1, S),
+                                        device=dev)
+    with torch.inference_mode():
+        kern = lm.forward(params, cfg, {"tokens": toks}, mode="prefill",
+                          window=W)["logits"].float()
+        with attention.prefill_attention(ref.flash_attention):
+            plain = lm.forward(params, cfg, {"tokens": toks}, mode="prefill",
+                               window=W)["logits"].float()
+        full = lm.forward(params, cfg, {"tokens": toks},
+                          mode="prefill")["logits"].float()
+    scale = max(1.0, float(plain.abs().max()))
+    e_k = float((kern - plain).abs().max())
+    e_w = float((full - kern).abs().max())
+    print(f"[window] 17b {cfg.name} bf16 full width, 1x{S} tokens, window "
+          f"{W}: max |kernel path - plain| {e_k:.3e}, max |no window - "
+          f"window| {e_w:.3e}, max |logit| {scale:.3e} (bound {WINDOW_BF16_TOL}"
+          f" x max(1, |logit|) = {WINDOW_BF16_TOL * scale:.3e}, and below the "
+          f"window's effect)")
+    if not (e_k <= WINDOW_BF16_TOL * scale and e_k < e_w
+            and bool(torch.isfinite(kern).all())):
+        raise AssertionError(f"17b bf16: {e_k:.3e} against {e_w:.3e}, scale "
+                             f"{scale:.3e}")
+    out["bf16_check"] = {"kernel_vs_plain": e_k, "window_effect": e_w,
+                         "max_logit": scale}
+    del kern, plain, full
+    cfg32 = family_depth(dataclasses.replace(cfg, dtype="float32"), 2)
+    p32 = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg32,
+                     device=dev)
+    with torch.inference_mode():
+        want32 = lm.forward(p32, cfg32, {"tokens": toks}, mode="prefill",
+                            window=W)
+        with attention.prefill_attention(ref.flash_attention):
+            plain = lm.forward(p32, cfg32, {"tokens": toks}, mode="prefill",
+                               window=W)["logits"]
+    scale32 = max(1.0, float(plain.abs().max()))
+    e32 = float((want32["logits"] - plain).abs().max())
+    print(f"[window] 17b float32 full width, 2 layers: max |kernel path - "
+          f"plain| {e32:.3e} (tol {CHECK_TOL} x {scale32:.3e})")
+    if not e32 <= CHECK_TOL * scale32:
+        raise AssertionError(f"17b float32: {e32:.3e} > {CHECK_TOL} x "
+                             f"{scale32:.3e}")
+    out["f32_check"] = e32
+    del plain
+
+    # 17c: the windowed kernel at the timed shape, its first and last rows
+    # against plain attention over every key, then the prefill
+    S, W = WINDOW_RUN
+    shape = (1, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+             cfg.head_dim)
+    gen = torch.Generator(device=dev).manual_seed(170)
+    q, k, v = window_inputs(shape, torch.bfloat16, dev, gen)
+    o = ops.flash_attention(q, k, v, window=W)
+    worst = 0.0
+    for r0 in (0, S - WINDOW_ROWS):
+        want = attention.full_attention(q[:, r0:r0 + WINDOW_ROWS], k, v,
+                                        causal=True, window=W, q_offset=r0)
+        worst = max(worst, flash_excess(o[:, r0:r0 + WINDOW_ROWS], want))
+    if not worst <= 1:
+        raise AssertionError(f"17c: the windowed kernel's rows at {shape} are "
+                             f"{worst:.3f} x the bf16 limit from plain")
+    band = sdpa_band(q, k, v, W)
+    kt = {"shape": list(shape), "window": W, "rows_vs_plain": worst,
+          "ms": time_ms(lambda: ops.flash_attention(q, k, v, window=W), 10,
+                        2),
+          "causal_ms": time_ms(lambda: ops.flash_attention(q, k, v), 10, 2),
+          "library_ms": None if band is None else time_ms(band, 5, 1)}
+    kt["bound_ms"], kt["bound_by"] = window_bound(shape, W, torch.bfloat16)
+    kt["causal_bound_ms"] = window_bound(shape, S, torch.bfloat16)[0]
+    del q, k, v, o, band
+    torch.cuda.empty_cache()
+    toks = torch.as_tensor(serve_lm.make_prompts(cfg, 1, S), device=dev)
+    times = {W: [], 0: []}
+    peaks = {}
+    with torch.inference_mode():
+        for w in (W, 0):                                   # warm-up
+            lm.forward(params, cfg, {"tokens": toks}, mode="prefill",
+                       window=w)
+        torch.cuda.synchronize()
+        for turn in range(WINDOW_TURNS):
+            for w in ((W, 0) if turn % 2 == 0 else (0, W)):
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                r = lm.forward(params, cfg, {"tokens": toks}, mode="prefill",
+                               window=w)
+                torch.cuda.synchronize()
+                times[w].append(time.perf_counter() - t0)
+                peaks[w] = torch.cuda.max_memory_allocated()
+                launches = dict(ops.LAUNCHES)
+                if launches["flash_attention"] != cfg.num_layers or any(
+                        launches[n] for n in launches
+                        if n != "flash_attention"):
+                    raise AssertionError(f"17c window {w}: launches "
+                                         f"{launches}")
+                if not bool(torch.isfinite(r["logits"]).all()):
+                    raise AssertionError(f"17c window {w}: non-finite logits")
+                del r
+    kt["launches"] = cfg.num_layers
+    pre = {"prefill_ms_window": [t * 1e3 for t in times[W]],
+           "prefill_ms_no_window": [t * 1e3 for t in times[0]],
+           "peak_gb_window": peaks[W] / 1e9, "peak_gb_no_window": peaks[0] / 1e9}
+    print(f"[window] 17c {cfg.name} bf16 1x{S} tokens, window {W}: "
+          f"{cfg.num_layers} flash launches a prefill; kernel "
+          f"{kt['ms'] * 1e3:.1f} us a launch (no window, causal: "
+          f"{kt['causal_ms'] * 1e3:.1f}), bound {kt['bound_ms']:.4f} ms "
+          f"({kt['bound_by']}; causal {kt['causal_bound_ms']:.4f}), SDPA band "
+          f"mask {kt['library_ms']} ms; rows against plain {worst:.3f} x the "
+          f"limit; prefill ms with the window "
+          f"{[round(t, 2) for t in pre['prefill_ms_window']]}, without "
+          f"{[round(t, 2) for t in pre['prefill_ms_no_window']]}; peak "
+          f"{pre['peak_gb_window']:.2f} / {pre['peak_gb_no_window']:.2f} GB "
+          f"[{smi}]")
+    out["kernel"], out["prefill"] = kt, pre
+    del params
+    torch.cuda.empty_cache()
+
+    # 17d: the float32 2-layer windowed prefill on a (1, 1) NCCL mesh
+    S, W = WINDOW_CHECK
+    toks = check_toks
+    tmp = tempfile.mkdtemp(prefix="window-mesh-")
+    ranks.init(0, 1, "nccl", f"file://{tmp}/rendezvous")
+    try:
+        mesh = lmesh.device_mesh(lmesh.make_host_mesh())
+        batch = {"tokens": toks}
+        pp = sharding.place(p32, serve.params_shardings(p32, cfg32, mesh),
+                            mesh, src_data_rank=None)
+        pb = sharding.place(batch, serve.batch_shardings(batch, mesh), mesh,
+                            src_data_rank=None)
+        with torch.inference_mode():
+            ops.reset_launches()
+            got = lm.forward(pp, cfg32, pb, mode="prefill", window=W)
+            n_flash = ops.LAUNCHES["flash_attention"]
+            same = torch.equal(sharding.full(got["logits"]), want32["logits"])
+            same_c = all(torch.equal(sharding.full(a), b) for a, b in zip(
+                leaves(got["caches"]), leaves(want32["caches"])))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[window] 17d float32 2 layers, window {W}, mesh data:1xmodel:1 "
+          f"(NCCL): logits bit-equal {same}, caches bit-equal {same_c}, "
+          f"{n_flash} flash launches")
+    if not (same and same_c and n_flash == cfg32.num_layers):
+        raise AssertionError("17d: the windowed prefill on the mesh is not "
+                             "bit-equal to unsharded")
+    out["mesh_bit_equal"] = True
+    return out
 
 
 def memory_floor(cfg, batch, seq):
@@ -4891,28 +5250,52 @@ def memory_floor(cfg, batch, seq):
         n_clients=LM_CLIENTS)["total"]
 
 
+class Laps:
+    """The wall seconds of each stretch of phases, printed as it ends (the
+    script's time limit is the whole run's)."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.rows = {}
+
+    def __call__(self, tag):
+        now = time.perf_counter()
+        self.rows[tag] = round(now - self.last, 1)
+        self.last = now
+        print(f"[time] {tag}: {self.rows[tag]} s ({now - self.t0:.1f} s in "
+              f"all)")
+
+
 def main():
+    lap = Laps()
     smi = phase_device()
     dev = torch.device("cuda")
     resources = phase_build()
     phase_precision()
+    lap("1-3 device, build, precision")
     res = phase_kernels(dev)
+    lap("4 kernels")
     gpu, launches, secs_seq = phase_slice(dev)
     vec, launches_vec, secs_vec = phase_vec(dev, gpu)
     paths = phase_baselines(dev)
+    lap("5, 5b, 5c")
     paths.update(phase_participation(dev))
     compaction = phase_compaction(dev)
+    lap("5d")
     paths.update(phase_fleet_paths(dev, "async", ASYNC_PATHS))
     async_scale = phase_async_scale(dev)
+    lap("5e")
     paths.update(phase_fleet_paths(dev, "population", SHARD_PATHS))
     phase_shard_anchor(dev)
     shard_cost = phase_shard_cost(dev)
     population = phase_population_scale(dev, async_scale["synchronous"])
+    lap("5f")
     with tempfile.TemporaryDirectory() as tdir:
         paths.update(phase_fleet_paths(dev, "telemetry", TELEMETRY_PATHS,
                                        tdir))
     telemetry = {CLIENTS: phase_telemetry_cost(dev, CLIENTS, vec),
                  SCALE_CLIENTS: phase_telemetry_cost(dev, SCALE_CLIENTS)}
+    lap("5g")
     # phase 5b's trainer, 5g's telemetry-off arm: a round launches as many
     # device ops here as in 5g's window
     off_ops = telemetry[CLIENTS]["off"]["ops"]
@@ -4929,39 +5312,53 @@ def main():
           f"{100 * busy_seq:.1f}%")
     del gpu, vec
     scale = phase_scale(dev, secs_seq, secs_vec)
+    lap("6 profile, scale")
     torch.cuda.empty_cache()
     mesh_one, mesh_plain = phase_mesh_one_rank(dev, smi)
     mesh_four = phase_mesh_four_ranks(smi, mesh_plain, mesh_one["vec_vs_seq"])
+    lap("5h")
     torch.cuda.empty_cache()
     cfg, params, prompts, serve_launches, _ = phase_serve(dev)
     prof = phase_serve_profile(cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
     e_k, e_d, e_c = phase_serve_check(dev)
+    lap("7-9 serve")
     torch.cuda.empty_cache()
     lm_parity = phase_lm_parity(dev)
     lm_train = phase_lm_train(dev)
     pod_ref = lm_train.pop("pod_ref")
     torch.cuda.empty_cache()
     lm_twin_s = phase_lm_twin(dev)
+    lap("10 train")
     torch.cuda.empty_cache()
     families, family_checks = phase_families(dev)
+    lap("11 families")
     whisper = phase_whisper_serve(dev)
     whisper_check = phase_whisper_check(dev)
+    lap("12 whisper")
     trains = phase_train_kinds(dev)
+    lap("13 train kinds")
     torch.cuda.empty_cache()
     mesh_lm = {"one_rank": phase_mesh_lm_one_rank(dev, smi)}
     torch.cuda.empty_cache()
     mesh_lm["four_ranks"] = phase_mesh_lm_four_ranks(dev, smi)
+    lap("14 lm mesh")
     torch.cuda.empty_cache()
     pod = {"two_ranks": phase_pod_two_ranks(dev, smi, pod_ref)}
     del pod_ref
     torch.cuda.empty_cache()
     pod["four_ranks"] = phase_pod_four_ranks(dev, smi)
+    lap("15 pod")
     torch.cuda.empty_cache()
     fam_mesh = {"one_rank": phase_mesh_families_one_rank(dev, smi)}
     torch.cuda.empty_cache()
     fam_mesh["four_ranks"] = phase_mesh_families_four_ranks(dev, smi)
+    lap("16 family meshes")
+    torch.cuda.empty_cache()
+    window = {"kernels": phase_window_kernels(dev)}
+    window.update(phase_window_model(dev, smi))
+    lap("17 windowed prefill")
     launches["flash_attention"] = serve_launches["flash_attention"]
     for name in ("disc_loss_fwd", "disc_loss_bwd", "proto_accum"):
         launches[name + "_batched"] = launches_vec[name]
@@ -5052,6 +5449,19 @@ def main():
                 {f"mesh serve {a} (4 ranks, a rank, {MESH_FAM_TOKENS_B} "
                  f"tokens)": t["serve_launches"]["flash_attention"]
                  for a, t in fam_mesh["four_ranks"]["families"].items()})
+            k["launches_by_path"][
+                f"windowed prefill tinyllama-1.1b (1 x {WINDOW_RUN[0]} "
+                f"tokens, window {WINDOW_RUN[1]})"] = window["kernel"][
+                "launches"]
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                r["max_abs_err"] for r in window["kernels"]["rows"]])
+            k["window"] = {"timed_32k": window["kernel"],
+                           "timed_4k": window["kernels"]["timed"],
+                           "checks": window["kernels"]["rows"],
+                           "prefill": window["prefill"],
+                           "bf16_model_check": window["bf16_check"],
+                           "f32_model_check": window["f32_check"],
+                           "mesh_bit_equal": window["mesh_bit_equal"]}
             k["share_of_prefill_device_time"] = prof["flash_share"]
             k["controls_times_limit"] = {
                 where: {n: c[0] for n, c in cs.items()}
@@ -5078,7 +5488,8 @@ def main():
           f"; mesh families {json.dumps(fam_mesh)}"
           f"; lm twin 2 rounds {lm_twin_s:.2f} s; families "
           f"{json.dumps(families)}; whisper serve {json.dumps(whisper)}; "
-          f"train kinds {json.dumps(train_rows)}")
+          f"train kinds {json.dumps(train_rows)}; phase seconds "
+          f"{json.dumps(lap.rows)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,8 +47,8 @@ SIGNATURES = {
         "proto_accum_counters": [_I] * 3,
     },
     "flash_attention": {
-        "flash_attention_f32": [_P] * 4 + [_I] * 8 + [_P],
-        "flash_attention_bf16": [_P] * 4 + [_I] * 8 + [_P],
+        "flash_attention_f32": [_P] * 4 + [_I] * 9 + [_P],
+        "flash_attention_bf16": [_P] * 4 + [_I] * 9 + [_P],
         "flash_attention_bf16_smem": [_I] * 2,
     },
 }

@@ -8,7 +8,9 @@
 //   float32 or bf16; hv == hd but for MLA's pairs (below);
 //   query head h reads KV head h / (H / G) (never repeated in memory);
 //   s = (q * hd^-0.5) k^T in float32; causal mask q_pos >= k_pos, both
-//   counted from 0; masked scores are -1e30; running max, sum and
+//   counted from 0; with a window W > 0 also q_pos - k_pos < W (the
+//   reference's sliding-window mask, `repro/nn/attention.py:full_attention`;
+//   W = 0 is no window); masked scores are -1e30; running max, sum and
 //   accumulator in float32; out = acc / max(l, 1e-30) in q's dtype,
 //   written straight into (B, Sq, H, hv).
 //
@@ -48,7 +50,9 @@
 //     float32 scores are scaled by hd^-0.5 * log2(e) and exponentiated with
 //     exp2;
 //   - keeps the running max and sum of its two rows a thread in float32,
-//     masking (-1e30) only on tiles that cross the diagonal or Sk;
+//     masking (-1e30) only on tiles that cross the diagonal, the window's
+//     lower edge or Sk, in a branch of their own (the other tiles' loop
+//     has no integer work);
 //   - adds P V into a float32 accumulator in registers (m64nHVk16, hv / 2
 //     floats a thread), with P split in two bf16 halves, P_hi = bf16(p) and
 //     P_lo = bf16(p - P_hi), and two wgmmas per 16 keys (A from registers:
@@ -65,8 +69,9 @@
 // at most 64 + 64 + 32 or 32 + 32 + 64 floats of S, P_hi / P_lo and O;
 // 384 threads a block, one block an SM. ptxas -v (CUDA 12.9, sm_90a)
 // reports 168 registers a thread at entry for all ten instantiations
-// (setmaxnreg then leaves the producer 40 and gives the consumers 232), no
-// spills but for 12 bytes stored and 36 loaded at hd 64 causal; dynamic
+// (setmaxnreg then leaves the producer 40 and gives the consumers 232) and
+// no spills (hd 64 causal spilled 12 bytes stored and 36 loaded before the
+// mask took one unsigned range test a row, below); dynamic
 // shared memory is 42,048 / 83,008 / 99,392 bytes at hd 32 / 64 / 128, and
 // 132,160 / 66,624 at 192 / 128 and 96 / 64 (`flash_attention_bf16_smem`).
 //
@@ -96,6 +101,27 @@
 // exp(-1e30 - m) = 0 once tile 0, which holds key 0, valid for every row,
 // has set m); query rows past Sq compute on zeros and store nothing; keys
 // past Sk are masked like causal ones.
+//
+// The window: a runtime int, no template parameter (0 comes in as 2^30,
+// which no position difference reaches, so the window-free path runs the
+// same loops with tests that never fire). A block's key loop starts at the
+// tile that holds key q0 - W + 1, its first row's lowest visible key,
+// rounded down to BK (the float32 kernel) or to a multiple of 2 STAGES
+// tiles (the bf16 kernel: tile t then takes stage t % STAGES and barrier
+// parity (t / STAGES) & 1 in the producer and the consumers alike, as when
+// the loop starts at tile 0; the up to 3 tiles more are loaded and
+// skipped). A tile wholly left of the window for all of a warpgroup's rows
+// is skipped like one above the diagonal; on a tile that crosses the
+// window's lower edge, the diagonal or Sk, row r sees keys lo = r - W + 1 ..
+// hi = min(r, Sk - 1) (causal; Sk - 1 else), one test a score:
+// (unsigned)(key - lo) > hi - lo masks it. So the work is about S * W key
+// pairs a head instead of S^2 / 2. A row whose first visited tile is
+// wholly masked (a later row of the block, when W is no multiple of BK)
+// takes m = -1e30 and p = exp(0) = 1 from it; its first valid score then
+// sets m, and alpha = exp(-1e30 - m) = 0 multiplies l and acc to exact
+// zeros, so the row comes out bit for bit as if that tile had been skipped.
+// Every row sees a key (the wrapper requires Sq < Sk + W), so every row
+// meets a valid score.
 
 #include <cmath>
 #include <cstdint>
@@ -136,7 +162,7 @@ template <typename T, int HD, int HV, bool CAUSAL>
 __global__ void __launch_bounds__(BQ * (HV / DV))
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       int Sq, int Sk, int H, int G, float scale) {
+                       int Sq, int Sk, int H, int G, int window, float scale) {
   using SP = Split<HD, HV>;
   constexpr int TPR = SP::TPR, DQ = SP::DQ, CHQ = SP::CHQ, CHV = SP::CHV;
   constexpr int NT = BQ * TPR;
@@ -170,7 +196,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vbase = v + ((size_t)b * Sk * G + g) * HV;
   const size_t kv_row = (size_t)G * HD;          // stride between key positions
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  // the first tile holding a key in row q0's window
+  for (int k0 = max(0, q0 - window + 1) / BK * BK; k0 < k_end; k0 += BK) {
     __syncthreads();                               // previous tile consumed
     if constexpr (HD == HV) {                      // one pass loads K and V
       for (int i = tid; i < BK * HD; i += NT) {
@@ -206,7 +233,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int off = TPR / 2; off > 0; off /= 2)
         part_dot += __shfl_xor_sync(0xffffffffu, part_dot, off);
       const int k_pos = k0 + j;
-      const bool valid = k_pos < Sk && (!CAUSAL || k_pos <= q_pos);
+      const bool valid = k_pos < Sk && (!CAUSAL || k_pos <= q_pos) &&
+                         q_pos - k_pos < window;
       s[j] = valid ? part_dot : NEG_INF;
       m_tile = fmaxf(m_tile, s[j]);
     }
@@ -246,10 +274,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, int HV, bool CAUSAL>
 int launch_hd(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
-              int H, int G, cudaStream_t stream) {
+              int H, int G, int window, cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<T, HD, HV, CAUSAL><<<grid, BQ * (HV / DV), 0, stream>>>(
-      q, k, v, o, Sq, Sk, H, G, (float)(1.0 / std::sqrt((double)HD)));
+      q, k, v, o, Sq, Sk, H, G, window, (float)(1.0 / std::sqrt((double)HD)));
   return (int)cudaGetLastError();
 }
 
@@ -257,22 +285,22 @@ int launch_hd(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
 template <bool CAUSAL>
 int launch_causal(const float* q, const float* k, const float* v, float* o,
                   int B, int Sq, int Sk, int H, int G, int hd, int hv,
-                  cudaStream_t stream) {
+                  int window, cudaStream_t stream) {
   using T = float;
   if (hd == hv) {
     switch (hd) {
-      case 32: return launch_hd<T, 32, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-      case 64: return launch_hd<T, 64, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-      case 128: return launch_hd<T, 128, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+      case 32: return launch_hd<T, 32, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
+      case 64: return launch_hd<T, 64, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
+      case 128: return launch_hd<T, 128, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (hd == 192 && hv == 128)
-    return launch_hd<T, 192, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+    return launch_hd<T, 192, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
   if (hd == 96 && hv == 64)
-    return launch_hd<T, 96, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+    return launch_hd<T, 96, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
   if (hd == 80 && hv == 64)
-    return launch_hd<T, 80, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+    return launch_hd<T, 80, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -520,7 +548,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-                            int H, int G, float scale_log2) {
+                            int H, int G, int window, float scale_log2) {
   using T = Tile<HD, HV>;
   constexpr int BK = T::BK, RB = T::RB, CW = T::CW, RBV = T::RBV, CWV = T::CWV;
   extern __shared__ uint8_t smem_raw[];
@@ -537,6 +565,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int g = h / (H / G);
   const int k_end = CAUSAL ? min(Sk, q0 + BQ) : Sk;
   const int n_tiles = (k_end + BK - 1) / BK;
+  // the first tile: the one holding row q0's lowest visible key, rounded
+  // down to a multiple of 2 STAGES tiles, so that tile t takes stage
+  // t % STAGES and barrier parity (t / STAGES) & 1 in the producer and the
+  // consumers alike, as when every block starts at tile 0
+  const int t_first = max(0, q0 - window + 1) / (2 * STAGES * BK) * (2 * STAGES);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -558,17 +591,17 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(qbar, T::Q_BYTES);
       for (int c = 0; c < T::NCH; ++c)
         tma_load(sq + c * BQ * RB, &tm_q, qbar, c * CW, h, q0, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % STAGES;
+      for (int t = t_first; t < n_tiles; ++t) {
+        const int s = t % STAGES, k0 = t * BK;
         mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);   // round 0 passes
         mbar_expect_tx(&full[s], T::STAGE_BYTES);
         uint8_t* kt = skv + s * T::STAGE_BYTES;
         for (int c = 0; c < (T::NCH > T::NCHV ? T::NCH : T::NCHV); ++c) {
           if (c < T::NCH)
-            tma_load(kt + c * BK * RB, &tm_k, &full[s], c * CW, g, t * BK, b);
+            tma_load(kt + c * BK * RB, &tm_k, &full[s], c * CW, g, k0, b);
           if (c < T::NCHV)
             tma_load(kt + T::K_BYTES + c * BK * RBV, &tm_v, &full[s], c * CWV,
-                     g, t * BK, b);
+                     g, k0, b);
         }
       }
     }
@@ -587,12 +620,14 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
     mbar_wait(qbar, 0);
 
-    for (int t = 0; t < n_tiles; ++t) {
+    for (int t = t_first; t < n_tiles; ++t) {
       const int s = t % STAGES, k0 = t * BK;
       mbar_wait(&full[s], (t / STAGES) & 1);
       const uint8_t* kt = skv + s * T::STAGE_BYTES;
       const uint8_t* vt = kt + T::K_BYTES;
-      if (!CAUSAL || k0 <= first + 63) {      // else wholly masked for this wg
+      // else wholly masked for this wg: above the diagonal, or left of the
+      // window of its first (and so of every) row
+      if ((!CAUSAL || k0 <= first + 63) && first - (k0 + BK - 1) < window) {
         // S = Q K^T over hd / 16 slices of 16 dims
         Acc<BK> sc;
         fence_regs(sc);
@@ -608,21 +643,44 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(sc);
 
         // online softmax in base 2 on the two rows this thread holds
-        const bool edge = (CAUSAL && k0 + BK - 1 > first) || k0 + BK > Sk;
+        const bool edge = (CAUSAL && k0 + BK - 1 > first) || k0 + BK > Sk ||
+                          first + 63 - k0 >= window;
         float mx[2] = {NEG_INF, NEG_INF};
+        if (edge) {
+          int kof[2];
+          uint32_t span[2];
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
+          for (int r = 0; r < 2; ++r) {
+            const int row = r0 + 8 * r, lo = row - window + 1;
+            const int hi = CAUSAL ? min(row, Sk - 1) : Sk - 1;
+            kof[r] = k0 + cq - lo;
+            span[r] = static_cast<uint32_t>(hi - lo);
+          }
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
+          for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float x = sc.d[4 * j + 2 * i + e] * scale_log2;
-              if (edge) {
-                const int key = k0 + 8 * j + cq + e;
-                if (key >= Sk || (CAUSAL && key > r0 + 8 * i)) x = NEG_INF;
+            for (int i = 0; i < 2; ++i) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float x = sc.d[4 * j + 2 * i + e] * scale_log2;
+                if (static_cast<uint32_t>(8 * j + e + kof[i]) > span[i])
+                  x = NEG_INF;
+                sc.d[4 * j + 2 * i + e] = x;
+                mx[i] = fmaxf(mx[i], x);
               }
-              sc.d[4 * j + 2 * i + e] = x;
-              mx[i] = fmaxf(mx[i], x);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float x = sc.d[4 * j + 2 * i + e] * scale_log2;
+                sc.d[4 * j + 2 * i + e] = x;
+                mx[i] = fmaxf(mx[i], x);
+              }
             }
           }
         }
@@ -744,7 +802,7 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S,
 
 template <int HD, int HV, bool CAUSAL>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Sk, int H, int G, cudaStream_t stream) {
+              int Sq, int Sk, int H, int G, int window, cudaStream_t stream) {
   using T = Tile<HD, HV>;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -759,7 +817,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, T::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, G,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, G, window,
       (float)(1.4426950408889634 / std::sqrt((double)HD)));
   return (int)cudaGetLastError();
 }
@@ -767,55 +825,64 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 // equal dims, and MLA's published pairs
 template <bool CAUSAL>
 int launch_causal(const void* q, const void* k, const void* v, void* o, int B,
-                  int Sq, int Sk, int H, int G, int hd, int hv,
+                  int Sq, int Sk, int H, int G, int hd, int hv, int window,
                   cudaStream_t stream) {
   if (hd == hv) {
     switch (hd) {
-      case 32: return launch_hd<32, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-      case 64: return launch_hd<64, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
-      case 128: return launch_hd<128, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+      case 32: return launch_hd<32, 32, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
+      case 64: return launch_hd<64, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
+      case 128: return launch_hd<128, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (hd == 192 && hv == 128)
-    return launch_hd<192, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+    return launch_hd<192, 128, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
   if (hd == 96 && hv == 64)
-    return launch_hd<96, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, stream);
+    return launch_hd<96, 64, CAUSAL>(q, k, v, o, B, Sq, Sk, H, G, window, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tc
 
-bool bad_shape(int B, int Sq, int Sk, int H, int G) {
-  return B < 1 || Sq < 1 || Sk < 1 || G < 1 || H % G != 0;
+// a window must leave every row a key: Sq < Sk + window
+bool bad_shape(int B, int Sq, int Sk, int H, int G, int window) {
+  return B < 1 || Sq < 1 || Sk < 1 || G < 1 || H % G != 0 || window < 0 ||
+         (window > 0 && (long long)Sq >= (long long)Sk + window);
 }
+
+// the kernels' window: 0 (none) as 2^30, beyond any position difference
+int kernel_window(int window) { return window > 0 ? window : 1 << 30; }
 
 }  // namespace
 
 extern "C" int flash_attention_f32(const float* q, const float* k, const float* v,
                                    float* o, int B, int Sq, int Sk, int H, int G,
-                                   int hd, int hv, int causal, cudaStream_t stream) {
-  if (bad_shape(B, Sq, Sk, H, G)) return (int)cudaErrorInvalidValue;
-  return causal ? f32::launch_causal<true>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream)
-                : f32::launch_causal<false>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream);
+                                   int hd, int hv, int causal, int window,
+                                   cudaStream_t stream) {
+  if (bad_shape(B, Sq, Sk, H, G, window)) return (int)cudaErrorInvalidValue;
+  const int w = kernel_window(window);
+  return causal ? f32::launch_causal<true>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, w, stream)
+                : f32::launch_causal<false>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, w, stream);
 }
 
 // bf16: equal dims and MLA's published pairs on the tensor cores; the
 // reduced configs' (80, 64) on the CUDA cores
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* o, int B, int Sq, int Sk, int H, int G,
-                                    int hd, int hv, int causal, cudaStream_t stream) {
-  if (bad_shape(B, Sq, Sk, H, G)) return (int)cudaErrorInvalidValue;
+                                    int hd, int hv, int causal, int window,
+                                    cudaStream_t stream) {
+  if (bad_shape(B, Sq, Sk, H, G, window)) return (int)cudaErrorInvalidValue;
+  const int w = kernel_window(window);
   if (hd == 80 && hv == 64) {
     using T = __nv_bfloat16;
     const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
             *tv = static_cast<const T*>(v);
     T* to = static_cast<T*>(o);
-    return causal ? f32::launch_hd<T, 80, 64, true>(tq, tk, tv, to, B, Sq, Sk, H, G, stream)
-                  : f32::launch_hd<T, 80, 64, false>(tq, tk, tv, to, B, Sq, Sk, H, G, stream);
+    return causal ? f32::launch_hd<T, 80, 64, true>(tq, tk, tv, to, B, Sq, Sk, H, G, w, stream)
+                  : f32::launch_hd<T, 80, 64, false>(tq, tk, tv, to, B, Sq, Sk, H, G, w, stream);
   }
-  return causal ? tc::launch_causal<true>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream)
-                : tc::launch_causal<false>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, stream);
+  return causal ? tc::launch_causal<true>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, w, stream)
+                : tc::launch_causal<false>(q, k, v, o, B, Sq, Sk, H, G, hd, hv, w, stream);
 }
 
 // Dynamic shared memory of the bf16 kernel at (hd, hv), in bytes; -1 for a

@@ -419,10 +419,13 @@ def _proto_accum_dtensor(features, labels, num_classes: int):
 
 
 # -- flash_attention ----------------------------------------------------------
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """q (B, Sq, H, hd); k (B, Sk, G, hd); v (B, Sk, G, hv), H % G == 0,
     float32 or bf16, (hd, hv) in FLASH_DIMS -> (B, Sq, H, hv) in q's dtype;
-    see `ref.flash_attention`. bf16 at equal dims and at MLA's (192, 128)
+    see `ref.flash_attention`. `window` W > 0 masks keys with q_pos - k_pos
+    >= W as well (sliding-window prefill; 0: no window); every row must
+    keep a key, so Sq < Sk + W. The kernels skip the key tiles left of a
+    block's window. bf16 at equal dims and at MLA's (192, 128)
     and (96, 64) runs on the tensor cores (`flash_attention_bf16_kernel`);
     float32 at every pair, and bf16 at the reduced configs' (80, 64), on the
     CUDA cores (`flash_attention_kernel`).
@@ -434,9 +437,9 @@ def flash_attention(q, k, v, causal: bool = True):
     heads) or `Replicate()`. Any other placement raises: a split of the
     sequence or of head_dim would compute another softmax, so a caller
     whose heads do not split redistributes them whole first
-    (`nn.attention.gqa_block`)."""
+    (`nn.attention.gqa_block`). A window changes none of this."""
     if _is_dtensor(q, k, v):
-        return _flash_dtensor(q, k, v, causal)
+        return _flash_dtensor(q, k, v, causal, window)
     if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
             or v.shape[:3] != k.shape[:3]
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]):
@@ -449,6 +452,11 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError(f"query heads {H} must be a multiple of KV heads {G}")
     if Sk < 1:
         raise ValueError("flash_attention needs at least one key")
+    window = int(window)
+    if window < 0 or (window and Sq >= Sk + window):
+        raise ValueError(f"flash_attention's window must be 0 (none) or "
+                         f"leave every query a key (Sq < Sk + window); got "
+                         f"window {window} at Sq {Sq}, Sk {Sk}")
     if (hd, hv) not in FLASH_DIMS:
         raise ValueError(f"flash_attention takes (head_dim, value dim) in "
                          f"{FLASH_DIMS}, got {(hd, hv)}")
@@ -458,7 +466,7 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, v "
                          f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not _on_cuda(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal)
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         # the kernel's output has no grad_fn: without this the gradient
         # through attention would be dropped without a word
@@ -474,12 +482,13 @@ def flash_attention(q, k, v, causal: bool = True):
     if B and Sq:
         _check(getattr(L, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               out.data_ptr(), B, Sq, Sk, H, G, hd, hv,
-                              int(bool(causal)), _stream()), "flash_attention")
+                              int(bool(causal)), window, _stream()),
+               "flash_attention")
         LAUNCHES["flash_attention"] += 1
     return out
 
 
-def _flash_dtensor(q, k, v, causal: bool):
+def _flash_dtensor(q, k, v, causal: bool, window: int):
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
@@ -497,5 +506,5 @@ def _flash_dtensor(q, k, v, causal: bool):
                 f"{v.placements}")
     return local_map(flash_attention, out_placements=(q.placements,),
                      in_placements=(q.placements, k.placements, v.placements,
-                                    None),
-                     device_mesh=mesh)(q, k, v, causal)
+                                    None, None),
+                     device_mesh=mesh)(q, k, v, causal, window)

@@ -93,20 +93,27 @@ def disc_loss_bwd(g, student_logits, teacher_probs, labels, valid, row_max,
     return ds, dq
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """q (B, Sq, H, hd); k (B, Sk, G, hd), v (B, Sk, G, hv), H % G == 0 ->
     (B, Sq, H, hv) in q's dtype (hv != hd: MLA's prefill, whose values are
     narrower than its queries and keys). GQA by reshaping q to (B, Sq, G,
     H/G, hd): query head h reads KV head h // (H/G). q is scaled by hd^-0.5 in float32, scores and softmax
     in float32; the causal mask keeps q_pos >= k_pos, both from 0 (masked
-    scores -1e30), as `repro/kernels/ref.py:flash_attention`."""
+    scores -1e30), as `repro/kernels/ref.py:flash_attention`. A window
+    W > 0 also masks q_pos - k_pos >= W, the sliding-window mask of
+    `repro/nn/attention.py:full_attention` (W = 0: none)."""
     B, Sq, H, hd = q.shape
-    G = k.shape[2]
+    G, Sk = k.shape[2], k.shape[1]
     qf = q.reshape(B, Sq, G, H // G, hd).float() * (hd ** -0.5)
     s = torch.einsum("bqghd,bkgd->bgqhk", qf, k.float())
-    if causal:
-        mask = torch.ones(Sq, k.shape[1], dtype=torch.bool,
-                          device=q.device).tril()
+    if causal or window:
+        diff = (torch.arange(Sq, device=q.device)[:, None]
+                - torch.arange(Sk, device=q.device)[None, :])
+        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= diff >= 0
+        if window:
+            mask &= diff < window
         s = s.masked_fill(~mask[None, None, :, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgqhk,bkgd->bgqhd", p, v.float())

@@ -8,13 +8,15 @@ plain version for tensors on the CPU. That holds for self-attention
 rope, `causal=False`, Sq != Sk: Whisper's decoder over the encoder's
 frames, in prefill and, at Sq = 1, in decode), which are the functions the
 reference computes with `full_attention` or `chunked_attention`
-(`attention.py:134-137`). In train mode it calls those plain functions by
-the reference's own rule (`full_attention` when `Sk <= 2 * chunk` or
-`Sk % chunk != 0`, else `chunked_attention`), under autograd, as the
-reference trains: the choice is fixed by the mode, never by whether a
-kernel builds. Sliding-window prefill raises `NotImplementedError`;
-nothing is routed quietly to a plain path on the card. `gqa_decode` uses
-`full_attention` against the self-attention cache.
+(`attention.py:134-137`). Sliding-window prefill (`window` W > 0, the
+reference's mask q_pos - k_pos < W) goes to the same kernel, which takes
+the window and skips the key tiles left of it. In train mode it calls
+those plain functions by the reference's own rule (`full_attention` when
+`Sk <= 2 * chunk` or `Sk % chunk != 0`, else `chunked_attention`), under
+autograd, as the reference trains: the choice is fixed by the mode, never
+by whether a kernel builds, and nothing is routed quietly to a plain path
+on the card. `gqa_decode` uses `full_attention` against the
+self-attention cache.
 
 Layouts: x (B, S, D); q (B, S, H, hd); k/v (B, S, G, hd) with G = KV heads.
 
@@ -47,8 +49,9 @@ _prefill_attention = ops.flash_attention
 @contextlib.contextmanager
 def prefill_attention(fn):
     """Run gqa_block's self-attention through `fn(q, k, v, causal=...)`
-    instead of the kernel inside the `with` block (for a check that holds the
-    kernel path against its plain version through a whole model)."""
+    (and `window=W` where the prefill has a window) instead of the kernel
+    inside the `with` block (for a check that holds the kernel path against
+    its plain version through a whole model)."""
     global _prefill_attention
     before = _prefill_attention
     _prefill_attention = fn
@@ -163,9 +166,10 @@ def full_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hv).to(q.dtype)
 
 
-def attend(q, k, v, *, causal: bool = True, plain=None):
+def attend(q, k, v, *, causal: bool = True, window: int = 0, plain=None):
     """Attention over a full sequence: the prefill kernel (through
-    `_prefill_attention`), or `plain(q, k, v)` (train mode's plain
+    `_prefill_attention`, with the sliding window `window` where it is not
+    0), or `plain(q, k, v)` (train mode's plain
     function, under autograd). On a mesh q, k and v are placed alike first
     (`_heads`), and either runs on each rank's batch rows and whole heads:
     the kernel through its own `local_map`, `plain` through
@@ -173,7 +177,8 @@ def attend(q, k, v, *, causal: bool = True, plain=None):
     if sharding.is_dtensor(q):
         q, k, v = _heads(q, k, v)
     if plain is None:
-        return _prefill_attention(q, k, v, causal=causal)
+        kw = {"window": window} if window else {}
+        return _prefill_attention(q, k, v, causal=causal, **kw)
     return sharding.local_rows(plain, 1, q, k, v, split_dims=(0, 2))
 
 
@@ -185,11 +190,7 @@ def gqa_block(params, x, positions, *, num_heads, num_kv_heads, head_dim,
     `kv`: the (k, v) (B, Sk, G, hd) to attend to (cross-attention; no rope
     is applied, as in the reference), else the sequence's own. `mode`
     "train" computes it with the plain functions (see the module's
-    docstring), any other mode with the prefill kernel."""
-    if window and mode != "train":
-        raise NotImplementedError(
-            "sliding-window prefill is not ported yet: the flash kernel has "
-            "no window (ROADMAP.md, queue 1: sliding-window prefill)")
+    docstring), any other mode with the prefill kernel, `window` included."""
     if kv is None:
         q, k, v = qkv(params, x, num_heads, num_kv_heads, head_dim)
         if rope_kind != "none":
@@ -202,7 +203,7 @@ def gqa_block(params, x, positions, *, num_heads, num_kv_heads, head_dim,
         q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
         k, v = kv
     if mode != "train":
-        o = attend(q, k, v, causal=causal)
+        o = attend(q, k, v, causal=causal, window=window)
     elif k.shape[1] <= 2 * chunk or k.shape[1] % chunk != 0:
         o = attend(q, k, v, plain=lambda a, b, c: full_attention(
             a, b, c, causal=causal, window=window))

@@ -3,7 +3,8 @@
   - expanded (prefill): the latent kv is up-projected to per-head (k_nope,
     v), and self-attention runs through the prefill attention of
     `nn/attention.py` (the flash kernel on the card, at MLA's split head
-    dims: queries and keys qk_nope + qk_rope wide, values v_head_dim);
+    dims: queries and keys qk_nope + qk_rope wide, values v_head_dim; a
+    sliding window, where the prefill has one, goes to the kernel too);
   - absorbed (decode): W_uk is absorbed into the query and W_uv into the
     output, so attention runs in float32 directly against the compressed
     latent cache (B, S, kv_lora + qk_rope).
@@ -82,11 +83,7 @@ def mla_block(p, cfg, x, positions, *, window: int = 0, chunk: int = 512,
               return_cache: bool = False, mode: str = "prefill"):
     """Expanded-form MLA over a full sequence -> y (B,S,d) [, cache
     (B,S,r_kv+dr)]; `mode` "train" attends with the plain functions, any
-    other mode with the prefill kernel."""
-    if window and mode != "train":
-        raise NotImplementedError(
-            "sliding-window prefill is not ported yet: the flash kernel has "
-            "no window (ROADMAP.md, queue 1: sliding-window prefill)")
+    other mode with the prefill kernel, `window` included."""
     B, S, _ = x.shape
     H, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
@@ -107,7 +104,7 @@ def mla_block(p, cfg, x, positions, *, window: int = 0, chunk: int = 512,
     k = torch.cat([kv[..., :dn], k_rope_h], dim=-1)
     v = kv[..., dn:]
     if mode != "train":
-        o = attention.attend(q, k, v, causal=True)
+        o = attention.attend(q, k, v, causal=True, window=window)
     elif S <= 2 * chunk:
         o = attention.attend(q, k, v, plain=lambda a, b, c:
                              attention.full_attention(a, b, c, causal=True,

@@ -19,7 +19,12 @@ mean probabilities, as in the reference.
 On a mesh (DTensor parameters) the router and the aux propagate as DTensor
 ops, with the reference's sharding hints at its points
 (`sharding.constrain` of the dispatch buffer and the expert outputs: over
-experts under "moe_ep", batch-local under "moe_dp"). The top-k (its
+experts under "moe_ep", batch-local under "moe_dp"). Under "moe_ep" the
+expert weights are split on their expert dim over "model"
+(`sharding.layer_spec`, which departs from the reference's stacked spec
+there), so each rank holds E / model experts and `_experts` runs its
+expert-split branch on its own block of the buffer; `combine` then
+gathers each batch row's outputs whole over "model". The top-k (its
 backward scatters, which PyTorch 2.11's DTensor mixes a plain tensor
 into), the dispatch (one-hot cumsum and `scatter_add_`, which have no
 DTensor sharding rule) and the combine (a gather by slot) are token- or

@@ -37,6 +37,17 @@ segment's layers on a leading axis (`models/blocks.py`). `tree_param_specs`
 computes a layer's spec as the reference's for the stacked leaf with the
 layer entry dropped: where the reference's FSDP rule shards that layer
 axis (no other dim divides), each port layer is held whole over that axis.
+
+One departure, a fault of the reference's own (`repro/sharding.py:141-143`):
+under the "moe_ep" hint its `param_spec` puts "model" on dim 0 of an
+expert leaf (`..._e`), meant as the expert dim of (E, d, f), but on the
+stacked (L, E, d, f) leaf dim 0 is the layer axis. Dropping that entry
+would leave the experts whole on every rank of "model", each computing
+all E of them. So inside a layer list `layer_spec` reads an expert leaf
+under "moe_ep" on its per-layer (E, d, f) shape, where the rule's "model"
+lands on the experts (if E divides the axis; FSDP's "data" split then
+follows as usual), and `nn/moe.py:_experts` runs each rank's own block of
+experts. `param_spec` itself stays the reference's, entry for entry.
 """
 from __future__ import annotations
 
@@ -227,9 +238,17 @@ def map_params(fn, tree, path: str = "", n_layers: int = 0):
 def layer_spec(rule, path: str, shape: tuple, n_layers: int) -> tuple:
     """`rule(path, shape)` for one leaf of the port's tree: on the stacked
     shape (n_layers, *shape) with the layer entry dropped inside a layer
-    list (see the module's docstring), on `shape` outside one."""
+    list (see the module's docstring), on `shape` outside one. An expert
+    leaf under the "moe_ep" hint is read on its own shape where the rule
+    then splits its expert dim over "model" (the module's docstring says
+    why); a rule that does not (a strategy that replicates the parameters,
+    ZeRO-1's moments) keeps the stacked reading."""
     if not n_layers:
         return tuple(rule(path, tuple(shape)))
+    if hint("moe_ep") and path.split("/")[-1].endswith("_e"):
+        own = tuple(rule(path, tuple(shape)))
+        if own and own[0] == "model":
+            return own
     return tuple(rule(path, (n_layers, *shape)))[1:]
 
 

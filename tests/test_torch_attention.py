@@ -248,16 +248,30 @@ def test_gqa_block_matches_reference(S):
                                    rtol=ATT_TOL)
 
 
-def test_gqa_block_raises_outside_the_kernel_path():
-    """Sliding-window prefill raises; cross-attention (kv given, Sq != Sk,
-    no rope) goes to the kernel's path with causal=False outside train
-    mode and equals the reference's in both modes."""
+def test_gqa_block_window_and_cross_attention_take_the_kernel_path():
+    """Sliding-window prefill goes to the kernel's path with the window and
+    equals the reference's; cross-attention (kv given, Sq != Sk, no rope)
+    goes to the kernel's path with causal=False outside train mode and
+    equals the reference's in both modes."""
     jp = _gqa_params(64, 4, 2, 32)
     p = {n: torch.from_numpy(a) for n, a in jp.items()}
-    x = torch.zeros(1, 8, 64)
-    pos = rope.default_positions(1, 8, "rope")
-    with pytest.raises(NotImplementedError):
-        attention.gqa_block(p, x, pos, window=4, **KW)
+    x = np.random.default_rng(4).standard_normal((1, 8, 64)).astype(
+        np.float32)
+    want = jatt.gqa_block(jp, x, jrope.default_positions(1, 8, "rope"),
+                          window=4, **KW)
+    windows = []
+
+    def spy_window(q, kk, vv, causal=True, window=0):
+        windows.append(window)
+        return ref.flash_attention(q, kk, vv, causal=causal, window=window)
+
+    with attention.prefill_attention(spy_window):
+        got = attention.gqa_block(p, torch.from_numpy(x),
+                                  rope.default_positions(1, 8, "rope"),
+                                  window=4, **KW)
+    assert windows == [4]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATT_TOL,
+                               rtol=ATT_TOL)
     rng = np.random.default_rng(5)
     xq = rng.standard_normal((2, 3, 64)).astype(np.float32)
     k, v = (rng.standard_normal((2, 11, 2, 32)).astype(np.float32)

@@ -634,6 +634,59 @@ def test_flash_attention_raises_where_a_gradient_would_be_dropped(cuda):
         ops.flash_attention(q.detach(), k, k)
 
 
+# The sliding window (phase 17a of chip_smoke.py): (B, S, H, G, hd, hv,
+# window, causal) at TinyLlama's heads over 4096 tokens, at MLA's split
+# dims, ragged lengths, and one non-causal window; the plain version's
+# window mask is the reference's (q_pos - k_pos < window).
+WINDOW_CASES = ([(1, 4096, 32, 4, 64, 64, w, True) for w in (1, 63, 64, 1000)]
+                + [(1, 4096, 32, 4, 64, 64, 1000, False),
+                   (1, 1024, 16, 16, 192, 128, 65, True),
+                   (1, 1024, 40, 40, 96, 64, 300, True),
+                   (2, 1000, 8, 2, 128, 128, 129, True),
+                   (1, 130, 4, 1, 32, 32, 3, True),
+                   (2, 300, 4, 2, 80, 64, 70, True),
+                   (1, 200, 4, 2, 64, 64, 65, False)])
+
+
+@pytest.mark.parametrize("B,S,H,G,hd,hv,window,causal", WINDOW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_matches_plain(cuda, B, S, H, G, hd, hv,
+                                              window, causal, dtype):
+    g = torch.Generator().manual_seed(S + window + hd)
+    q = torch.randn(B, S, H, hd, generator=g).to(dtype).to(cuda)
+    k = torch.randn(B, S, G, hd, generator=g).to(dtype).to(cuda)
+    v = torch.randn(B, S, G, hv, generator=g).to(dtype).to(cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    diff = (out.float() - want.float()).abs()
+    if dtype == torch.float32:
+        limit = 2e-5 * max(1.0, float(want.abs().max()))
+    else:
+        limit = BF16_ATOL + BF16_RTOL * want.float().abs()
+    assert bool((diff <= limit).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,hv", [(64, 64), (192, 128), (80, 64)])
+def test_flash_attention_window_edges(cuda, dtype, hd, hv):
+    """A window of S or more is bit-equal to none, causal or not; a causal
+    window of 1 returns v's rows exactly (each row sees its own key)."""
+    g = torch.Generator().manual_seed(hd)
+    S, H, G = 300, 4, 2
+    q = torch.randn(1, S, H, hd, generator=g).to(dtype).to(cuda)
+    k = torch.randn(1, S, G, hd, generator=g).to(dtype).to(cuda)
+    v = torch.randn(1, S, G, hv, generator=g).to(dtype).to(cuda)
+    for causal in (True, False):
+        none = ops.flash_attention(q, k, v, causal=causal)
+        for w in (S, S + 1, 10 ** 6):
+            assert torch.equal(ops.flash_attention(q, k, v, causal=causal,
+                                                   window=w), none), w
+    assert torch.equal(ops.flash_attention(q, k, v, window=1),
+                       v.repeat_interleave(H // G, 2))
+
+
 @pytest.mark.parametrize("N,n,d,C", [(2, 4096, 2048, 32000),
                                      (2, 896, 768, 51865)])
 def test_proto_accum_at_the_lm_train_shape(cuda, N, n, d, C):
@@ -804,8 +857,16 @@ def test_flash_attention_library_refuses_a_pair_it_has_no_kernel_for(cuda):
         qt, vt, ot = q.to(t), v.to(t), o.to(t)
         for hd, hv in ((160, 128), (96, 96), (64, 32)):
             rc = getattr(L, fn)(qt.data_ptr(), qt.data_ptr(), vt.data_ptr(),
-                                ot.data_ptr(), 1, 8, 8, 2, 2, hd, hv, 1, stream)
+                                ot.data_ptr(), 1, 8, 8, 2, 2, hd, hv, 1, 0,
+                                stream)
             assert rc != 0, (fn, hd, hv)
+        # a negative window, and one that leaves a row no key (Sq >= Sk + W)
+        vq = vt[..., :64].contiguous()
+        for Sq, Sk, w in ((8, 8, -1), (8, 4, 4)):
+            rc = getattr(L, fn)(vq.data_ptr(), vq.data_ptr(), vq.data_ptr(),
+                                ot.data_ptr(), 1, Sq, Sk, 2, 2, 64, 64, 0, w,
+                                stream)
+            assert rc != 0, (fn, Sq, Sk, w)
     assert L.flash_attention_bf16_smem(80, 64) == -1
     assert L.flash_attention_bf16_smem(192, 128) > L.flash_attention_bf16_smem(
         128, 128)

@@ -59,9 +59,10 @@ def _pad_self(caches):
             "cross": caches["cross"]}
 
 
-def reference(arch, pod=False):
+def reference(arch, pod=False, moe_ep=False):
     """The reference's unsharded runs and the inputs of the ranks; with
-    `pod` the ranks also run the train step on the "pod" mesh."""
+    `pod` the ranks also run the train step on the "pod" mesh, with
+    `moe_ep` serving and a "tp" step under the expert-parallel hint."""
     jcfg = jget_arch(arch).reduced()
     V = jcfg.vocab_size
     rng = np.random.default_rng(len(arch))
@@ -97,7 +98,7 @@ def reference(arch, pod=False):
               "serve": tensors(pre_b), "decode": tensors(dec_b),
               "state": convert.train_state_from_jax(_np(js), device="cpu"),
               "batch": tensors(batch),
-              "neg": torch.from_numpy(neg), "pod": pod}
+              "neg": torch.from_numpy(neg), "pod": pod, "moe_ep": moe_ep}
     want = {"prefill": _np(pre), "decode": _np(dec),
             "grads0": jax.tree.map(lambda a: np.asarray(a[0]), jg),
             "client0": {k: float(v[0]) for k, v in jm.items()},
@@ -106,13 +107,15 @@ def reference(arch, pod=False):
     return inputs, want
 
 
-def run_four_ranks_many(archs, d, pod=()):
+def run_four_ranks_many(archs, d, pod=(), moe_ep=()):
     """{arch: (the ranks' outputs, the reference's)} for every arch of
     `archs`, all in one four-rank run, through files in the directory
     `d`; an arch in `pod` also runs its train step on the "pod" mesh
-    (output "pod")."""
+    (output "pod"), one in `moe_ep` serves and trains under the
+    expert-parallel hint too (output "moe_ep")."""
     torch.set_num_threads(1)
-    refs = {arch: reference(arch, arch in pod) for arch in archs}
+    refs = {arch: reference(arch, arch in pod, arch in moe_ep)
+            for arch in archs}
     torch.save({arch: r[0] for arch, r in refs.items()}, d / "in.pt")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)

@@ -95,10 +95,16 @@ def test_mla_decode_matches_reference(arch, masked):
 
 
 def test_mla_raises_for_a_sliding_window():
-    cfg, _, _, tp = _setup(ARCHS[0])
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        mla.mla_block(tp, cfg, torch.zeros(1, 4, cfg.d_model),
-                      rope.default_positions(1, 4, "rope"), window=2)
+    """A sliding window no longer raises in prefill (the flash kernel takes
+    it, and the windowed block equals the reference's); only a window the
+    kernel cannot take does, a negative one."""
+    cfg, jcfg, jp, tp = _setup(ARCHS[0])
+    x = _x(cfg, S=6, seed=3)
+    pos = np.asarray(jrope.default_positions(2, 6, "rope"))
+    _close(mla.mla_block(tp, cfg, _t(x), _t(pos), window=2),
+           jmla.mla_block(jp, jcfg, x, pos, window=2))
+    with pytest.raises(ValueError, match="window"):
+        mla.mla_block(tp, cfg, _t(x), _t(pos), window=-1)
 
 
 @pytest.mark.parametrize("hd,hv", [(80, 64), (96, 64), (192, 128)])

@@ -15,7 +15,10 @@ case ({"arch": {"params": the reference's parameters converted to the
 port, "serve": the prefill's batch, "decode": the decode step's, "state",
 "batch", "neg"}}), written by tests/test_torch_lm_mesh.py from the
 reference's weights; a case with "pod" also runs one cors step with
-its clients split over "pod" (`pod_step`). A batch is what the arch takes: tokens; embeddings
+its clients split over "pod" (`pod_step`); a case with "moe_ep" also
+serves and runs one "tp" step under the expert-parallel hint
+(`moe_ep_case`: every rank holds E / 2 experts of each `_e` leaf, and the
+expert products run on the expert split). A batch is what the arch takes: tokens; embeddings
 and M-RoPE positions (Qwen2-VL); tokens and audio frames (Whisper's
 prefill and train batches). The ranks import nothing of JAX. Each rank
 gathers every output whole; rank 0 saves them to OUT, and the test holds
@@ -35,6 +38,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core import prototypes
 from repro_torch.launch import dryrun, mesh as lmesh, roofline, serve, train
 from repro_torch.models import encdec, lm
+from repro_torch.nn import moe
 from repro_torch.tree import tree_map
 from repro_torch.types import CollabConfig
 
@@ -86,19 +90,17 @@ def pad_for_decode(cfg, caches):
     return lm.pad_cache_for_decode(cfg, caches)
 
 
-def run_case(cfg, case, mesh):
-    """The serving and training outputs of one case, gathered whole; on
-    `mesh` None the unsharded path on the same inputs."""
-    out = {}
+def _put(tree, specs, mesh):
+    if mesh is None:
+        return tree
+    return sharding.place(tree, specs, mesh, src_data_rank=None)
 
-    def put(tree, specs):
-        if mesh is None:
-            return tree
-        return sharding.place(tree, specs, mesh, src_data_rank=None)
 
+def serve_case(cfg, case, mesh, params, out):
+    """Prefill, one decode step and `serve_lm.serve` of one token into
+    `out`, gathered whole."""
     bspec = lambda b: None if mesh is None else serve.batch_shardings(b, mesh)
-    params = put(case["params"], None if mesh is None
-                 else serve.params_shardings(case["params"], cfg, mesh))
+    put = lambda tree, specs: _put(tree, specs, mesh)
     with torch.no_grad():
         pre = serve.make_prefill_step(cfg)(params,
                                            put(case["serve"],
@@ -119,35 +121,92 @@ def run_case(cfg, case, mesh):
                            mesh=mesh)
         out["serve_logits"] = r["logits"]
         out["serve_caches"] = tree_map(sharding.full, r["caches"])
+
+
+def run_case(cfg, case, mesh):
+    """The serving and training outputs of one case, gathered whole; on
+    `mesh` None the unsharded path on the same inputs."""
+    out = {}
+    put = lambda tree, specs: _put(tree, specs, mesh)
+    params = put(case["params"], None if mesh is None
+                 else serve.params_shardings(case["params"], cfg, mesh))
+    serve_case(cfg, case, mesh, params, out)
+    for strategy in STRATEGIES if mesh is not None else ("tp",):
+        out[strategy] = train_case(cfg, case, mesh, strategy, moe_ep=False)
+    if case.get("pod") and mesh is not None:
+        out["pod"] = pod_step(cfg, case, CollabConfig(
+            mode="cors", num_classes=cfg.vocab_size,
+            d_feature=cfg.d_feature, num_negatives=K))
+    if case.get("moe_ep") and mesh is not None:
+        out["moe_ep"] = moe_ep_case(cfg, case, mesh)
+    return out
+
+
+def train_case(cfg, case, mesh, strategy, *, moe_ep):
+    """Client 0's gradients and one cors step under `strategy`, gathered
+    whole."""
+    put = lambda tree, specs: _put(tree, specs, mesh)
     ccfg = CollabConfig(mode="cors", num_classes=cfg.vocab_size,
                         d_feature=cfg.d_feature, num_negatives=K)
     N = case["neg"].shape[0]
     step = train.make_train_step(cfg, ccfg, n_clients=N)
     loss_fn = train.make_loss_fn(cfg, ccfg)
-    for strategy in STRATEGIES if mesh is not None else ("tp",):
-        sharding.set_hints(mesh=mesh, moe_ep=False,
-                           moe_dp=strategy in ("dp_only", "zero1"))
-        try:
-            st = put(case["state"], None if mesh is None
-                     else train.state_shardings(case["state"], cfg, mesh, N,
-                                                strategy=strategy))
-            b = put(case["batch"], None if mesh is None
-                    else train.batch_shardings(case["batch"], mesh, N,
-                                               strategy=strategy))
-            g, m0, _, _ = train.client_grads(
-                loss_fn, tree_map(lambda a: a[0], st.params),
-                {k: v[0] for k, v in b.items()},
-                prototypes.means(st.proto), case["neg"][0])
-            new, met = step(st, b, case["neg"])
-        finally:
-            sharding.set_hints(mesh=None)
-        out[strategy] = {
-            "grads": tree_map(sharding.full, g),
+    sharding.set_hints(mesh=mesh, moe_ep=moe_ep,
+                       moe_dp=strategy in ("dp_only", "zero1"))
+    try:
+        st = put(case["state"], None if mesh is None
+                 else train.state_shardings(case["state"], cfg, mesh, N,
+                                            strategy=strategy))
+        b = put(case["batch"], None if mesh is None
+                else train.batch_shardings(case["batch"], mesh, N,
+                                           strategy=strategy))
+        g, m0, _, _ = train.client_grads(
+            loss_fn, tree_map(lambda a: a[0], st.params),
+            {k: v[0] for k, v in b.items()},
+            prototypes.means(st.proto), case["neg"][0])
+        new, met = step(st, b, case["neg"])
+    finally:
+        sharding.set_hints(mesh=None, moe_ep=False)
+    return {"grads": tree_map(sharding.full, g),
             "client0": {k: float(sharding.full(v)) for k, v in m0.items()},
             "metrics": {k: float(sharding.full(v)) for k, v in met.items()},
             "state": tree_map(sharding.full, new)}
-    if case.get("pod") and mesh is not None:
-        out["pod"] = pod_step(cfg, case, ccfg)
+
+
+def moe_ep_case(cfg, case, mesh):
+    """Serving and one "tp" step under the "moe_ep" hint: the expert
+    leaves split on their expert dim over "model", checked on every rank
+    (E / model experts held, every `_experts` call on that split), and the
+    outputs gathered whole. -> the outputs, with "local_experts" (the
+    experts a rank holds of each `_e` leaf) and "placements" (the expert
+    weights' placements at each `_experts` call)."""
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    seen, before = [], moe._experts
+
+    def spy(buf, w_gate, w_up, w_down):
+        seen.append(tuple(str(p) for p in w_gate.placements))
+        return before(buf, w_gate, w_up, w_down)
+
+    out = {}
+    moe._experts = spy
+    sharding.set_hints(mesh=mesh, moe_ep=True, moe_dp=False)
+    try:
+        params = _put(case["params"], serve.params_shardings(
+            case["params"], cfg, mesh), mesh)
+        held = []
+        sharding.map_params(lambda path, t, n: held.append(
+            t.to_local().shape[0]) if path.endswith("_e") else None, params)
+        if not held or set(held) != {cfg.num_experts // tp}:
+            raise AssertionError(f"moe_ep: a rank holds {held} experts of "
+                                 f"its _e leaves, not {cfg.num_experts} / "
+                                 f"{tp}")
+        serve_case(cfg, case, mesh, params, out)
+        out["tp"] = train_case(cfg, case, mesh, "tp", moe_ep=True)
+    finally:
+        moe._experts = before
+        sharding.set_hints(mesh=None, moe_ep=False)
+    out["local_experts"] = held
+    out["placements"] = sorted(set(seen))
     return out
 
 

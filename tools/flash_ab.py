@@ -7,7 +7,8 @@ DIR holds another tree of this repository, for example the parent commit
 (`git archive <rev> | tar -x -C DIR`). The script builds DIR's
 `src/repro_torch/kernels/csrc/flash_attention.cu` with this tree's nvcc
 flags beside this tree's library, then calls both libraries' C entry point
-`flash_attention_bf16` on the same inputs:
+`flash_attention_bf16` on the same inputs, each by its own signature (a
+tree whose entry point takes a sliding window gets window 0, none):
 
   1. bit-equality: at phase 4's equal-dim bf16 shapes of `chip_smoke.py`
      (FLASH_SHAPES causal and full, FLASH_FAMILY_SHAPES causal,
@@ -32,6 +33,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -43,19 +45,37 @@ import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import build  # noqa: E402
 
 
+class Lib(NamedTuple):
+    """A loaded flash library and whether its bf16 entry point takes the
+    sliding window (an int after `causal`)."""
+    cdll: ctypes.CDLL
+    windowed: bool
+
+
+def takes_window(src: Path) -> bool:
+    """Whether a source's `flash_attention_bf16` has a `window` parameter."""
+    m = re.search(r'extern "C" int flash_attention_bf16\((.*?)\)',
+                  src.read_text(), re.S)
+    if m is None:
+        raise SystemExit(f"no flash_attention_bf16 entry point in {src}")
+    return "window" in m.group(1)
+
+
 def build_other(other: Path):
-    """DIR's flash_attention.cu compiled into build/kernels/ and loaded ->
-    (library, its path)."""
+    """DIR's flash_attention.cu compiled into build/kernels/ and loaded,
+    typed by its own signature -> (Lib, its path)."""
     src = other / "src/repro_torch/kernels/csrc/flash_attention.cu"
     out = build.BUILD_DIR / "libflash_attention.other.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
-    lib.flash_attention_bf16.argtypes = (
-        build.SIGNATURES["flash_attention"]["flash_attention_bf16"])
+    windowed = takes_window(src)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bf16.argtypes = [P] * 4 + [I] * (9 if windowed
+                                                         else 8) + [P]
     lib.flash_attention_bf16.restype = ctypes.c_int
-    return lib, out
+    return Lib(lib, windowed), out
 
 
 def sass_by_instance(so: Path):
@@ -81,14 +101,16 @@ def sass_by_instance(so: Path):
 
 
 def call(lib, q, k, v, causal):
-    """One launch of lib's bf16 entry point -> (B, Sq, H, hv) bf16."""
+    """One launch of a Lib's bf16 entry point, without a window -> (B, Sq,
+    H, hv) bf16."""
     B, Sq, H, hd = q.shape
     Sk, G, hv = k.shape[1], k.shape[2], v.shape[3]
     o = q.new_empty(B, Sq, H, hv)
-    rc = lib.flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  o.data_ptr(), B, Sq, Sk, H, G, hd, hv,
-                                  int(causal),
-                                  torch.cuda.current_stream().cuda_stream)
+    window = (0,) if lib.windowed else ()
+    rc = lib.cdll.flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk, H,
+        G, hd, hv, int(causal), *window,
+        torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention_bf16 returned {rc} at "
                            f"{tuple(q.shape)}, {tuple(v.shape)}")
@@ -120,7 +142,8 @@ def main():
     args = ap.parse_args()
     smi = cs.phase_device()
     cs.phase_precision()
-    this = build.lib("flash_attention")
+    this = Lib(build.lib("flash_attention"), takes_window(
+        build.CSRC / "flash_attention.cu"))
     other, other_so = build_other(args.other)
     gen = torch.Generator().manual_seed(0)
 
