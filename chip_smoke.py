@@ -6,10 +6,10 @@
 Phases (each failure raises, so the process exits non-zero):
   1. device: a CUDA device must be present; prints its name and power limit;
   2. build: compiles the hand-written kernels (`kernels/csrc/*.cu`) and
-     prints the registers, shared memory and spills of the ten bf16
-     (tensor-core) flash_attention kernels (hd 32, 64, 128 and MLA's
-     192/128 and 96/64, causal and full), each within a block's shared
-     memory;
+     prints the registers, shared memory and spills of the twenty
+     tensor-core flash_attention kernels, ten bf16 and ten float32 split
+     TF32 (hd 32, 64, 128 and MLA's 192/128 and 96/64, causal and full),
+     each within a block's shared memory, none spilling;
   3. precision: TF32 off for cuDNN convolutions and matmuls;
   4. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes and larger ones (flash_attention also at MLA's
@@ -20,7 +20,10 @@ Phases (each failure raises, so the process exits non-zero):
      float32, Sq != Sk for cross-attention; proto_accum also at phase
      13's Whisper shape, (2, 896, 768, 51865)), with times, the bound from
      bytes and operations, and a library call's time where one PyTorch call
-     computes the same function;
+     computes the same function; each float32 flash row also prints the
+     3xTF32 bound (3 x its operations at TF32's rate, the split kernel's
+     floor) and its key splits, more than one required at Whisper's cross
+     attention and decode;
   5. slice: 3 synchronous CoRS rounds of 5 LeNet clients (the example's data
      sizes) in the sequential engine on the card, with the kernels' launch
      counts asserted, then the same 3 rounds on the CPU: ring state and
@@ -110,9 +113,11 @@ Phases (each failure raises, so the process exits non-zero):
      6's vec count;
   6. profile: one more round of each engine under torch.profiler (device
      busy share, device ops, time by kernel), then one call at each of
-     phase 4's MLA rows under the profiler: bf16 at 192/128 and 96/64 must
-     launch the tensor-core kernel once, the rest the CUDA-core one (after
-     phase 5's timings, which a profiler session would slow); then 2 rounds
+     phase 4's MLA rows and float32 Whisper cross-attention rows under the
+     profiler: at 192/128 and 96/64 bf16 must launch the bf16 tensor-core
+     kernel once and float32 the split-TF32 one (also under a key split),
+     80/64 the CUDA-core one (after phase 5's timings, which a profiler
+     session would slow); then 2 rounds
      of each engine
      at N = 32 LeNet clients of 240 samples: the vec-over-seq ratio of
      s/round at N = 5 and N = 32;
@@ -252,11 +257,12 @@ Phases (each failure raises, so the process exits non-zero):
      once more under the expert-parallel hint ("moe_ep"): each rank holds
      2 of the 4 experts of every `_e` leaf, the same checks;
   17. sliding-window prefill through the windowed flash kernel: 17a both
-     kernels (bf16 on the tensor cores, float32 on the CUDA cores) against
-     the plain version at WINDOW_SHAPE (TinyLlama's heads, 4096 tokens)
-     with windows 1, 63, 64 and 1000, at MLA's split dims and one
-     non-causal window, by phase 4's limits; a window of S or more
-     bit-equal to none, a window of 1 returning v's rows; kernel, plain
+     tensor-core kernels (bf16, and float32 in split TF32) against the
+     plain version at WINDOW_SHAPE (TinyLlama's heads, 4096 tokens) with
+     windows 1, 63, 64 and 1000, at MLA's split dims and one non-causal
+     window, by phase 4's limits; a window of S or more bit-equal to none,
+     a window of 1 returning v's rows (bf16 bit for bit, float32 within
+     FLASH_F32_TOL: 22 bits of split TF32 cannot hold all 24); kernel, plain
      and SDPA-with-a-band-mask times at (1, 4096, 32, 4, 64) window 1000;
      17b TinyLlama-1.1B's windowed prefill (1 x 4096 tokens, window 1024)
      through the kernel against plain attention (`prefill_attention`),
@@ -499,6 +505,9 @@ FLASH_SHAPES = ((4, 1024, 32, 4, 64), (2, 128, 4, 2, 64), (1, 256, 8, 8, 128),
                 (4, 1024, 32, 4, 128))
 FLASH_F32_TOL = 2e-5
 BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7
+# the float32 flash kernel's floor: its split runs three TF32 products for
+# each float32 one (H100 SXM dense TF32, NVIDIA data sheet)
+TF32_FLOPS = 495e12
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 32
 CHECK_PROMPT = 256
 # float32 serving check: |kernel path - plain| <= CHECK_TOL * max(1, |plain|)
@@ -558,11 +567,11 @@ FLASH_MLA_SHAPES = ((4, 256, 256, 16, 16, 192, 128),
                     (1, 77, 130, 8, 8, 192, 128), (1, 77, 130, 8, 8, 96, 64),
                     (1, 300, 300, 16, 16, 192, 128),
                     (2, 100, 100, 4, 4, 80, 64))
-# (hd, hv) pairs that the tensor-core kernel takes in bf16 (ops.py)
+# (hd, hv) pairs that the tensor-core kernels take, bf16 and float32 (ops.py)
 FLASH_TC_MLA_DIMS = ((192, 128), (96, 64))
-# the bf16 kernel instances that ptxas may report spilling: none since the
-# window's range test (hd 64 causal spilled 12 bytes stored and 36 loaded
-# before); phase 2 fails on any
+# the tensor-core flash instances that ptxas may report spilling: none
+# since the window's range test (bf16 hd 64 causal spilled 12 bytes stored
+# and 36 loaded before); phase 2 fails on any
 FLASH_KNOWN_SPILLS = set()
 # ... and at the other families' equal head dims (B, S, H, G, hd), bf16 and
 # causal as phase 11 serves them, on the tensor-core kernel: Qwen2-VL,
@@ -656,30 +665,39 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line:
                 print(f"[build] {name}: {line.strip()}")
-    res = flash_resources(build.BUILD_LOG["flash_attention"],
-                          build.lib("flash_attention"))
-    for tag, r in res.items():
-        print(f"[build] flash_attention_bf16_kernel {tag}: {r['registers']} "
-              f"registers a thread at entry (setmaxnreg moves them between "
-              f"producer and consumers), {r['smem_bytes']} bytes of dynamic shared "
-              f"memory, {r['spill_stores']} / {r['spill_loads']} bytes of spill"
-              f" stores / loads")
+    lib = build.lib("flash_attention")
+    res = {}
+    for dtype, symbol, smem in (
+            ("bf16", "flash_attention_bf16_kernel",
+             lib.flash_attention_bf16_smem),
+            ("float32", "flash_attention_tf32x3_kernel",
+             lib.flash_attention_f32_smem)):
+        res[dtype] = flash_resources(build.BUILD_LOG["flash_attention"],
+                                     symbol, smem)
+        for tag, r in res[dtype].items():
+            print(f"[build] {symbol} {tag}: {r['registers']} registers a "
+                  f"thread at entry (setmaxnreg moves them between producer "
+                  f"and consumers where a block has two consumer "
+                  f"warpgroups), {r['smem_bytes']} bytes of dynamic shared "
+                  f"memory, {r['spill_stores']} / {r['spill_loads']} bytes of "
+                  f"spill stores / loads")
     return res
 
 
-def flash_resources(log, lib):
-    """ptxas -v's registers and spills of each bf16 flash kernel, and its
-    dynamic shared memory -> {"hd64 causal": {...}, "hd192/128 full": ...}:
-    the three equal head dims and MLA's two pairs, causal and full."""
+def flash_resources(log, symbol, smem):
+    """ptxas -v's registers and spills of each instance of a tensor-core
+    flash kernel (`symbol`), and its dynamic shared memory (`smem(hd, hv)`)
+    -> {"hd64 causal": {...}, "hd192/128 full": ...}: the three equal head
+    dims and MLA's two pairs, causal and full."""
     res, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*flash_attention_bf16_kernel"
+        m = re.search(rf"Function properties for \S*{symbol}"
                       r"ILi(\d+)ELi(\d+)ELb(\d)", line)
         if m:
             hd, hv = int(m.group(1)), int(m.group(2))
             dims = f"{hd}" if hd == hv else f"{hd}/{hv}"
             cur = f"hd{dims} {'causal' if m.group(3) == '1' else 'full'}"
-            res[cur] = {"smem_bytes": lib.flash_attention_bf16_smem(hd, hv)}
+            res[cur] = {"smem_bytes": smem(hd, hv)}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -691,15 +709,16 @@ def flash_resources(log, lib):
             res[cur]["registers"] = int(m.group(1))
             cur = None
     if len(res) != 10 or any(len(r) != 4 for r in res.values()):
-        raise AssertionError(f"ptxas -v did not report the ten bf16 flash "
-                             f"kernels: {res}")
-    if any(r["smem_bytes"] > SMEM_PER_BLOCK for r in res.values()):
-        raise AssertionError(f"a bf16 flash kernel needs more shared memory "
+        raise AssertionError(f"ptxas -v did not report the ten {symbol} "
+                             f"instances: {res}")
+    if any(not 0 < r["smem_bytes"] <= SMEM_PER_BLOCK for r in res.values()):
+        raise AssertionError(f"a {symbol} instance needs more shared memory "
                              f"than a block may use: {res}")
     spilled = {t for t, r in res.items() if r["spill_stores"] or r["spill_loads"]}
     if spilled - FLASH_KNOWN_SPILLS:
-        raise AssertionError(f"bf16 flash kernels that spill: {sorted(spilled)}"
-                             f" (known: {sorted(FLASH_KNOWN_SPILLS)})")
+        raise AssertionError(f"{symbol} instances that spill: "
+                             f"{sorted(spilled)} (known: "
+                             f"{sorted(FLASH_KNOWN_SPILLS)})")
     return res
 
 
@@ -1009,10 +1028,20 @@ def flash_kernel_names(fn, windows=3):
     return names
 
 
+def flash_symbol(dtype, hd, hv):
+    """The device kernel that takes a flash call (ops.KERNEL_SYMBOLS): at
+    (80, 64) the CUDA-core kernel, elsewhere the tensor-core kernel of its
+    dtype."""
+    if (hd, hv) == (80, 64):
+        return "flash_attention_kernel"
+    return ("flash_attention_bf16_kernel" if dtype == torch.bfloat16
+            else "flash_attention_tf32x3_kernel")
+
+
 def phase_flash_symbols(dev, rows):
-    """The device kernel of each of phase 4's MLA rows (`rows`, its flash
-    results), by the profiler's names: bf16 at FLASH_TC_MLA_DIMS the
-    tensor-core kernel, the rest the CUDA-core one, once a call. Run after
+    """The device kernel of each of phase 4's MLA rows and float32 Whisper
+    cross-attention rows (`rows`, its flash results), by the profiler's
+    names (`flash_symbol`), once a call, a key split included. Run after
     phase 6: a profiler session leaves the process's later launches slower
     (phase 4's small flash and SDPA calls read up to twice their times once
     one had run), which would skew phases 4 and 5. Each row gains its
@@ -1020,14 +1049,18 @@ def phase_flash_symbols(dev, rows):
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(0)
     for r in rows:
-        if len(r["shape"]) != 9:              # (B, Sq, Sk, H, G, hd, hv, ...)
+        if len(r["shape"]) == 9:              # (B, Sq, Sk, H, G, hd, hv, ...)
+            B, Sq, Sk, H, G, hd, hv, dtype, mode = r["shape"]
+        elif (len(r["shape"]) == 8 and r["shape"][6] == "float32"
+              and r["shape"][1] != r["shape"][2]):   # Whisper's cross attention
+            B, Sq, Sk, H, G, hd, dtype, mode = r["shape"]
+            hv = hd
+        else:
             continue
-        B, Sq, Sk, H, G, hd, hv, dtype, mode = r["shape"]
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(*s, generator=gen).to(dt).to(dev)
                    for s in ((B, Sq, H, hd), (B, Sk, G, hd), (B, Sk, G, hv)))
-        tc = dt == torch.bfloat16 and (hd, hv) in FLASH_TC_MLA_DIMS
-        want = "flash_attention_bf16_kernel" if tc else "flash_attention_kernel"
+        want = flash_symbol(dt, hd, hv)
         names = flash_kernel_names(
             lambda: ops.flash_attention(q, k, v, causal=mode == "causal"))
         if (len(names) != 1 or names[0][1] != 1
@@ -1036,7 +1069,8 @@ def phase_flash_symbols(dev, rows):
                                  f"{names}, not one {want}")
         r["symbol"] = names[0][0]
         print(f"[flash symbols] ({B}, {Sq}x{Sk}, {H}, {G}, {hd}/{hv}) {dtype} "
-              f"{mode}: ran {names[0][0]}")
+              f"{mode}: ran {names[0][0]}"
+              + (f" (key splits {r['splits']})" if r.get("splits") else ""))
 
 
 def check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv=None, Sk=None):
@@ -1074,17 +1108,27 @@ def check_flash(B, S, H, G, hd, dtype, causal, dev, gen, hv=None, Sk=None):
     # q, k and v read once, the output written once; 2 B H S Sk (hd + hv)
     # operations (two products), half of them unmasked when causal (S = Sk)
     flops = 2 * B * H * S * Sk * (hd + hv) / (2 if causal else 1)
+    nbytes = (B * S * H + B * Sk * G) * (hd + hv) * q.element_size()
     r["bound_ms"], r["bound_by"] = bound_ms(
-        (B * S * H + B * Sk * G) * (hd + hv) * q.element_size(), flops,
-        BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
     r["share_of_bound"] = r["bound_ms"] / r["ms"]
     lim = ("1e-4 + 2^-7 |plain|" if dtype == torch.bfloat16
            else f"{FLASH_F32_TOL} x max(1, |plain|)")
+    extra = ""
+    if dtype == torch.float32:
+        # the split-TF32 kernel's floor: three TF32 products for each
+        r["bound_3xtf32_ms"], r["bound_3xtf32_by"] = bound_ms(
+            nbytes, 3 * flops, TF32_FLOPS)
+        r["splits"] = ops.flash_f32_splits(B, S, Sk, H, hd, hv, causal)
+        extra = (f"; 3xTF32 bound_ms {r['bound_3xtf32_ms']:.6f} "
+                 f"({r['bound_3xtf32_by']}), "
+                 f"{r['bound_3xtf32_ms'] / r['ms']:.3f} of it; key splits "
+                 f"{r['splits']}")
     print(f"[kernels] {tag}: max_abs_err {err:.3e}, {excess:.3f} x the limit "
           f"({lim}) kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
           f"library_ms {r['library_ms']:.4f} (scaled_dot_product_attention) "
           f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']}), "
-          f"{r['share_of_bound']:.3f} of the bound")
+          f"{r['share_of_bound']:.3f} of the bound{extra}")
     return r
 
 
@@ -1162,6 +1206,12 @@ def phase_kernels(dev):
             res["flash_attention"].append(dict(
                 r, shape=[B, Sq, Sk, H, G, hd, str(dtype).split(".")[-1],
                           "causal" if causal else "full"]))
+            # cross attention and decode leave 48 query tiles for 132 SMs:
+            # the float32 kernel splits their keys
+            if dtype == torch.float32 and Sk > Sq and not r["splits"] > 1:
+                raise AssertionError(f"flash_attention float32 ({B}, {Sq}x"
+                                     f"{Sk}, {H}, {G}, {hd}): {r['splits']} "
+                                     f"key split, not more")
     # Whisper's upload stats in phase 13: 51865 classes leave a partial
     # last class block
     r = check_proto_batched(*WHISPER_PROTO_SHAPE, torch.float32, dev, gen)
@@ -5041,16 +5091,21 @@ def phase_window_kernels(dev):
                     raise AssertionError(f"window {W} >= S {S} is not "
                                          f"bit-equal to no window ({dtype}, "
                                          f"causal {causal})")
-        if not torch.equal(ops.flash_attention(q, k, v, window=1),
-                           v.repeat_interleave(rep, 2)):
+        # each row sees its own key alone, p = 1: bf16 returns v's rows bit
+        # for bit; float32's split TF32 holds 22 of v's 24 bits, within
+        # FLASH_F32_TOL (flash_attention.cu)
+        one = ops.flash_attention(q, k, v, window=1)
+        v_rows = v.repeat_interleave(rep, 2)
+        if not (torch.equal(one, v_rows) if dtype == torch.bfloat16
+                else flash_excess(one, v_rows) <= 1):
             raise AssertionError(f"window 1 does not return v's rows ({dtype})")
     worst = max(rows, key=lambda r: r["limit_used"])
     print(f"[window] 17a: {len(rows)} windowed shapes against plain, worst "
           f"{worst['limit_used']:.3f} x the limit ({worst['dtype']} "
           f"{worst['shape']} window {worst['window']}, max_abs_err "
-          f"{worst['max_abs_err']:.3e}); window >= S bit-equal to none and "
-          f"window 1 = v in bf16 and float32 ({time.perf_counter() - t0:.1f}"
-          f" s)")
+          f"{worst['max_abs_err']:.3e}); window >= S bit-equal to none in "
+          f"bf16 and float32, window 1 = v (bf16 bit for bit, float32 "
+          f"within the limit) ({time.perf_counter() - t0:.1f} s)")
     W = WINDOW_FULL
     q, k, v = window_inputs(WINDOW_SHAPE, torch.bfloat16, dev, gen)
     band = sdpa_band(q, k, v, W)
@@ -5466,7 +5521,8 @@ def main():
             k["controls_times_limit"] = {
                 where: {n: c[0] for n, c in cs.items()}
                 for where, cs in controls.items()}
-            k["bf16_kernel_resources"] = resources
+            k["bf16_kernel_resources"] = resources["bf16"]
+            k["f32_kernel_resources"] = resources["float32"]
             k["serve_check_f32"] = {"kernel_vs_plain": e_k,
                                     "decode_vs_prefill": e_d,
                                     "bf16_attention_control": e_c}

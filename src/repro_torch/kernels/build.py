@@ -27,8 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry point; each returns a cudaError_t as int, but for
 # the queries (`*_tiles`, `*_counters`, `proto_accum_plan`, `*_workspace`,
-# `flash_attention_bf16_smem`). Labels are int32 or int64 (the int after the
-# labels pointer says which); valid is a bool pointer, or null for all valid.
+# `*_splits`, `flash_attention_*_smem`). Labels are int32 or int64 (the int
+# after the labels pointer says which); valid is a bool pointer, or null for
+# all valid.
 # The launches take the number of clients N before the per-client shape.
 SIGNATURES = {
     "disc_loss": {
@@ -47,7 +48,11 @@ SIGNATURES = {
         "proto_accum_counters": [_I] * 3,
     },
     "flash_attention": {
-        "flash_attention_f32": [_P] * 4 + [_I] * 9 + [_P],
+        "flash_attention_f32": [_P] * 6 + [_I] * 9 + [_P],
+        "flash_attention_f32_splits": [_I] * 8,
+        "flash_attention_f32_workspace": [_I] * 8,
+        "flash_attention_f32_counters": [_I] * 8,
+        "flash_attention_f32_smem": [_I] * 2,
         "flash_attention_bf16": [_P] * 4 + [_I] * 9 + [_P],
         "flash_attention_bf16_smem": [_I] * 2,
     },

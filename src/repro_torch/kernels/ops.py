@@ -37,14 +37,15 @@ KERNEL_SYMBOLS: Dict[str, tuple] = {
     "disc_loss_fwd": ("disc_fwd", "disc_fwd_small"),
     "disc_loss_bwd": ("disc_bwd",),
     "proto_accum": ("proto_accum_kernel",),
-    "flash_attention": ("flash_attention_bf16_kernel",      # tensor cores
-                        "flash_attention_kernel"),          # CUDA cores
+    "flash_attention": ("flash_attention_bf16_kernel",      # bf16 tensor cores
+                        "flash_attention_tf32x3_kernel",    # float32, split TF32
+                        "flash_attention_kernel"),          # CUDA cores, (80, 64)
 }
 FLASH_HEAD_DIMS = (32, 64, 128)
 # (query/key dim, value dim) pairs of MLA's prefill (qk_nope + qk_rope,
-# v_head_dim): DeepSeek-V2-Lite, MiniCPM3 and the reduced configs. bf16 at
-# the first two takes the tensor-core kernel, at (80, 64) the CUDA-core one;
-# float32 takes the CUDA-core kernel at every pair.
+# v_head_dim): DeepSeek-V2-Lite, MiniCPM3 and the reduced configs. Both
+# dtypes at the first two take a tensor-core kernel (as at FLASH_HEAD_DIMS),
+# at the reduced configs' (80, 64) the CUDA-core one.
 FLASH_MLA_DIMS = ((192, 128), (96, 64), (80, 64))
 FLASH_DIMS = tuple((d, d) for d in FLASH_HEAD_DIMS) + FLASH_MLA_DIMS
 
@@ -425,10 +426,14 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     see `ref.flash_attention`. `window` W > 0 masks keys with q_pos - k_pos
     >= W as well (sliding-window prefill; 0: no window); every row must
     keep a key, so Sq < Sk + W. The kernels skip the key tiles left of a
-    block's window. bf16 at equal dims and at MLA's (192, 128)
-    and (96, 64) runs on the tensor cores (`flash_attention_bf16_kernel`);
-    float32 at every pair, and bf16 at the reduced configs' (80, 64), on the
-    CUDA cores (`flash_attention_kernel`).
+    block's window. At equal dims and at MLA's (192, 128) and (96, 64),
+    bf16 runs on the tensor cores (`flash_attention_bf16_kernel`) and
+    float32 on them too, each product split into three TF32 products for
+    float32 accuracy (`flash_attention_tf32x3_kernel`; where the query tiles
+    leave SMs idle, as in Whisper's cross attention and decode, it splits
+    the keys over several blocks, `flash_f32_splits`, and its last block
+    combines them in a fixed order); both dtypes at the reduced configs'
+    (80, 64) run on the CUDA cores (`flash_attention_kernel`).
 
     DTensor q, k, v run through `local_map`, one launch a rank on its own
     batch rows and heads. Declared placements, alike for q, k and v on
@@ -480,12 +485,44 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = q.new_empty(B, Sq, H, hv)
     if B and Sq:
-        _check(getattr(L, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, Sq, Sk, H, G, hd, hv,
-                              int(bool(causal)), window, _stream()),
-               "flash_attention")
+        causal = int(bool(causal))
+        stream = _stream()
+        if fn == "flash_attention_f32":
+            n_ws, n_cnt = _flash_f32_plan(B, Sq, Sk, H, hd, hv, causal, window)
+            ws = cnt = None
+            if n_ws:           # a key split: the splits' partials, combined in order
+                ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+                cnt = _counters(q.device, stream, n_cnt)
+            err = L.flash_attention_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _ptr(ws), _ptr(cnt), B, Sq, Sk, H, G, hd, hv, causal, window,
+                stream)
+        else:
+            err = L.flash_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                Sq, Sk, H, G, hd, hv, causal, window, stream)
+        _check(err, "flash_attention")
         LAUNCHES["flash_attention"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _flash_f32_plan(B, Sq, Sk, H, hd, hv, causal, window):
+    """-> (workspace floats, counters) of a float32 launch; 0 without a key
+    split. The split is the kernel's own choice, from the shape and the
+    card's SM count (`flash_attention_f32_splits`)."""
+    L = build.lib("flash_attention")
+    args = (B, Sq, Sk, H, hd, hv, causal, window)
+    return (L.flash_attention_f32_workspace(*args),
+            L.flash_attention_f32_counters(*args))
+
+
+def flash_f32_splits(B, Sq, Sk, H, hd, hv, causal: bool = True,
+                     window: int = 0) -> int:
+    """The key splits of the float32 kernel at a launch's shape on the
+    current card (1: none), as the kernel chooses them."""
+    return build.lib("flash_attention").flash_attention_f32_splits(
+        B, Sq, Sk, H, hd, hv, int(bool(causal)), int(window))
 
 
 def _flash_dtensor(q, k, v, causal: bool, window: int):

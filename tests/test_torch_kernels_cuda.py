@@ -580,8 +580,9 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, G, hd,
 
 
 def test_flash_attention_launches_one_kernel_by_dtype(cuda):
-    """At the serving shape a bf16 call launches the tensor-core kernel once
-    and a float32 call the CUDA-core kernel once, by the profiler's names.
+    """At the serving shape a bf16 call launches the bf16 tensor-core kernel
+    once and a float32 call the split-TF32 tensor-core kernel once, by the
+    profiler's names.
     Each window opens with a fill kernel (`_device_kernels`): a window of
     the lone flash call once recorded no flash kernel."""
     B, Sq, Sk, H, G, hd = SERVE_SHAPE
@@ -597,10 +598,41 @@ def test_flash_attention_launches_one_kernel_by_dtype(cuda):
             lambda: ops.flash_attention(q, k, k, causal=True))
             if "flash_attention" in n]
     tensor_core = re.compile(r"\bflash_attention_bf16_kernel\b")
-    cuda_core = re.compile(r"\bflash_attention_kernel\b")
+    split_tf32 = re.compile(r"\bflash_attention_tf32x3_kernel\b")
     bf, f32 = names[torch.bfloat16], names[torch.float32]
     assert len(bf) == 1 and bf[0][1] == 1 and tensor_core.search(bf[0][0]), bf
-    assert len(f32) == 1 and f32[0][1] == 1 and cuda_core.search(f32[0][0]), f32
+    assert len(f32) == 1 and f32[0][1] == 1 and split_tf32.search(f32[0][0]), f32
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,hd,hv", [
+    (4, 32, 1500, 12, 12, 64, 64), (4, 1, 1500, 12, 12, 64, 64),
+    (1, 256, 256, 8, 8, 128, 128), (3, 1, 777, 4, 2, 128, 128),
+    (2, 5, 2000, 4, 4, 192, 128), (1, 70, 3000, 2, 2, 96, 64)])
+def test_flash_attention_f32_key_split(cuda, B, Sq, Sk, H, G, hd, hv):
+    """Where the query tiles leave SMs idle (Whisper's cross attention and
+    decode among them) the float32 kernel splits the keys over several
+    blocks: within the float32 limit of the plain version, two runs
+    bit-equal (the combine's order is fixed), one kernel a call by the
+    profiler's names, and the counters left at zero for the next call."""
+    g = torch.Generator().manual_seed(Sq + Sk)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(cuda)
+    k = torch.randn(B, Sk, G, hd, generator=g).to(cuda)
+    v = torch.randn(B, Sk, G, hv, generator=g).to(cuda)
+    causal = Sq == Sk
+    assert ops.flash_f32_splits(B, Sq, Sk, H, hd, hv, causal) > 1
+    out = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    limit = 2e-5 * max(1.0, float(want.abs().max()))
+    assert float((out - want).abs().max()) <= limit
+    assert torch.equal(out, again)
+    names = [(n, c) for n, c in _device_kernels(
+        lambda: ops.flash_attention(q, k, v, causal=causal))
+        if "flash_attention" in n]
+    assert len(names) == 1 and names[0][1] == 1, names
+    assert re.search(r"\bflash_attention_tf32x3_kernel\b", names[0][0])
+    torch.cuda.synchronize()
+    assert not ops._COUNTERS[(cuda.index or 0, ops._stream())].any()
 
 
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
@@ -672,7 +704,9 @@ def test_flash_attention_window_matches_plain(cuda, B, S, H, G, hd, hv,
 @pytest.mark.parametrize("hd,hv", [(64, 64), (192, 128), (80, 64)])
 def test_flash_attention_window_edges(cuda, dtype, hd, hv):
     """A window of S or more is bit-equal to none, causal or not; a causal
-    window of 1 returns v's rows exactly (each row sees its own key)."""
+    window of 1 returns v's rows (each row sees its own key): exactly in
+    bf16 and on the CUDA cores, within the float32 limit on the split-TF32
+    kernel, whose two TF32 halves hold 22 of a float32's 24 bits."""
     g = torch.Generator().manual_seed(hd)
     S, H, G = 300, 4, 2
     q = torch.randn(1, S, H, hd, generator=g).to(dtype).to(cuda)
@@ -683,8 +717,13 @@ def test_flash_attention_window_edges(cuda, dtype, hd, hv):
         for w in (S, S + 1, 10 ** 6):
             assert torch.equal(ops.flash_attention(q, k, v, causal=causal,
                                                    window=w), none), w
-    assert torch.equal(ops.flash_attention(q, k, v, window=1),
-                       v.repeat_interleave(H // G, 2))
+    one = ops.flash_attention(q, k, v, window=1)
+    want = v.repeat_interleave(H // G, 2)
+    if dtype == torch.float32 and (hd, hv) != (80, 64):
+        limit = 2e-5 * max(1.0, float(want.abs().max()))
+        assert float((one - want).abs().max()) <= limit
+    else:
+        assert torch.equal(one, want)
 
 
 @pytest.mark.parametrize("N,n,d,C", [(2, 4096, 2048, 32000),
@@ -822,15 +861,15 @@ def test_flash_attention_at_mla_dims_matches_plain(cuda, B, Sq, Sk, H, G, hd,
     (192, 128, torch.bfloat16, "flash_attention_bf16_kernel"),
     (96, 64, torch.bfloat16, "flash_attention_bf16_kernel"),
     (80, 64, torch.bfloat16, "flash_attention_kernel"),
-    (192, 128, torch.float32, "flash_attention_kernel"),
-    (96, 64, torch.float32, "flash_attention_kernel"),
+    (192, 128, torch.float32, "flash_attention_tf32x3_kernel"),
+    (96, 64, torch.float32, "flash_attention_tf32x3_kernel"),
     (80, 64, torch.float32, "flash_attention_kernel")])
 def test_flash_attention_at_mla_dims_launches_the_cuda_core_kernel(
         cuda, hd, hv, dtype, symbol):
     """Which kernel each MLA pair takes, once a call, by the profiler's
-    names: bf16 at the published (192, 128) and (96, 64) the tensor-core
-    kernel, bf16 at the reduced configs' (80, 64) and float32 at every pair
-    the CUDA-core kernel."""
+    names: at the published (192, 128) and (96, 64) the tensor-core kernel
+    of the dtype (bf16, or float32 in split TF32), both dtypes at the
+    reduced configs' (80, 64) the CUDA-core kernel."""
     g = torch.Generator().manual_seed(1)
     q = torch.randn(4, 256, 16, hd, generator=g).to(dtype).to(cuda)
     v = torch.randn(4, 256, 16, hv, generator=g).to(dtype).to(cuda)
@@ -855,21 +894,34 @@ def test_flash_attention_library_refuses_a_pair_it_has_no_kernel_for(cuda):
     for fn, t in (("flash_attention_bf16", torch.bfloat16),
                   ("flash_attention_f32", torch.float32)):
         qt, vt, ot = q.to(t), v.to(t), o.to(t)
+        # the float32 entry takes a workspace and counters (none here)
+        scratch = (None, None) if t == torch.float32 else ()
         for hd, hv in ((160, 128), (96, 96), (64, 32)):
             rc = getattr(L, fn)(qt.data_ptr(), qt.data_ptr(), vt.data_ptr(),
-                                ot.data_ptr(), 1, 8, 8, 2, 2, hd, hv, 1, 0,
-                                stream)
+                                ot.data_ptr(), *scratch, 1, 8, 8, 2, 2, hd,
+                                hv, 1, 0, stream)
             assert rc != 0, (fn, hd, hv)
         # a negative window, and one that leaves a row no key (Sq >= Sk + W)
         vq = vt[..., :64].contiguous()
         for Sq, Sk, w in ((8, 8, -1), (8, 4, 4)):
             rc = getattr(L, fn)(vq.data_ptr(), vq.data_ptr(), vq.data_ptr(),
-                                ot.data_ptr(), 1, Sq, Sk, 2, 2, 64, 64, 0, w,
-                                stream)
+                                ot.data_ptr(), *scratch, 1, Sq, Sk, 2, 2, 64,
+                                64, 0, w, stream)
             assert rc != 0, (fn, Sq, Sk, w)
     assert L.flash_attention_bf16_smem(80, 64) == -1
     assert L.flash_attention_bf16_smem(192, 128) > L.flash_attention_bf16_smem(
         128, 128)
+    assert L.flash_attention_f32_smem(80, 64) == -1
+    assert 0 < L.flash_attention_f32_smem(192, 128) <= 232448
+    assert L.flash_attention_f32_splits(1, 8, 8, 2, 160, 128, 1, 0) == -1
+    # a launch whose plan splits its keys refuses a missing workspace
+    qs = torch.zeros(4, 1, 12, 64, device=cuda)
+    ks = torch.zeros(4, 1500, 12, 64, device=cuda)
+    assert L.flash_attention_f32_splits(4, 1, 1500, 12, 64, 64, 0, 0) > 1
+    rc = L.flash_attention_f32(qs.data_ptr(), ks.data_ptr(), ks.data_ptr(),
+                               qs.data_ptr(), None, None, 4, 1, 1500, 12, 12,
+                               64, 64, 0, 0, stream)
+    assert rc != 0
     torch.cuda.synchronize()
 
 
