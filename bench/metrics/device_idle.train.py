@@ -1,0 +1,7 @@
+"""device_idle.train: the share of the traced steps in which no operation
+ran on the card (the profiler's device timeline)."""
+from benchlib.readers import idle_percent
+
+
+def read(run):
+    return idle_percent(run)
